@@ -1,0 +1,33 @@
+"""shallow_wavenet_tpu_torch — the PyTorch/CUDA port of shallow_wavenet_tpu.
+
+The JAX package beside it is the reference; this package imports nothing of
+it (and never `jax` or `flax`). Module layout and names follow the JAX
+package so each function's counterpart is easy to find:
+
+  config.py  — copy of the dataclass config tree and presets
+  ops/       — mu-law codec; the AR-generation kernel wrapper and its build
+  csrc/      — hand-written CUDA C++ kernels (compiled with nvcc at first use)
+  models/    — torch WaveNet, output heads, AR generation
+  data/      — file lists, decode batching, wav and HDF5 I/O
+  bin/       — the copy-synthesis decode CLI
+
+Entry points take `device=None`, meaning "cuda", and raise when CUDA is
+absent; pass `device="cpu"` to run the plain PyTorch versions on the host.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means "cuda". Raise when CUDA is asked for and absent: there
+    is no silent CPU path."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch path on the host")
+    return dev

@@ -1,0 +1,156 @@
+"""Decoding CLI — batched copy-synthesis with the AR kernel; the torch twin
+of `shallow_wavenet_tpu/bin/decode.py`.
+
+Reads normalized features (--feats-dir, --stats), loads the weights from a
+flat .npz of the flax parameter tree (--params; see
+models.wavenet.save_params_npz), upsamples the conditioning, generates each
+padded batch with the CUDA AR kernel in one launch, trims every utterance to
+n_frames * hop and writes wavs plus decode_summary.json (audio-seconds/s and
+RTF). There is no backend ladder: the card has one kernel, and a failure
+raises.
+
+    python -m shallow_wavenet_tpu_torch.bin.decode --preset shallow_laplace_single \
+        --eval-scp eval.scp --feats-dir feats --stats stats.h5 \
+        --params params.npz --outdir out
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import time
+from pathlib import Path
+
+import torch
+
+from shallow_wavenet_tpu_torch import resolve_device
+from shallow_wavenet_tpu_torch.bin.common import (
+    add_config_args, load_utterances, resolve_config, setup_logging,
+)
+from shallow_wavenet_tpu_torch.config import Config
+from shallow_wavenet_tpu_torch.data.audio_io import write_wav
+from shallow_wavenet_tpu_torch.data.dataset import (
+    pad_batch_for_decode, read_file_list,
+)
+from shallow_wavenet_tpu_torch.models.generate import generate_segmented
+from shallow_wavenet_tpu_torch.models.wavenet import (
+    WaveNet, extract_plain_params, load_params_npz, params_from_flax,
+)
+from shallow_wavenet_tpu_torch.ops import ar_kernel
+
+log = logging.getLogger("decode")
+
+
+@torch.no_grad()
+def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
+                 generator=None, segment_samples: int = 0, device=None):
+    """Generate one padded batch; returns the list of trimmed waveforms.
+
+    noise: (B, T) uniforms for the padded batch, or None to draw them from
+    `generator` in [1e-7, 1 - 1e-7]. The conditioning is upsampled with no
+    shift (the generator's step t uses c_up[t]). segment_samples > 0
+    decodes in bounded kernel calls with teacher-forced warm-starts (same
+    samples).
+    """
+    dev = resolve_device(device)
+    if segment_samples > 0:
+        m = ar_kernel.warmup_length(cfg.model, 64)
+        if segment_samples % 64 != 0 or segment_samples <= m:
+            raise ValueError(
+                f"--segment-samples must be a multiple of 64 and exceed the "
+                f"warm-start length {m} for this model")
+    cond, _, n_samples = pad_batch_for_decode(utts, cfg.data.hop_length)
+    spk = (torch.tensor([u.speaker for u in utts], device=dev)
+           if cfg.model.n_speakers > 0 else None)
+    model = model.to(dev)
+    c_up = model.upsample_cond(torch.from_numpy(cond).to(dev), spk)
+    pp = extract_plain_params(model)
+    if noise is None:
+        if generator is None:
+            raise ValueError("decode_batch needs noise or a generator")
+        noise = ar_kernel.uniform_noise(c_up.shape[:2], generator)
+    noise = torch.as_tensor(noise).to(dev)
+    if segment_samples > 0:
+        wav = generate_segmented(pp, cfg.model, c_up, noise,
+                                 segment_samples, device=dev)
+    else:
+        wav = ar_kernel.generate(pp, cfg.model, c_up, noise=noise,
+                                 device=dev)
+    wav = wav.cpu().numpy()
+    return [wav[i, : n_samples[i]] for i in range(len(utts))]
+
+
+def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
+                      generator, batch_size: int = 8,
+                      segment_samples: int = 0, device=None) -> dict:
+    """Decode `utts` in batches, write `<outdir>/<name>` wavs and
+    `decode_summary.json`; returns the summary."""
+    outdir = Path(outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    sr = cfg.data.sample_rate
+    total_audio_s, total_wall = 0.0, 0.0
+    for i in range(0, len(utts), batch_size):
+        t0 = time.perf_counter()
+        wavs = decode_batch(model, cfg, utts[i: i + batch_size],
+                            generator=generator,
+                            segment_samples=segment_samples, device=device)
+        wall = time.perf_counter() - t0
+        audio_s = sum(len(w) for w in wavs) / sr
+        total_audio_s += audio_s
+        total_wall += wall
+        for name, w in zip(names[i: i + batch_size], wavs):
+            write_wav(outdir / Path(name).name, w, sr)
+        log.info("batch %d: %.2f audio-s in %.2f s (RTF %.3f)",
+                 i // batch_size, audio_s, wall, wall / max(audio_s, 1e-9))
+    summary = {
+        # the .npz carries no training step
+        "utterances": len(utts), "model_step": None,
+        "audio_seconds": total_audio_s, "wall_seconds": total_wall,
+        "rtf": total_wall / max(total_audio_s, 1e-9),
+        "audio_seconds_per_s": total_audio_s / max(total_wall, 1e-9),
+    }
+    (outdir / "decode_summary.json").write_text(json.dumps(summary, indent=2))
+    log.info("decode: %s", summary)
+    return summary
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--eval-scp", required=True)
+    p.add_argument("--feats-dir", required=True)
+    p.add_argument("--stats", default=None)
+    p.add_argument("--params", required=True,
+                   help=".npz of the flax parameter tree (save_params_npz)")
+    p.add_argument("--outdir", required=True)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--segment-samples", type=int, default=0,
+                   help="decode in bounded segments of this many samples "
+                        "(multiple of 64, greater than the model's "
+                        "warm-start length: sum(dilations)+1 rounded up to "
+                        "64); the samples do not change")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "PyTorch generator)")
+    add_config_args(p)
+    args = p.parse_args(argv)
+    setup_logging()
+    cfg = resolve_config(args)
+    dev = resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    utts = load_utterances(args.eval_scp, args.feats_dir, args.stats)
+    names = read_file_list(args.eval_scp)
+    model = params_from_flax(WaveNet(cfg.model),
+                             load_params_npz(args.params)).to(dev)
+    generator = torch.Generator(device=dev).manual_seed(args.seed)
+    decode_utterances(model, cfg, utts, names, args.outdir, generator,
+                      batch_size=args.batch_size,
+                      segment_samples=args.segment_samples, device=dev)
+
+
+if __name__ == "__main__":
+    main()

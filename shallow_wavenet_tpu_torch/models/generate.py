@@ -1,0 +1,70 @@
+"""Autoregressive generation — the torch twin of
+`shallow_wavenet_tpu/models/generate.py`.
+
+- `generate_fast`: the eager queue-cached reference (fast-WaveNet ring
+  buffers, O(layers) small matmuls per sample) with an explicit noise
+  stream. It is the plain version of the AR kernel (`ops.ar_kernel`), run
+  on any device.
+- `generate_segmented`: long utterances in fixed-size kernel calls, each
+  segment warm-started by teacher forcing the previous segment's samples.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from shallow_wavenet_tpu_torch.config import ModelConfig
+from shallow_wavenet_tpu_torch.ops import ar_kernel
+from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_quantize
+
+
+def seed_feedback(cfg: ModelConfig):
+    """Initial x_prev for t=0 (silence): a class id or a sample."""
+    if cfg.head == "softmax":
+        return mulaw_quantize(torch.tensor(0.0), cfg.quantize_channels)
+    return torch.tensor(0.0)
+
+
+def generate_fast(pp: dict, cfg: ModelConfig, c_up, noise=None,
+                  mode: str = "sample", generator=None, device=None):
+    """Queue-cached AR generation in eager PyTorch; (B, T) fp32.
+
+    pp: plain params (extract_plain_params); c_up (B, T, C); noise (B, T)
+    uniforms in (0, 1), or drawn from `generator`. Shares the kernel's
+    noise contract, so both give the same samples from the same uniforms.
+    """
+    return ar_kernel.generate_plain(pp, cfg, c_up, noise=noise, mode=mode,
+                                    generator=generator, device=device)
+
+
+def generate_segmented(pp: dict, cfg: ModelConfig, c_up, noise,
+                       seg_len: int, device=None):
+    """Generate (B, T) in kernel calls of at most seg_len output samples.
+
+    Ring state is not carried between calls: each segment after the first
+    starts M = warmup_length(cfg) steps early, forcing those steps' inputs
+    from the previous segment's samples, which rebuilds every ring exactly
+    (layer l's horizon is the prefix sum of dilations < M). The output is
+    therefore identical to one unsegmented call.
+    """
+    B, T, _ = c_up.shape
+    M = ar_kernel.warmup_length(cfg)
+    if seg_len <= M:
+        raise ValueError(f"seg_len must exceed the warm-start length {M}")
+    segs = []
+    for s in range(0, T, seg_len):
+        e = min(s + seg_len, T)
+        if s == 0:
+            segs.append(ar_kernel.generate(pp, cfg, c_up[:, :e],
+                                           noise=noise[:, :e], device=device))
+            continue
+        # the call spans global samples [s - M, e): local step t < M is
+        # forced with x(s - M - 1 + t), the previous M true samples
+        prev = segs[-1][:, -(M + 1):-1]
+        if cfg.head == "softmax":
+            prev = mulaw_quantize(prev, cfg.quantize_channels).float()
+        wav = ar_kernel.generate(pp, cfg, c_up[:, s - M:e],
+                                 noise=noise[:, s - M:e], teacher=prev,
+                                 warmup=M, device=device)
+        segs.append(wav[:, M:])
+    return torch.cat(segs, dim=1)
