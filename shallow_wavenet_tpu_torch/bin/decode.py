@@ -5,13 +5,17 @@ Reads normalized features (--feats-dir, --stats), loads the weights from a
 flat .npz of the flax parameter tree (--params; see
 models.wavenet.save_params_npz), upsamples the conditioning, generates each
 padded batch with the CUDA AR kernel in one launch, trims every utterance to
-n_frames * hop and writes wavs plus decode_summary.json (audio-seconds/s and
-RTF). There is no backend ladder: the card has one kernel, and a failure
-raises.
+n_frames * hop and writes wavs plus decode_summary.json (audio-seconds/s,
+RTF and the kernel layout). There is no backend ladder: the card has one
+kernel, laid out as the first of KERNEL_LAYOUTS whose shared memory fits
+the device, chosen from sizes before any launch; a failure raises.
 
     python -m shallow_wavenet_tpu_torch.bin.decode --preset shallow_laplace_single \
         --eval-scp eval.scp --feats-dir feats --stats stats.h5 \
         --params params.npz --outdir out
+    python -m shallow_wavenet_tpu_torch.bin.decode --preset deep_baseline \
+        --kernel-dtype bfloat16 --eval-scp eval.scp --feats-dir feats \
+        --stats stats.h5 --params params.npz --outdir out
 """
 
 from __future__ import annotations
@@ -41,25 +45,62 @@ from shallow_wavenet_tpu_torch.ops import ar_kernel
 
 log = logging.getLogger("decode")
 
+# The kernel layouts in the JAX decode's tier order (PALLAS_TIERS):
+# (dtype, streamed, chunk). The fp32 layouts give identical samples;
+# streaming moves the rings of the layers whose dilation is a >1 multiple
+# of the chunk from shared to global memory.
+KERNEL_LAYOUTS = (
+    ("float32", False, 64),
+    ("float32", True, 64),
+    ("float32", True, 32),
+    ("bfloat16", False, 64),
+    ("bfloat16", True, 64),
+    ("bfloat16", True, 32),
+)
+
+
+def kernel_layout(model_cfg, kernel_dtype: str = "auto", device=None) -> dict:
+    """The first of KERNEL_LAYOUTS of `kernel_dtype` ("auto": any) whose
+    shared memory (the kernel's `ar_smem_bytes`) fits a block on the CUDA
+    `device`; on the CPU, where the plain version has no such limit, the
+    first of that dtype. A streamed layout that streams no layer is the
+    resident one and is skipped. Raises ValueError when none fits."""
+    dev = resolve_device(device)
+    if kernel_dtype not in ("auto", *ar_kernel.DTYPES):
+        raise ValueError(f"unknown kernel dtype {kernel_dtype!r}")
+    limit = ar_kernel.smem_limit(dev) if dev.type == "cuda" else None
+    for dtype, stream, chunk in KERNEL_LAYOUTS:
+        if kernel_dtype not in ("auto", dtype):
+            continue
+        if stream and not ar_kernel.stream_split(model_cfg.dilations, chunk,
+                                                 True)[1]:
+            continue
+        if limit is None or ar_kernel.smem_bytes(
+                model_cfg, dtype, stream, chunk) <= limit:
+            return {"dtype": dtype, "stream": stream, "chunk": chunk}
+    raise ValueError(f"no AR kernel layout of dtype {kernel_dtype!r} fits "
+                     f"the shared memory of a block on {dev}")
+
 
 @torch.no_grad()
 def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
-                 generator=None, segment_samples: int = 0, device=None):
+                 generator=None, segment_samples: int = 0, device=None,
+                 layout: dict | None = None):
     """Generate one padded batch; returns the list of trimmed waveforms.
 
     noise: (B, T) uniforms for the padded batch, or None to draw them from
     `generator` in [1e-7, 1 - 1e-7]. The conditioning is upsampled with no
     shift (the generator's step t uses c_up[t]). segment_samples > 0
     decodes in bounded kernel calls with teacher-forced warm-starts (same
-    samples).
+    samples; `generate_segmented` checks the warm-start length). layout:
+    the kernel layout (`kernel_layout`), or None for
+    kernel_layout(cfg.model, "auto", device).
     """
     dev = resolve_device(device)
-    if segment_samples > 0:
-        m = ar_kernel.warmup_length(cfg.model, 64)
-        if segment_samples % 64 != 0 or segment_samples <= m:
-            raise ValueError(
-                f"--segment-samples must be a multiple of 64 and exceed the "
-                f"warm-start length {m} for this model")
+    if layout is None:
+        layout = kernel_layout(cfg.model, "auto", dev)
+    if segment_samples % 64 != 0:
+        raise ValueError("--segment-samples must be a multiple of 64")
     cond, _, n_samples = pad_batch_for_decode(utts, cfg.data.hop_length)
     spk = (torch.tensor([u.speaker for u in utts], device=dev)
            if cfg.model.n_speakers > 0 else None)
@@ -73,19 +114,23 @@ def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
     noise = torch.as_tensor(noise).to(dev)
     if segment_samples > 0:
         wav = generate_segmented(pp, cfg.model, c_up, noise,
-                                 segment_samples, device=dev)
+                                 segment_samples, device=dev, **layout)
     else:
         wav = ar_kernel.generate(pp, cfg.model, c_up, noise=noise,
-                                 device=dev)
+                                 device=dev, **layout)
     wav = wav.cpu().numpy()
     return [wav[i, : n_samples[i]] for i in range(len(utts))]
 
 
 def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
                       generator, batch_size: int = 8,
-                      segment_samples: int = 0, device=None) -> dict:
+                      segment_samples: int = 0, device=None,
+                      kernel_dtype: str = "auto") -> dict:
     """Decode `utts` in batches, write `<outdir>/<name>` wavs and
-    `decode_summary.json`; returns the summary."""
+    `decode_summary.json`; returns the summary. The kernel layout is
+    chosen once, from `kernel_dtype`, for every batch."""
+    layout = kernel_layout(cfg.model, kernel_dtype, device)
+    log.info("AR kernel layout: %s", layout)
     outdir = Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     sr = cfg.data.sample_rate
@@ -94,7 +139,8 @@ def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
         t0 = time.perf_counter()
         wavs = decode_batch(model, cfg, utts[i: i + batch_size],
                             generator=generator,
-                            segment_samples=segment_samples, device=device)
+                            segment_samples=segment_samples, device=device,
+                            layout=layout)
         wall = time.perf_counter() - t0
         audio_s = sum(len(w) for w in wavs) / sr
         total_audio_s += audio_s
@@ -109,6 +155,7 @@ def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
         "audio_seconds": total_audio_s, "wall_seconds": total_wall,
         "rtf": total_wall / max(total_audio_s, 1e-9),
         "audio_seconds_per_s": total_audio_s / max(total_wall, 1e-9),
+        "kernel": layout,
     }
     (outdir / "decode_summary.json").write_text(json.dumps(summary, indent=2))
     log.info("decode: %s", summary)
@@ -130,6 +177,11 @@ def main(argv=None):
                         "(multiple of 64, greater than the model's "
                         "warm-start length: sum(dilations)+1 rounded up to "
                         "64); the samples do not change")
+    p.add_argument("--kernel-dtype", default="auto",
+                   choices=("auto", *ar_kernel.DTYPES),
+                   help="restrict the AR kernel to one weight and ring dtype "
+                        "(the float32 layouts give identical samples; "
+                        "bfloat16 halves the rings' shared memory)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
@@ -149,7 +201,8 @@ def main(argv=None):
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     decode_utterances(model, cfg, utts, names, args.outdir, generator,
                       batch_size=args.batch_size,
-                      segment_samples=args.segment_samples, device=dev)
+                      segment_samples=args.segment_samples, device=dev,
+                      kernel_dtype=args.kernel_dtype)
 
 
 if __name__ == "__main__":

@@ -38,25 +38,28 @@ def generate_fast(pp: dict, cfg: ModelConfig, c_up, noise=None,
 
 
 def generate_segmented(pp: dict, cfg: ModelConfig, c_up, noise,
-                       seg_len: int, device=None):
+                       seg_len: int, device=None, *, chunk: int = 64,
+                       dtype: str = "float32", stream: bool = False):
     """Generate (B, T) in kernel calls of at most seg_len output samples.
 
     Ring state is not carried between calls: each segment after the first
-    starts M = warmup_length(cfg) steps early, forcing those steps' inputs
-    from the previous segment's samples, which rebuilds every ring exactly
-    (layer l's horizon is the prefix sum of dilations < M). The output is
-    therefore identical to one unsegmented call.
+    starts M = warmup_length(cfg, chunk) steps early, forcing those steps'
+    inputs from the previous segment's samples, which rebuilds every ring
+    exactly (layer l's horizon is the prefix sum of dilations < M). The
+    output is therefore identical to one unsegmented call. chunk, dtype and
+    stream pass to every kernel call.
     """
     B, T, _ = c_up.shape
-    M = ar_kernel.warmup_length(cfg)
+    M = ar_kernel.warmup_length(cfg, chunk)
     if seg_len <= M:
         raise ValueError(f"seg_len must exceed the warm-start length {M}")
+    kw = dict(device=device, chunk=chunk, dtype=dtype, stream=stream)
     segs = []
     for s in range(0, T, seg_len):
         e = min(s + seg_len, T)
         if s == 0:
             segs.append(ar_kernel.generate(pp, cfg, c_up[:, :e],
-                                           noise=noise[:, :e], device=device))
+                                           noise=noise[:, :e], **kw))
             continue
         # the call spans global samples [s - M, e): local step t < M is
         # forced with x(s - M - 1 + t), the previous M true samples
@@ -65,6 +68,6 @@ def generate_segmented(pp: dict, cfg: ModelConfig, c_up, noise,
             prev = mulaw_quantize(prev, cfg.quantize_channels).float()
         wav = ar_kernel.generate(pp, cfg, c_up[:, s - M:e],
                                  noise=noise[:, s - M:e], teacher=prev,
-                                 warmup=M, device=device)
+                                 warmup=M, **kw)
         segs.append(wav[:, M:])
     return torch.cat(segs, dim=1)

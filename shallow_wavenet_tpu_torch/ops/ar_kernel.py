@@ -2,29 +2,41 @@
 plain PyTorch version.
 
 Same contract as `generate_pallas` in shallow_wavenet_tpu/ops/ar_kernel.py,
-in its fp32, resident-ring, unfused form: c_up (B, T, C) fp32 and one
-uniform per (row, step) in, (B, T) fp32 waveform out; Laplace or softmax
-head; "sample" or "greedy"; an optional teacher stream that forces the
-feedback input on every step, or on steps t < warmup only (the warm-start
-of segmented generation). Softmax class ids are dequantized here, outside
-the kernel, with the same op on both versions.
+in its unfused form: c_up (B, T, C) fp32 and one uniform per (row, step)
+in, (B, T) fp32 waveform out; Laplace or softmax head; "sample" or
+"greedy"; an optional teacher stream that forces the feedback input on
+every step, or on steps t < warmup only (the warm-start of segmented
+generation); `dtype` "float32" or "bfloat16" (bf16 weights and rings, fp32
+accumulation and sampling); `stream` keeps the rings of the layers
+`stream_split` picks for `chunk` in global memory instead of shared
+memory. Softmax class ids are dequantized here, outside the kernel, with
+the same op on both versions.
 
 On a CUDA tensor `generate` launches the kernel (one launch for the whole
 batch; the time loop runs inside it) or raises; on a CPU tensor it runs the
-plain version, `generate_plain`, which repeats the kernel's arithmetic with
-the same packed-ring recurrence (layer l owns ring rows [off_l, off_l + d_l),
-slot off_l + (t & (d_l - 1))). `launches` counts kernel launches.
+plain version, `generate_plain`, which repeats the kernel's arithmetic,
+including its bf16 rounding points, with the same packed-ring recurrence
+(layer l owns ring rows [off_l, off_l + d_l), slot off_l + (t & (d_l - 1))).
+Where a ring is stored does not change the numbers, so the plain version
+keeps every ring in one tensor. `launches` counts kernel launches by
+variant.
 
-Not carried over from the TPU kernel: `stream`, `fused` and
-`dtype="bfloat16"` (ROADMAP B5, B6, B4) raise NotImplementedError; the chunk
-grid, lane padding and the VMEM estimate/probe are Mosaic artifacts. In
+How the bf16 weights reach the kernel: the wrapper casts them once per
+call (`_prepare`). At deep_baseline that is 16 MB of fp32 read once on the
+card, against a call of thousands of sample steps.
+
+Not carried over from the TPU kernel: `fused` (ROADMAP B6) raises
+NotImplementedError; the chunk grid, lane padding and the VMEM estimate/
+probe are Mosaic artifacts, and `chunk` only picks the streamed layers. In
 their place `check_supported` raises on a config the recurrence cannot
-take, and the kernel's C entry refuses, before it runs, a config whose
+take, `smem_bytes` asks the kernel's own layout function what one block
+needs, and the kernel's C entry refuses, before it runs, a config whose
 layers, classes or shared memory it cannot hold (ValueError here).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -35,8 +47,11 @@ from shallow_wavenet_tpu_torch.models import heads
 from shallow_wavenet_tpu_torch.ops import _build
 from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_dequantize
 
-# kernel launches since the last reset (callers set it to 0 to count a run)
-launches = 0
+# kernel launches by variant (`variant`) since the last reset; callers
+# clear it to count a run
+launches: collections.Counter = collections.Counter()
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def warmup_length(cfg: ModelConfig, chunk: int = 64) -> int:
@@ -45,6 +60,33 @@ def warmup_length(cfg: ModelConfig, chunk: int = 64) -> int:
     whole chunk — the same M as the JAX package."""
     need = int(sum(cfg.dilations)) + 1
     return -(-need // chunk) * chunk
+
+
+def stream_split(dilations, chunk: int, stream: bool):
+    """(resident_layer_ids, streamed_layer_ids) — a copy of the JAX
+    package's split: a layer is streamable when its dilation is a >1
+    multiple of the chunk (on the TPU, a chunk's ring rows are then one
+    contiguous window; here the split only says which rings live in
+    global memory)."""
+    if not stream:
+        return tuple(range(len(dilations))), ()
+    res = tuple(l for l, d in enumerate(dilations)
+                if d <= chunk or d % chunk != 0)
+    strm = tuple(l for l in range(len(dilations)) if l not in res)
+    return res, strm
+
+
+def _streamed_mask(cfg: ModelConfig, chunk: int, stream: bool):
+    strm = stream_split(cfg.dilations, chunk, stream)[1]
+    L = len(cfg.dilations)
+    return (ctypes.c_int * L)(*(int(l in strm) for l in range(L)))
+
+
+def variant(dtype: str, streamed: bool) -> str:
+    """The kernel variant's name, as `launches` counts it."""
+    tags = [t for t, on in (("bf16", dtype == "bfloat16"),
+                            ("stream", streamed)) if on]
+    return "ar_generate" + (f"[{','.join(tags)}]" if tags else "")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -69,16 +111,15 @@ def uniform_noise(shape, generator: torch.Generator):
 
 
 def _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
-             unroll, dev, stream, fused, dtype):
-    if stream:
-        raise NotImplementedError("stream=True (HBM-streamed rings) is "
-                                  "ROADMAP item B5")
+             unroll, dev, chunk, fused, dtype):
     if fused:
         raise NotImplementedError("fused=W (fused-window kernel) is ROADMAP "
                                   "item B6")
-    if dtype != "float32":
-        raise NotImplementedError(f"dtype={dtype!r} (bf16 weights and rings)"
-                                  f" is ROADMAP item B4")
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
+                         f"{dtype!r}")
+    if chunk < 32 or chunk % 32 != 0:
+        raise ValueError("chunk must be a multiple of 32")
     if mode not in ("sample", "greedy"):
         raise ValueError(f"mode must be 'sample' or 'greedy', got {mode!r}")
     if warmup < 0:
@@ -115,13 +156,14 @@ def _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
         teacher = stream_of(teacher, 0.0, "teacher")
         n_forced = T if warmup == 0 else min(warmup, T)
 
-    w = {k: torch.as_tensor(v, dtype=torch.float32).to(dev).contiguous()
+    w = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
          for k, v in pp.items()}
     if cfg.head == "softmax":
         w["in_w"] = w.pop("input_embed")
         w["in_b"] = torch.zeros(cfg.residual_channels, device=dev)
     else:
         w["in_w"], w["in_b"] = w.pop("input_w"), w.pop("input_b")
+    w = {k: v.to(DTYPES[dtype]).contiguous() for k, v in w.items()}
     return c_up, noise, teacher, n_forced, w
 
 
@@ -134,7 +176,8 @@ def _finish(cfg: ModelConfig, raw):
 def generate(pp: dict, cfg: ModelConfig, c_up, noise=None,
              mode: str = "sample", teacher=None, warmup: int = 0,
              generator=None, unroll: int = 1, device=None, *,
-             stream: bool = False, fused: int = 0, dtype: str = "float32"):
+             chunk: int = 64, stream: bool = False, fused: int = 0,
+             dtype: str = "float32"):
     """AR generation; returns (B, T) fp32 on `device`.
 
     pp: plain params (models.wavenet.extract_plain_params); c_up (B, T, C).
@@ -147,29 +190,47 @@ def generate(pp: dict, cfg: ModelConfig, c_up, noise=None,
     loop has no unroll knob, and unrolling never changes the samples.
     device: None means "cuda" (raises without CUDA); "cpu" runs the plain
     version.
+    dtype: "float32", or "bfloat16" for bf16 weights and rings.
+    stream, chunk: keep the rings of the layers whose dilation is a >1
+    multiple of `chunk` (a multiple of 32) in global memory; the samples do
+    not change.
     """
     dev = resolve_device(device)
     args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
-                    unroll, dev, stream, fused, dtype)
-    run = _launch if args[0].is_cuda else _plain
-    return _finish(cfg, run(cfg, mode == "greedy", *args))
+                    unroll, dev, chunk, fused, dtype)
+    if args[0].is_cuda:
+        raw = _launch(cfg, mode == "greedy", *args, dtype=dtype,
+                      streamed=_streamed_mask(cfg, chunk, stream))
+    else:
+        raw = _plain(cfg, mode == "greedy", *args)
+    return _finish(cfg, raw)
 
 
 def generate_plain(pp: dict, cfg: ModelConfig, c_up, noise=None,
                    mode: str = "sample", teacher=None, warmup: int = 0,
                    generator=None, unroll: int = 1, device=None, *,
-                   stream: bool = False, fused: int = 0,
-                   dtype: str = "float32"):
+                   chunk: int = 64, stream: bool = False, fused: int = 0,
+                   dtype: str = "float32", chain: bool = False):
     """The plain PyTorch version of `generate`, on any device: one Python
-    step per sample, the kernel's arithmetic in torch ops."""
+    step per sample, the kernel's arithmetic in torch ops. Where the
+    rings are stored (`stream`, `chunk`) changes nothing here.
+
+    chain: sum every product of a dot as one fp32 chain in k order and form
+    the gate's sigmoid as 1 / (1 + exp(-x)), as the kernel does, instead of
+    matmuls that sum in their own order. With dtype="bfloat16" every
+    product is of two bf16 values, hence exact in fp32, so with the Laplace
+    head this is the kernel's arithmetic operation for operation: on a card
+    it meets the kernel to the bit wherever torch's tanh, exp and log1p
+    give the kernel's values. Slow: one torch op per k.
+    """
     dev = resolve_device(device)
     args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
-                    unroll, dev, stream, fused, dtype)
-    return _finish(cfg, _plain(cfg, mode == "greedy", *args))
+                    unroll, dev, chunk, fused, dtype)
+    return _finish(cfg, _plain(cfg, mode == "greedy", *args, chain=chain))
 
 
 @torch.no_grad()
-def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w):
+def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, chain=False):
     B, T, C = c_up.shape
     dil = cfg.dilations
     L, R, G, S = (len(dil), cfg.residual_channels, cfg.gate_channels,
@@ -178,6 +239,29 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w):
     offs = [sum(dil[:l]) for l in range(L)]
     dev = c_up.device
     softmax = cfg.head == "softmax"
+    # bf16 values held in fp32: products of two of them are exact, so the
+    # fp32 matmuls below are the kernel's bf16 dots with fp32 accumulation;
+    # rnd is the kernel's rounding to the storage type
+    bf16 = w["conv_w"].dtype == torch.bfloat16
+    w = {k: v.float() for k, v in w.items()}
+
+    def rnd(x):
+        return x.bfloat16().float() if bf16 else x
+
+    def dots(*pairs):
+        """[x @ m for (x, m) in pairs], all of one k length; in `chain` mode
+        each output is one fp32 chain in k order, as the kernel's dot_col."""
+        if not chain:
+            return [x @ m for x, m in pairs]
+        p = torch.cat([x[:, :, None] * m[None] for x, m in pairs], dim=-1)
+        acc = torch.zeros_like(p[:, 0])
+        for k in range(p.shape[1]):
+            acc += p[:, k]
+        return acc.split([m.shape[1] for _, m in pairs], dim=-1)
+
+    def sigmoid(x):
+        return 1.0 / (1.0 + torch.exp(-x)) if chain else torch.sigmoid(x)
+
     rings = torch.zeros(sum(dil), B, R, device=dev)
     cond_wcat = w["cond_w"].permute(1, 0, 2).reshape(C, L * G)
     rs_w = torch.cat([w["skip_w"], w["res_w"]], dim=-1)     # (L, G/2, S+R)
@@ -190,21 +274,26 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w):
         if softmax:
             h = w["in_w"][x_in.long()]
         else:
-            h = x_in[:, None] * w["in_w"][0][None, :] + w["in_b"][None, :]
-        cc = c_up[:, t] @ cond_wcat
+            h = rnd(rnd(rnd(x_in)[:, None] * w["in_w"][0][None, :])
+                    + w["in_b"][None, :])
+        (cc,) = dots((rnd(c_up[:, t]), cond_wcat))
         skip = torch.zeros(B, S, device=dev)
         for l in range(L):
             slot = offs[l] + (t & (dil[l] - 1))
-            u = ((rings[slot] @ w["conv_w"][l, 0] + h @ w["conv_w"][l, 1])
-                 + w["conv_b"][l]) + cc[:, l * G:(l + 1) * G]
-            z = torch.tanh(u[:, :half]) * torch.sigmoid(u[:, half:])
+            g0, g1 = dots((rings[slot], w["conv_w"][l, 0]),
+                          (h, w["conv_w"][l, 1]))
+            u = ((g0 + g1) + w["conv_b"][l]) + cc[:, l * G:(l + 1) * G]
+            z = rnd(torch.tanh(u[:, :half]) * sigmoid(u[:, half:]))
             rings[slot] = h
-            rs = z @ rs_w[l] + rs_b[l]
-            h = h + rs[:, S:]
+            (rs,) = dots((z, rs_w[l]))
+            rs = rs + rs_b[l]
+            h = rnd(h + rs[:, S:])
             skip = skip + rs[:, :S]
-        o = torch.relu(skip)
-        o = torch.relu(o @ w["head1_w"] + w["head1_b"])
-        o = o @ w["head2_w"] + w["head2_b"]
+        o = rnd(torch.relu(skip))
+        (o,) = dots((o, w["head1_w"]))
+        o = rnd(torch.relu(o + w["head1_b"]))
+        (o,) = dots((o, w["head2_w"]))
+        o = o + w["head2_b"]
         if softmax:
             ids = (torch.argmax(o, dim=-1) if greedy
                    else heads.categorical_from_uniform(o, noise[:, t]))
@@ -218,22 +307,67 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w):
     return out
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ar_generate")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.ar_generate.argtypes = ([ptr] * 17 + [ctypes.POINTER(i32)]
-                                + [i32] * 12 + [f32, f32, ptr])
+    ints = ctypes.POINTER(i32)
+    lib.ar_generate.argtypes = ([ptr] * 18 + [ints, ints] + [i32] * 13
+                                + [f32, f32, ptr])
     lib.ar_generate.restype = i32
+    lib.ar_smem_bytes.argtypes = [ints, ints] + [i32] * 7
+    lib.ar_smem_bytes.restype = ctypes.c_longlong
+    lib.ar_smem_limit.argtypes = [ints]
+    lib.ar_smem_limit.restype = i32
     lib.ar_error_string.argtypes = [i32]
     lib.ar_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(cfg, greedy, c_up, noise, teacher, n_forced, w):
-    global launches
-    lib = _bind(_build.load("ar_generate"))
-    B, T, C = c_up.shape
-    out = torch.empty((B, T), dtype=torch.float32, device=c_up.device)
+def _refusal(lib, err: int) -> ValueError:
+    return ValueError("config not supported by the AR kernel: "
+                      + lib.ar_error_string(err).decode())
+
+
+def smem_bytes(cfg: ModelConfig, dtype: str = "float32",
+               stream: bool = False, chunk: int = 64) -> int:
+    """Shared memory one block of the CUDA kernel needs for this layout,
+    from the kernel's own layout function (builds the kernel's library)."""
+    lib = _lib()
     dil = (ctypes.c_int * len(cfg.dilations))(*cfg.dilations)
+    O = cfg.quantize_channels if cfg.head == "softmax" else 2
+    n = lib.ar_smem_bytes(dil, _streamed_mask(cfg, chunk, stream),
+                          len(cfg.dilations), cfg.residual_channels,
+                          cfg.gate_channels, cfg.skip_channels,
+                          cfg.cond_channels, O, int(dtype == "bfloat16"))
+    if n < 0:
+        raise _refusal(lib, n)
+    return n
+
+
+def smem_limit(device) -> int:
+    """The CUDA device's shared memory per block (opt-in maximum)."""
+    lib = _lib()
+    limit = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.ar_smem_limit(ctypes.byref(limit))
+    if err != 0:
+        raise RuntimeError("ar_smem_limit failed: "
+                           + lib.ar_error_string(err).decode())
+    return limit.value
+
+
+def _launch(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
+            streamed):
+    lib = _lib()
+    B, T, C = c_up.shape
+    R = cfg.residual_channels
+    out = torch.empty((B, T), dtype=torch.float32, device=c_up.device)
+    L = len(cfg.dilations)
+    dil = (ctypes.c_int * L)(*cfg.dilations)
+    strm_rows = sum(d for d, s in zip(cfg.dilations, streamed) if s)
+    # zeroed, so that steps t < d read zeros from a streamed ring
+    strm_ring = (torch.zeros((B, strm_rows, R), dtype=DTYPES[dtype],
+                             device=c_up.device) if strm_rows else None)
     softmax = cfg.head == "softmax"
     O = cfg.quantize_channels if softmax else 2
     with torch.cuda.device(c_up.device):
@@ -244,15 +378,15 @@ def _launch(cfg, greedy, c_up, noise, teacher, n_forced, w):
                 "in_w", "in_b", "conv_w", "conv_b", "cond_w", "res_w",
                 "res_b", "skip_w", "skip_b", "head1_w", "head1_b",
                 "head2_w", "head2_b")),
-            dil, B, T, len(cfg.dilations), cfg.residual_channels,
-            cfg.gate_channels, cfg.skip_channels, C, cfg.quantize_channels,
-            O, int(softmax), int(greedy), n_forced, cfg.log_b_min,
-            cfg.log_b_max, torch.cuda.current_stream().cuda_stream)
+            None if strm_ring is None else strm_ring.data_ptr(),
+            dil, streamed, B, T, L, R, cfg.gate_channels, cfg.skip_channels,
+            C, cfg.quantize_channels, O, int(softmax), int(greedy), n_forced,
+            int(dtype == "bfloat16"), cfg.log_b_min, cfg.log_b_max,
+            torch.cuda.current_stream().cuda_stream)
     if err < 0:
-        raise ValueError("config not supported by the AR kernel: "
-                         + lib.ar_error_string(err).decode())
+        raise _refusal(lib, err)
     if err != 0:
         raise RuntimeError("ar_generate launch failed: "
                            + lib.ar_error_string(err).decode())
-    launches += 1
+    launches[variant(dtype, strm_rows > 0)] += 1
     return out

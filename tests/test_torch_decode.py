@@ -117,10 +117,13 @@ def test_decode_cli_writes_wavs_and_summary(tmp_path):
                  "--stats", str(tmp_path / "stats.h5"),
                  "--params", str(tmp_path / "params.npz"),
                  "--outdir", str(out), "--batch-size", "1",
-                 "--device", "cpu"])
+                 "--kernel-dtype", "bfloat16", "--device", "cpu"])
     summary = json.loads((out / "decode_summary.json").read_text())
     assert set(summary) == {"utterances", "model_step", "audio_seconds",
-                            "wall_seconds", "rtf", "audio_seconds_per_s"}
+                            "wall_seconds", "rtf", "audio_seconds_per_s",
+                            "kernel"}
+    assert summary["kernel"] == {"dtype": "bfloat16", "stream": False,
+                                 "chunk": 64}
     assert summary["utterances"] == 2
     assert summary["audio_seconds"] == pytest.approx(80 / 8000)
     for name, f in frames.items():

@@ -144,9 +144,9 @@ def _tiny():
 
 
 @pytest.mark.parametrize("kw, exc, match", [
-    (dict(stream=True), NotImplementedError, "B5"),
+    (dict(stream=True, chunk=48), ValueError, "chunk"),
     (dict(fused=3), NotImplementedError, "B6"),
-    (dict(dtype="bfloat16"), NotImplementedError, "B4"),
+    (dict(dtype="float16"), ValueError, "dtype"),
     (dict(warmup=4), ValueError, "teacher"),
     (dict(warmup=-1, teacher=torch.zeros(2, 10)), ValueError, "warmup"),
     (dict(unroll=0), ValueError, "unroll"),
