@@ -6,7 +6,9 @@
 Phases, each printing one JSON line; any failure exits nonzero:
   1. toolchain: the card (nvidia-smi name and power limit), torch, CUDA and
      nvcc versions; then every kernel in shallow_wavenet_tpu_torch/csrc is
-     built (one nvcc per source, started together) and the build timed;
+     built (one nvcc per source, started together) and the build timed,
+     with the registers of every AR kernel instantiation (ptxas -v, from an
+     nvcc started beside the build);
   2. weights: config 2 (shallow_laplace_single) at full width, random
      flax-layout weights from --seed with a random head2 (zero in the flax
      init), loaded through params_from_flax;
@@ -21,7 +23,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
      the kernel launch counter, reset just before, must have risen. The
      kernel is then re-run on the main path's inputs (same samples, which
      are checked against the wavs) and held against the plain version,
-     teacher-forced with its own samples, at the main path's shapes. Last,
+     teacher-forced with its own samples, over the whole call. Last,
      bin.decode.decode_batch with segment_samples=2048 (its launch count
      read the same way) must give the same samples;
   5. deep kernel against plain: deep_baseline at full width and depth
@@ -35,7 +37,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
      streamed at chunk 64 equal to streamed at chunk 32 (fp32 and bf16),
      and streamed equal to resident at config-2 widths with stack_size=8;
      segmented (8192) equal to unsegmented; the resident deep layout
-     refused before launch; both variants' times;
+     refused before launch; both variants' times; every layout's shared
+     memory, unfused and fused;
   6. deep main path: decode_utterances at deep_baseline with
      --kernel-dtype float32 and then bfloat16, on 8 utterances of 40-80
      random normalized frames (0.5-1.1 s): launches of the chosen variant,
@@ -43,7 +46,36 @@ Phases, each printing one JSON line; any failure exits nonzero:
      and the plain version teacher-forced with the kernel's own samples:
      fp32 over the first 4096 steps; bf16 over the first 1024 in the
      kernel's summation order (`chain=True`), exactly, with the fp32
-     control and the matmul-order version's drift beside it.
+     control and the matmul-order version's drift beside it;
+  7. fused kernel against plain: the fused window (fused=4) at config 2,
+     B=4, T=4096 — Laplace teacher-forced, free-running sample and greedy
+     (each sample against the plain version teacher-forced with the
+     kernel's own samples), softmax teacher-forced ids, fused against the
+     unfused kernel, segmented (2048) equal to unsegmented, streamed equal
+     to resident at config-2 widths with stack_size=8 (and their times),
+     and W = 2, 3, 5 teacher-forced over the first 1024 steps;
+  8. fused main path: phase 4 with decode_utterances(..., fused=4):
+     launches of ar_generate[fused4], wavs equal to a re-run, wall seconds
+     and RTF beside the unfused main path's, the plain version teacher-
+     forced with the kernel's samples over the first 4096 steps, and the
+     segmented decode;
+  9. deep fused: the deep main path with fused=4, fp32 and bf16, on the
+     layouts kernel_layout(..., fused=4) picks: fp32 held at 1e-5 over the
+     first 1024 steps, bf16 to the bit against `chain=True` over twice the
+     largest streamed dilation; then the fused and unfused variants timed
+     in turns at B=8 (unfused, fused, fused, unfused);
+  10. streaming: models.streaming.StreamingSynthesizer at config 2, B=1,
+     80 ms blocks (6 frames), 150 frames pushed 6 at a time, fused=4 and
+     fused=0: push latency (mean, p95) and steady-state RTF; the streamed
+     samples equal one call over the session's conditioning and uniforms
+     (0.0), and that conditioning against the whole utterance's
+     upsampling, at the bf16 upsampler's limit; the kernel against the
+     plain version at B = 1: the one call teacher-forced with its own
+     samples over its first 2048 steps, and the second block's warm-started push
+     call (kernel and plain on the same arguments; the kernel's output
+     equal to the stream's);
+  11. kfuse sweep: bin.kfuse at config 2, B = 1, 8, 32, T = 2048,
+     W = 0, 2, 3, 4, 6 (us per step).
 Then the card's nvidia-smi line, the kernels' JSON line and, last,
 {"ok": true, "device": {...}}. Without CUDA, or outside the repo, it exits
 nonzero before printing any result.
@@ -63,12 +95,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from shallow_wavenet_tpu_torch.bin import decode
+from shallow_wavenet_tpu_torch.bin import decode, kfuse
 from shallow_wavenet_tpu_torch.config import get_config
 from shallow_wavenet_tpu_torch.data.dataset import (
     Utterance, pad_batch_for_decode,
 )
 from shallow_wavenet_tpu_torch.models.generate import generate_segmented
+from shallow_wavenet_tpu_torch.models.streaming import StreamingSynthesizer
 from shallow_wavenet_tpu_torch.models.wavenet import (
     WaveNet, extract_plain_params, init_params_tree, params_from_flax,
 )
@@ -116,7 +149,22 @@ CONTROL_FACTOR = 100.0
 DEEP_B, DEEP_T = 4, 4096
 FIRST_B, FIRST_T = 64, 16
 DEEP_SEG_T, DEEP_SEGMENT = 12288, 8192
-DEEP_PLAIN_T = 4096
+# the fused config-2 and the unfused deep fp32 main paths hold the plain
+# version over their first PLAIN_T steps
+PLAIN_T = 4096
+# the fused window: W on the main paths, the other windows checked
+# teacher-forced over FUSED_W_T steps
+FUSED = 4
+FUSED_WINDOWS, FUSED_W_T = (2, 3, 5), 1024
+# streaming: 80 ms blocks at hop 320, about 2 s of frames in 6-frame pushes.
+# The session's conditioning is its haloed windows' upsampling; config 2's
+# upsampler computes in bf16, and a GEMM over a window may sum in another
+# order than over the whole utterance, so a value can land one bf16 ulp
+# (2^-8 relative) away, and the stages after carry it on: held at
+# TOL_UPSAMPLE times the largest |c_up|.
+STREAM_BLOCK, STREAM_FRAMES = 6, 150
+TOL_UPSAMPLE = 2.0 ** -6
+KFUSE_B, KFUSE_T = (1, 8, 32), 2048
 
 
 def emit(phase: str, **kw):
@@ -133,6 +181,20 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def registers(ptxas_log: str) -> dict:
+    """{"fp32|bf16,unfused|fused": registers} from `ptxas -v` output."""
+    regs, entry = {}, None
+    for line in ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and "registers" in line:
+            key = (("bf16" if "bfloat16" in entry else "fp32") + ","
+                   + ("fused" if "Lb1E" in entry else "unfused"))
+            regs[key] = int(line.split("Used")[1].split("registers")[0])
+            entry = None
+    return regs
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -174,19 +236,24 @@ def random_cond(mc, model, B: int, T: int, seed: int):
         return model.upsample_cond(cond)[:, :T].contiguous()
 
 
-def bound(mc, B: int, T: int, pp, weight_bytes: int = 4
+def bound(mc, B: int, T: int, pp, weight_bytes: int = 4, fused: int = 0
           ) -> tuple[float, str]:
     """Least time (ms) for one generate call: the fp32 multiply-adds of
     every step over the fp32 peak, or c_up + noise + out (fp32) + weights
     (weight_bytes each) over the memory rate, whichever is larger. Rings
-    are the kernel's own state and are not counted."""
+    are the kernel's own state and are not counted. The fused window adds
+    its P products: (G/2) x G weights, read and multiplied once per step,
+    for every pair of layers j < m of a block."""
     L, R, G = len(mc.dilations), mc.residual_channels, mc.gate_channels
     S, C = mc.skip_channels, mc.cond_channels
     O = mc.quantize_channels if mc.head == "softmax" else 2
-    macs = L * (2 * R * G + C * G + (G // 2) * (S + R)) + S * S + S * O
+    extra = sum((G // 2) * G * len(b) * (len(b) - 1) // 2
+                for b in ar_kernel.fused_blocks(L, fused)) if fused else 0
+    macs = (L * (2 * R * G + C * G + (G // 2) * (S + R)) + S * S + S * O
+            + extra)
     flops = 2.0 * macs * B * T
     nbytes = (4.0 * (B * T * C + 2 * B * T)
-              + weight_bytes * sum(v.numel() for v in pp.values()))
+              + weight_bytes * (sum(v.numel() for v in pp.values()) + extra))
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                        else "bytes")
@@ -256,33 +323,51 @@ def phase_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
     return result
 
 
-def phase_main_path(cfg, model, pp, seed: int, smi: str) -> dict:
-    mc, hop, sr = cfg.model, cfg.data.hop_length, cfg.data.sample_rate
-    rng = np.random.default_rng(seed + 7)
-    frames = np.linspace(75, 150, 8).round().astype(int)
-    utts = [Utterance(np.zeros(0, np.float32), rng.standard_normal(
+def utterances(mc, seed: int, lo: int, hi: int):
+    """8 utterances of lo..hi random normalized frames: (frames, utts)."""
+    rng = np.random.default_rng(seed)
+    frames = np.linspace(lo, hi, 8).round().astype(int)
+    return frames, [Utterance(np.zeros(0, np.float32), rng.standard_normal(
         (f, mc.aux_channels)).astype(np.float32)) for f in frames]
+
+
+def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
+                    unfused: dict | None = None) -> dict:
+    """The config-2 main path (`main_path`), or with the fused window
+    (`fused_main_path`, beside the unfused run's wall time and RTF)."""
+    phase = "fused_main_path" if fused else "main_path"
+    name = ar_kernel.variant("float32", False, fused)
+    mc, hop = cfg.model, cfg.data.hop_length
+    frames, utts = utterances(mc, seed + 7, 75, 150)
     names = [f"utt{i}.wav" for i in range(len(utts))]
     with tempfile.TemporaryDirectory() as tmp:
         ar_kernel.launches.clear()
         summary = decode.decode_utterances(
             model, cfg, utts, names, tmp,
-            torch.Generator(device="cuda").manual_seed(seed), batch_size=8)
-        launches = ar_kernel.launches["ar_generate"]
-        require(launches >= 1 and sum(ar_kernel.launches.values())
-                == launches, "the main path launched the AR kernel, fp32 "
-                "resident")
+            torch.Generator(device="cuda").manual_seed(seed), batch_size=8,
+            fused=fused)
+        launched = dict(ar_kernel.launches)
+        require(launched.get(name, 0) >= 1 and set(launched) == {name},
+                f"the {phase} launched {name}: {launched}")
+        require(summary["kernel"] == {"dtype": "float32", "stream": False,
+                                      "chunk": 64, "fused": fused},
+                f"{phase} layout {summary['kernel']}")
         written = json.loads((Path(tmp) / "decode_summary.json").read_text())
         require(written == summary, "decode_summary.json written")
         pcm = []
-        for name, f in zip(names, frames):
-            with wave.open(str(Path(tmp) / name)) as w:
-                require(w.getnframes() == f * hop, f"{name} length")
+        for n, f in zip(names, frames):
+            with wave.open(str(Path(tmp) / n)) as w:
+                require(w.getnframes() == f * hop, f"{n} length")
                 pcm.append(np.frombuffer(w.readframes(w.getnframes()), "<i2"))
-    emit("main_path", utterances=len(utts), frames=frames.tolist(),
-         launches=launches, audio_seconds=summary["audio_seconds"],
+    beside = {} if unfused is None else {
+        "unfused_wall_seconds": unfused["wall_seconds"],
+        "unfused_rtf": unfused["rtf"]}
+    emit(phase, variant=name, kernel=summary["kernel"],
+         utterances=len(utts), frames=frames.tolist(),
+         launches=launched[name], audio_seconds=summary["audio_seconds"],
          wall_seconds=summary["wall_seconds"], rtf=summary["rtf"],
-         audio_seconds_per_s=summary["audio_seconds_per_s"], card=smi)
+         audio_seconds_per_s=summary["audio_seconds_per_s"], **beside,
+         card=smi)
 
     # the main path's kernel call again, on the same inputs
     cond, _, n_samples = pad_batch_for_decode(utts, hop)
@@ -290,44 +375,57 @@ def phase_main_path(cfg, model, pp, seed: int, smi: str) -> dict:
         c_up = model.upsample_cond(torch.from_numpy(cond).cuda())
     noise = ar_kernel.uniform_noise(
         c_up.shape[:2], torch.Generator(device="cuda").manual_seed(seed))
-    out = ar_kernel.generate(pp, mc, c_up, noise=noise)
-    require(bool(torch.isfinite(out).all()), "main-path output finite")
+
+    def gen(c, n, **kw):
+        return ar_kernel.generate(pp, mc, c, noise=n, fused=fused, **kw)
+
+    out = gen(c_up, noise)
+    require(bool(torch.isfinite(out).all()), f"{phase} output finite")
     wav = out.cpu().numpy()
     for i, n in enumerate(n_samples):
         q = np.clip(np.round(wav[i, :n] * 32767.0), -32768, 32767)
         require(np.array_equal(q.astype("<i2"), pcm[i]),
-                f"utterance {i}: wav equals the kernel's samples")
+                f"{phase} utterance {i}: wav equals the kernel's samples")
     B, T = out.shape
-    ms = cuda_ms(lambda: ar_kernel.generate(pp, mc, c_up, noise=noise), 2)
-    # plain version teacher-forced with the kernel's own samples: every
-    # step sees the kernel's history, so only one step's rounding differs
-    teacher = torch.cat([torch.zeros(B, 1, device="cuda"), out[:, :-1]], 1)
+    full_ms = cuda_ms(lambda: gen(c_up, noise), 2)
+    # plain version teacher-forced with the kernel's own samples (every
+    # step sees the kernel's history, so only one step's rounding
+    # differs): unfused over the whole call, fused over its first PLAIN_T
+    # steps
+    Tp = PLAIN_T if fused else T
+    cp, npl = c_up[:, :Tp].contiguous(), noise[:, :Tp].contiguous()
+    ms = full_ms if Tp == T else cuda_ms(lambda: gen(cp, npl), 2)
     plain, plain_ms = host_ms(lambda: ar_kernel.generate_plain(
-        pp, mc, c_up, noise=noise, teacher=teacher))
-    max_err = float((plain - out).abs().max())
-    bound_ms, bound_by = bound(mc, B, T, pp)
-    emit("main_path_vs_plain", B=B, T=T, max_abs_err=max_err,
-         limit=TOL_TEACHER, kernel_ms=ms, plain_ms=plain_ms,
+        pp, mc, cp, noise=npl, teacher=own_feedback(out)[:, :Tp],
+        fused=fused))
+    max_err = err(plain, out[:, :Tp])
+    bound_ms, bound_by = bound(mc, B, Tp, pp, 4, fused)
+    emit(f"{phase}_vs_plain", variant=name, B=B, T=Tp, full_T=T,
+         full_call_ms=full_ms, max_abs_err=max_err, limit=TOL_TEACHER,
+         kernel_ms=ms, us_per_step=1e3 * ms / Tp, plain_ms=plain_ms,
          bound_ms=bound_ms, bound_by=bound_by)
-    require(max_err <= TOL_TEACHER, "main-path kernel vs plain")
+    require(max_err <= TOL_TEACHER, f"{phase} kernel vs plain")
 
     # the segmented decode of the same batch: same noise, same samples
     ar_kernel.launches.clear()
     t0 = time.perf_counter()
     seg = decode.decode_batch(
         model, cfg, utts, segment_samples=SEGMENT,
-        generator=torch.Generator(device="cuda").manual_seed(seed))
+        generator=torch.Generator(device="cuda").manual_seed(seed),
+        layout=summary["kernel"])
     seg_wall = time.perf_counter() - t0
-    seg_launches = ar_kernel.launches["ar_generate"]
+    seg_launches = ar_kernel.launches[name]
     seg_err = max(float(np.abs(w - wav[i, :n]).max())
                   for i, (w, n) in enumerate(zip(seg, n_samples)))
-    emit("main_path_segmented", segment_samples=SEGMENT,
+    emit(f"{phase}_segmented", segment_samples=SEGMENT,
          launches=seg_launches, wall_seconds=seg_wall, max_abs_err=seg_err,
          limit=0.0)
     require(seg_launches == -(-T // SEGMENT), "segmented decode launches")
     require(seg_err == 0.0, "segmented decode equals unsegmented")
-    return {"launches": launches, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"name": name, "launches": launched[name], "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "wall_seconds": summary["wall_seconds"],
+            "rtf": summary["rtf"]}
 
 
 def err(a, b) -> float:
@@ -439,9 +537,10 @@ def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
         times[name] = {"layout": layout, "ms": ms,
                        "us_per_step": 1e3 * ms / T, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by}
-    smem = {f"{dt}_{'stream' if st else 'resident'}{ch}":
-            ar_kernel.smem_bytes(mc, dt, st, ch)
-            for dt, st, ch in decode.KERNEL_LAYOUTS}
+    smem = {f"{dt}_{'stream' if st else 'resident'}{ch}"
+            + (f"_fused{f}" if f else ""):
+            ar_kernel.smem_bytes(mc, dt, st, ch, f)
+            for dt, st, ch in decode.KERNEL_LAYOUTS for f in (0, FUSED)}
     emit("deep_kernel_vs_plain", B=B, T=T, checks=checks, readings=readings,
          times=times, smem_bytes=smem, smem_limit=ar_kernel.smem_limit("cuda"))
     for c in checks:
@@ -450,25 +549,26 @@ def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
 
 
 def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
-                         kernel_dtype: str) -> dict:
+                         kernel_dtype: str, fused: int = 0) -> dict:
+    """The deep main path (`deep_main_path`), or with the fused window
+    (`deep_fused`: fp32 held over the first steps only, as bf16 is)."""
+    phase = "deep_fused" if fused else "deep_main_path"
     mc, hop = cfg.model, cfg.data.hop_length
-    rng = np.random.default_rng(seed + 8)
-    frames = np.linspace(40, 80, 8).round().astype(int)
-    utts = [Utterance(np.zeros(0, np.float32), rng.standard_normal(
-        (f, mc.aux_channels)).astype(np.float32)) for f in frames]
+    frames, utts = utterances(mc, seed + 8, 40, 80)
     names = [f"utt{i}.wav" for i in range(len(utts))]
     with tempfile.TemporaryDirectory() as tmp:
         ar_kernel.launches.clear()
         summary = decode.decode_utterances(
             model, cfg, utts, names, tmp,
             torch.Generator(device="cuda").manual_seed(seed), batch_size=8,
-            kernel_dtype=kernel_dtype)
+            kernel_dtype=kernel_dtype, fused=fused)
         launched = dict(ar_kernel.launches)
         layout = summary["kernel"]
-        name = ar_kernel.variant(layout["dtype"], layout["stream"])
-        require(layout == decode.kernel_layout(mc, kernel_dtype)
-                and layout["dtype"] == kernel_dtype and layout["stream"],
-                f"deep layout {layout}")
+        name = ar_kernel.variant(layout["dtype"], layout["stream"],
+                                 layout["fused"])
+        require(layout == decode.kernel_layout(mc, kernel_dtype, fused=fused)
+                and layout["dtype"] == kernel_dtype and layout["stream"]
+                and layout["fused"] == fused, f"deep layout {layout}")
         require(launched.get(name, 0) >= 1 and set(launched) == {name},
                 f"the deep main path launched {name}: {launched}")
         pcm = []
@@ -476,7 +576,7 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
             with wave.open(str(Path(tmp) / n)) as w:
                 require(w.getnframes() == f * hop, f"{n} length")
                 pcm.append(np.frombuffer(w.readframes(w.getnframes()), "<i2"))
-    emit("deep_main_path", kernel_dtype=kernel_dtype, kernel=layout,
+    emit(phase, kernel_dtype=kernel_dtype, kernel=layout,
          variant=name, utterances=len(utts), frames=frames.tolist(),
          launches=launched[name], audio_seconds=summary["audio_seconds"],
          wall_seconds=summary["wall_seconds"], rtf=summary["rtf"],
@@ -496,20 +596,22 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
         q = np.clip(np.round(wav[i, :n] * 32767.0), -32768, 32767)
         require(np.array_equal(q.astype("<i2"), pcm[i]),
                 f"deep utterance {i}: wav equals the kernel's samples")
-    # the plain version teacher-forced with the kernel's own samples: fp32
-    # over DEEP_PLAIN_T steps; bf16 in the kernel's summation order over
-    # twice the largest streamed dilation (see TOL_CHAIN above)
+    # the plain version teacher-forced with the kernel's own samples:
+    # unfused fp32 over PLAIN_T steps; bf16 in the kernel's summation
+    # order, and fused fp32, over twice the largest streamed dilation (see
+    # TOL_CHAIN above)
     bf16 = layout["dtype"] == "bfloat16"
     strm = ar_kernel.stream_split(mc.dilations, layout["chunk"], True)[1]
     B = c_up.shape[0]
-    Tp = 2 * max(mc.dilations[l] for l in strm) if bf16 else DEEP_PLAIN_T
+    Tp = (2 * max(mc.dilations[l] for l in strm) if bf16 or fused
+          else PLAIN_T)
     cp, npl = c_up[:, :Tp].contiguous(), noise[:, :Tp].contiguous()
     teacher = own_feedback(out)[:, :Tp]
     ms = cuda_ms(lambda: ar_kernel.generate(pp, mc, cp, noise=npl,
                                             **layout), 2)
     plain, plain_ms = host_ms(lambda: ar_kernel.generate_plain(
         pp, mc, cp, noise=npl, teacher=teacher, dtype=layout["dtype"],
-        chain=bf16))
+        chain=bf16, fused=fused))
     max_err = err(plain, out[:, :Tp])
     extra = {}
     if bf16:
@@ -517,17 +619,19 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
         d = (plain - out[:, :Tp]).abs().amax(0)
         parted = torch.nonzero(d > limit)
         control = err(ar_kernel.generate_plain(
-            pp, mc, cp, noise=npl, teacher=teacher), out[:, :Tp])
+            pp, mc, cp, noise=npl, teacher=teacher, fused=fused),
+            out[:, :Tp])
         matmul = ar_kernel.generate_plain(pp, mc, cp, noise=npl,
-                                          teacher=teacher, dtype="bfloat16")
+                                          teacher=teacher, dtype="bfloat16",
+                                          fused=fused)
         extra = {"first_parted_step": int(parted[0]) if len(parted) else None,
                  "control_fp32": control, "control_min": CONTROL_MIN,
                  "matmul_order_drift": err(matmul, out[:, :Tp]),
                  "matmul_order_vs_chain": err(matmul, plain)}
     else:
         limit = TOL_TEACHER
-    bound_ms, bound_by = bound(mc, B, Tp, pp, 2 if bf16 else 4)
-    emit("deep_main_path_vs_plain", variant=name, B=B, T=Tp,
+    bound_ms, bound_by = bound(mc, B, Tp, pp, 2 if bf16 else 4, fused)
+    emit(f"{phase}_vs_plain", variant=name, B=B, T=Tp,
          full_T=out.shape[1], full_call_ms=full_ms, max_abs_err=max_err,
          limit=limit, chain=bf16, **extra, kernel_ms=ms,
          us_per_step=1e3 * ms / Tp, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -538,6 +642,213 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
     return {"name": name, "launches": launched[name], "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
+    B, T = B_CHECK, T_CHECK
+    c_up = random_cond(mc, model, B, T, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    noise = ar_kernel.uniform_noise((B, T), g)
+    teacher = torch.rand((B, T), generator=g, device="cuda") * 2 - 1
+    checks = []
+
+    def record(name, e, limit):
+        checks.append({"check": name, "max_abs_err": e, "limit": limit,
+                       "ok": e <= limit})
+
+    def gen(c, n, **kw):
+        return ar_kernel.generate(pp, mc, c, noise=n, **{"fused": FUSED, **kw})
+
+    def plain(c, n, **kw):
+        return ar_kernel.generate_plain(pp, mc, c, noise=n,
+                                        **{"fused": FUSED, **kw})
+
+    # Laplace, teacher-forced: against its plain version and the unfused
+    # kernel
+    k = gen(c_up, noise, teacher=teacher)
+    p, plain_ms = host_ms(lambda: plain(c_up, noise, teacher=teacher))
+    record("laplace_teacher_forced", err(k, p), TOL_TEACHER)
+    record("fused_vs_unfused_kernel_teacher_forced",
+           err(k, gen(c_up, noise, teacher=teacher, fused=0)), TOL_TEACHER)
+    kernel_ms = cuda_ms(lambda: gen(c_up, noise, teacher=teacher), 2)
+    # free-running, each sample against the plain version given the
+    # kernel's own history
+    for mode in ("sample", "greedy"):
+        k = gen(c_up, noise, mode=mode)
+        require(bool(torch.isfinite(k).all()), f"finite fused output {mode}")
+        record(f"laplace_free_{mode}",
+               err(k, plain(c_up, noise, mode=mode, teacher=own_feedback(k))),
+               TOL_FREE)
+    # softmax head at config-2 widths, teacher-forced: class ids
+    mcs = get_config("shallow_laplace_single", ["model.head=softmax"]).model
+    pps = extract_plain_params(random_model(mcs, seed + 1))
+    q = mcs.quantize_channels
+    ids = torch.randint(0, q, (B, T), generator=g, device="cuda").float()
+    kw = dict(noise=noise, teacher=ids, fused=FUSED)
+    d = (mulaw_quantize(ar_kernel.generate(pps, mcs, c_up, **kw), q).long()
+         - mulaw_quantize(ar_kernel.generate_plain(pps, mcs, c_up, **kw),
+                          q).long()).abs()
+    flips = float((d != 0).float().mean())
+    checks.append({"check": "softmax_teacher_forced_ids",
+                   "max_bin_diff": int(d.max()), "limit_bins": 1,
+                   "flip_share": flips, "limit_share": 0.01,
+                   "ok": int(d.max()) <= 1 and flips < 0.01})
+    # segmented against unsegmented, both fused
+    record(f"segmented_{SEGMENT}_vs_unsegmented",
+           err(generate_segmented(pp, mc, c_up, noise, SEGMENT, fused=FUSED),
+               gen(c_up, noise)), 0.0)
+    # streamed equal to resident where both fit (config-2 widths with
+    # stack_size=8), and the time of each: the streamed layers' slots are
+    # read from global memory in the base stage
+    mc8 = get_config("shallow_laplace_single", ["model.stack_size=8"]).model
+    m8 = random_model(mc8, seed + 2)
+    pp8 = extract_plain_params(m8)
+    c8 = random_cond(mc8, m8, B, T, seed + 2)
+    stack8_ms = {}
+    for dtype in ("float32", "bfloat16"):
+        for stream, chunk in ((False, 64), (True, 64), (True, 32)):
+            def run8():
+                return ar_kernel.generate(pp8, mc8, c8, noise=noise,
+                                          dtype=dtype, stream=stream,
+                                          chunk=chunk, fused=FUSED)
+            out = run8()
+            if not stream:
+                res = out
+            else:
+                record(f"stack8_{dtype}_stream{chunk}_vs_resident",
+                       err(out, res), 0.0)
+            key = f"{dtype}_{'stream' if stream else 'resident'}{chunk}"
+            stack8_ms[key] = cuda_ms(run8, 2)
+    # the other windows, teacher-forced over the first steps
+    cw, nw, tw = (x[:, :FUSED_W_T].contiguous()
+                  for x in (c_up, noise, teacher))
+    for W in FUSED_WINDOWS:
+        record(f"W{W}_teacher_forced_{FUSED_W_T}",
+               err(gen(cw, nw, teacher=tw, fused=W),
+                   plain(cw, nw, teacher=tw, fused=W)), TOL_TEACHER)
+    result = {"B": B, "T": T, "fused": FUSED, "checks": checks,
+              "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+              "stack8_ms": stack8_ms}
+    emit("fused_kernel_vs_plain", **result)
+    for c in checks:
+        require(c["ok"], f"fused kernel vs plain: {c}")
+    return result
+
+
+def phase_deep_fused_times(mc, model, pp, seed: int) -> None:
+    """deep_baseline's fused and unfused variants on one batch, timed in
+    turns (unfused, fused, fused, unfused), on the fused layouts."""
+    B, T = 8, 1024
+    c = random_cond(mc, model, B, T, seed + 5)
+    n = ar_kernel.uniform_noise(
+        (B, T), torch.Generator(device="cuda").manual_seed(seed + 5))
+    times = {}
+    for dtype in ("float32", "bfloat16"):
+        layout = decode.kernel_layout(mc, dtype, fused=FUSED)
+        us = {0: [], FUSED: []}
+        for W in (0, FUSED, FUSED, 0):
+            us[W].append(1e3 * cuda_ms(lambda: ar_kernel.generate(
+                pp, mc, c, noise=n, **{**layout, "fused": W}), 2) / T)
+        times[dtype] = {"layout": layout, "unfused_us_per_step": us[0],
+                        "fused_us_per_step": us[FUSED]}
+    emit("deep_fused_times", B=B, T=T, times=times)
+
+
+def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
+    """The streaming session at config 2, B = 1, fused=4 and fused=0."""
+    mc, hop, sr = cfg.model, cfg.data.hop_length, cfg.data.sample_rate
+    frames = np.random.default_rng(seed + 9).standard_normal(
+        (1, STREAM_FRAMES, mc.aux_channels)).astype(np.float32)
+    with torch.no_grad():
+        full = model.upsample_cond(torch.from_numpy(frames).cuda())
+    block_s = STREAM_BLOCK * hop / sr
+    n_blocks = -(-STREAM_FRAMES // STREAM_BLOCK)
+    runs, checks = {}, []
+    for W in (FUSED, 0):
+        name = ar_kernel.variant("float32", False, W)
+        syn = StreamingSynthesizer(pp, model, mc, hop, batch=1,
+                                   block_frames=STREAM_BLOCK, seed=seed,
+                                   record_noise=True, fused=W)
+        ar_kernel.launches.clear()
+        pieces, pushes = [], []
+        for s0 in range(0, STREAM_FRAMES, STREAM_BLOCK):
+            t0 = time.perf_counter()
+            pieces.append(syn.push(frames[:, s0:s0 + STREAM_BLOCK]))
+            pushes.append((time.perf_counter() - t0, pieces[-1].shape[1]))
+        pieces.append(syn.flush())
+        launched = dict(ar_kernel.launches)
+        require(set(launched) == {name} and launched[name] == n_blocks,
+                f"the streaming session launched {name}: {launched}")
+        wav = np.concatenate(pieces, axis=1)
+        require(wav.shape == (1, STREAM_FRAMES * hop)
+                and bool(np.isfinite(wav).all()), "streamed samples")
+        # steady state: the pushes that emitted a warm-started block (every
+        # emitting push after the first)
+        steady = 1e3 * np.array([t for t, m in pushes if m > 0][1:])
+        # the kernel half: one call over the session's own conditioning
+        # and uniforms; the upsampler half: that conditioning against the
+        # whole utterance's
+        c_all, n_all = syn.cond_so_far(), syn.noise_so_far()
+        one_t = ar_kernel.generate(pp, mc, c_all, noise=n_all, fused=W)
+        one = one_t.cpu().numpy()
+        kerr, uerr = float(np.abs(one - wav).max()), err(c_all, full)
+        ulimit = TOL_UPSAMPLE * float(full.abs().max())
+        checks += [{"check": f"fused{W}_stream_vs_one_call",
+                    "max_abs_err": kerr, "limit": 0.0, "ok": kerr == 0.0},
+                   {"check": f"fused{W}_cond_vs_whole_upsampling",
+                    "max_abs_err": uerr, "limit": ulimit,
+                    "exact": uerr == 0.0,
+                    "share_differing": float((c_all != full).float().mean()),
+                    "ok": uerr <= ulimit}]
+        # the kernel against its plain version at this path's shapes (B = 1):
+        # the one call teacher-forced with its own samples over its first
+        # block and M steps into the second; and the second block's push
+        # call (M forced warm-up steps, then free running), kernel and plain
+        # on the same arguments, the kernel's output also equal to the
+        # stream's
+        n_blk, M = STREAM_BLOCK * hop, syn.M
+        Tp = n_blk + M
+        tf = err(ar_kernel.generate_plain(
+            pp, mc, c_all[:, :Tp], noise=n_all[:, :Tp],
+            teacher=own_feedback(one_t)[:, :Tp], fused=W), one_t[:, :Tp])
+        push = dict(noise=n_all[:, n_blk - M:2 * n_blk],
+                    teacher=one_t[:, n_blk - M - 1:n_blk - 1], warmup=M,
+                    fused=W)
+        kp = ar_kernel.generate(pp, mc, c_all[:, n_blk - M:2 * n_blk], **push)
+        pe = err(ar_kernel.generate_plain(
+            pp, mc, c_all[:, n_blk - M:2 * n_blk], **push), kp)
+        se = float(np.abs(kp[:, M:].cpu().numpy()
+                          - wav[:, n_blk:2 * n_blk]).max())
+        checks += [{"check": f"fused{W}_kernel_vs_plain_teacher_forced_{Tp}",
+                    "max_abs_err": tf, "limit": TOL_TEACHER,
+                    "ok": tf <= TOL_TEACHER},
+                   {"check": f"fused{W}_push_call_kernel_vs_plain",
+                    "max_abs_err": pe, "limit": TOL_FREE,
+                    "ok": pe <= TOL_FREE},
+                   {"check": f"fused{W}_push_call_vs_stream",
+                    "max_abs_err": se, "limit": 0.0, "ok": se == 0.0}]
+        runs[f"fused{W}"] = {
+            "variant": name, "launches": launched[name], "blocks": n_blocks,
+            "block_ms": 1e3 * block_s, "steady_pushes": len(steady),
+            "push_ms_mean": float(steady.mean()),
+            "push_ms_p95": float(np.percentile(steady, 95)),
+            "steady_rtf": float(steady.sum() / 1e3 / (len(steady) * block_s)),
+            "first_block_push_ms": 1e3 * [t for t, m in pushes if m > 0][0]}
+    emit("streaming", config=cfg.name, B=1, block_frames=STREAM_BLOCK,
+         frames=STREAM_FRAMES, hop=hop, warmup=syn.M, runs=runs,
+         checks=checks, card=smi)
+    for c in checks:
+        require(c["ok"], f"streaming: {c}")
+
+
+def phase_kfuse(smi: str) -> None:
+    ar_kernel.launches.clear()
+    rows = kfuse.sweep("shallow_laplace_single", batches=KFUSE_B,
+                       steps=KFUSE_T)
+    require(all(np.isfinite(r["us_per_step"]) and r["us_per_step"] > 0
+                for r in rows), "kfuse sweep times")
+    emit("kfuse_sweep", preset="shallow_laplace_single", T=KFUSE_T,
+         rows=rows, launches=dict(ar_kernel.launches), card=smi)
 
 
 def main(argv=None) -> int:
@@ -558,10 +869,20 @@ def main(argv=None) -> int:
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], nvcc=nvcc[-1])
     t0 = time.perf_counter()
-    libs = _build.build()
+    with tempfile.TemporaryDirectory() as tmp:
+        # a second nvcc, started beside the build, reports the registers of
+        # every kernel instantiation (ptxas -v)
+        ptxas = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(Path(tmp) / "v.so"), str(_build.CSRC / "ar_generate.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        libs = _build.build()
+        verbose = ptxas.communicate()[0]
+    require(ptxas.returncode == 0, "ptxas -v compile")
     emit("build", seconds=time.perf_counter() - t0,
          libs=sorted(str(v.relative_to(Path(__file__).resolve().parent))
-                     for v in libs.values()))
+                     for v in libs.values()),
+         registers=registers(verbose))
 
     cfg = get_config("shallow_laplace_single")
     model = random_model(cfg.model, args.seed)
@@ -572,6 +893,10 @@ def main(argv=None) -> int:
 
     check = phase_kernel_vs_plain(cfg.model, model, pp, args.seed)
     main_path = phase_main_path(cfg, model, pp, args.seed, smi)
+    fused_check = phase_fused_kernel_vs_plain(cfg.model, model, pp,
+                                              args.seed)
+    fused_main = phase_main_path(cfg, model, pp, args.seed, smi, FUSED,
+                                 main_path)
 
     dcfg = get_config("deep_baseline")
     dmodel = random_model(dcfg.model, args.seed)
@@ -583,6 +908,12 @@ def main(argv=None) -> int:
                                             args.seed)
     deep = [phase_deep_main_path(dcfg, dmodel, dpp, args.seed, smi, dt)
             for dt in ("float32", "bfloat16")]
+    deep_fused = [phase_deep_main_path(dcfg, dmodel, dpp, args.seed, smi, dt,
+                                       fused=FUSED)
+                  for dt in ("float32", "bfloat16")]
+    phase_deep_fused_times(dcfg.model, dmodel, dpp, args.seed)
+    phase_streaming(cfg, model, pp, args.seed, smi)
+    phase_kfuse(smi)
 
     source = "shallow_wavenet_tpu_torch/csrc/ar_generate.cu"
     kernels = [{
@@ -604,6 +935,17 @@ def main(argv=None) -> int:
             "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
             "library_ms": None, "check_ms": deep_check[key]["ms"],
             "check_plain_ms": deep_check[key]["plain_ms"]})
+    for d, replaces in ((fused_main, ":368"), (deep_fused[0], ":378"),
+                        (deep_fused[1], ":742")):
+        kernels.append({
+            "name": d["name"], "route": "cuda", "source": source,
+            "replaces": "shallow_wavenet_tpu/ops/ar_kernel.py" + replaces,
+            "launches": d["launches"], "max_abs_err": d["max_abs_err"],
+            "ms": d["ms"], "plain_ms": d["plain_ms"],
+            "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+            "library_ms": None})
+    kernels[-3].update(check_ms=fused_check["kernel_ms"],
+                       check_plain_ms=fused_check["plain_ms"])
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ padded batch with the CUDA AR kernel in one launch, trims every utterance to
 n_frames * hop and writes wavs plus decode_summary.json (audio-seconds/s,
 RTF and the kernel layout). There is no backend ladder: the card has one
 kernel, laid out as the first of KERNEL_LAYOUTS whose shared memory fits
-the device, chosen from sizes before any launch; a failure raises.
+the device, chosen from sizes before any launch; a failure raises. With
+--fused W the layout is the fused window's; unlike the JAX ladder, a fused
+layout that fits nowhere raises instead of dropping --fused.
 
     python -m shallow_wavenet_tpu_torch.bin.decode --preset shallow_laplace_single \
         --eval-scp eval.scp --feats-dir feats --stats stats.h5 \
@@ -16,6 +18,9 @@ the device, chosen from sizes before any launch; a failure raises.
     python -m shallow_wavenet_tpu_torch.bin.decode --preset deep_baseline \
         --kernel-dtype bfloat16 --eval-scp eval.scp --feats-dir feats \
         --stats stats.h5 --params params.npz --outdir out
+    python -m shallow_wavenet_tpu_torch.bin.decode --preset shallow_laplace_single \
+        --fused 4 --eval-scp eval.scp --feats-dir feats --stats stats.h5 \
+        --params params.npz --outdir out
 """
 
 from __future__ import annotations
@@ -59,12 +64,15 @@ KERNEL_LAYOUTS = (
 )
 
 
-def kernel_layout(model_cfg, kernel_dtype: str = "auto", device=None) -> dict:
+def kernel_layout(model_cfg, kernel_dtype: str = "auto", device=None,
+                  fused: int = 0) -> dict:
     """The first of KERNEL_LAYOUTS of `kernel_dtype` ("auto": any) whose
-    shared memory (the kernel's `ar_smem_bytes`) fits a block on the CUDA
-    `device`; on the CPU, where the plain version has no such limit, the
-    first of that dtype. A streamed layout that streams no layer is the
-    resident one and is skipped. Raises ValueError when none fits."""
+    shared memory (the kernel's `ar_smem_bytes`, for the fused window W
+    when fused > 0) fits a block on the CUDA `device`; on the CPU, where
+    the plain version has no such limit, the first of that dtype. A
+    streamed layout that streams no layer is the resident one and is
+    skipped. Returns the generate() keywords {"dtype", "stream", "chunk",
+    "fused"}. Raises ValueError when none fits."""
     dev = resolve_device(device)
     if kernel_dtype not in ("auto", *ar_kernel.DTYPES):
         raise ValueError(f"unknown kernel dtype {kernel_dtype!r}")
@@ -76,10 +84,12 @@ def kernel_layout(model_cfg, kernel_dtype: str = "auto", device=None) -> dict:
                                                  True)[1]:
             continue
         if limit is None or ar_kernel.smem_bytes(
-                model_cfg, dtype, stream, chunk) <= limit:
-            return {"dtype": dtype, "stream": stream, "chunk": chunk}
-    raise ValueError(f"no AR kernel layout of dtype {kernel_dtype!r} fits "
-                     f"the shared memory of a block on {dev}")
+                model_cfg, dtype, stream, chunk, fused) <= limit:
+            return {"dtype": dtype, "stream": stream, "chunk": chunk,
+                    "fused": fused}
+    raise ValueError(f"no AR kernel layout of dtype {kernel_dtype!r} and "
+                     f"fused={fused} fits the shared memory of a block on "
+                     f"{dev}")
 
 
 @torch.no_grad()
@@ -125,11 +135,11 @@ def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
 def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
                       generator, batch_size: int = 8,
                       segment_samples: int = 0, device=None,
-                      kernel_dtype: str = "auto") -> dict:
+                      kernel_dtype: str = "auto", fused: int = 0) -> dict:
     """Decode `utts` in batches, write `<outdir>/<name>` wavs and
     `decode_summary.json`; returns the summary. The kernel layout is
-    chosen once, from `kernel_dtype`, for every batch."""
-    layout = kernel_layout(cfg.model, kernel_dtype, device)
+    chosen once, from `kernel_dtype` and `fused`, for every batch."""
+    layout = kernel_layout(cfg.model, kernel_dtype, device, fused)
     log.info("AR kernel layout: %s", layout)
     outdir = Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
@@ -182,6 +192,11 @@ def main(argv=None):
                    help="restrict the AR kernel to one weight and ring dtype "
                         "(the float32 layouts give identical samples; "
                         "bfloat16 halves the rings' shared memory)")
+    p.add_argument("--fused", type=int, default=0,
+                   help="fused window W of the AR kernel: the residual "
+                        "recurrence expanded into the gate inputs within "
+                        "blocks of W layers (0: unfused; not bit-exact "
+                        "against it)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
@@ -202,7 +217,7 @@ def main(argv=None):
     decode_utterances(model, cfg, utts, names, args.outdir, generator,
                       batch_size=args.batch_size,
                       segment_samples=args.segment_samples, device=dev,
-                      kernel_dtype=args.kernel_dtype)
+                      kernel_dtype=args.kernel_dtype, fused=args.fused)
 
 
 if __name__ == "__main__":

@@ -39,21 +39,25 @@ def generate_fast(pp: dict, cfg: ModelConfig, c_up, noise=None,
 
 def generate_segmented(pp: dict, cfg: ModelConfig, c_up, noise,
                        seg_len: int, device=None, *, chunk: int = 64,
-                       dtype: str = "float32", stream: bool = False):
+                       dtype: str = "float32", stream: bool = False,
+                       fused: int = 0):
     """Generate (B, T) in kernel calls of at most seg_len output samples.
 
     Ring state is not carried between calls: each segment after the first
     starts M = warmup_length(cfg, chunk) steps early, forcing those steps'
     inputs from the previous segment's samples, which rebuilds every ring
     exactly (layer l's horizon is the prefix sum of dilations < M). The
-    output is therefore identical to one unsegmented call. chunk, dtype and
-    stream pass to every kernel call.
+    output is therefore identical to one unsegmented call. chunk, dtype,
+    stream and fused pass to every kernel call; the kernel's weights are
+    made once (`ar_kernel.kernel_weights`) for all of them.
     """
     B, T, _ = c_up.shape
     M = ar_kernel.warmup_length(cfg, chunk)
     if seg_len <= M:
         raise ValueError(f"seg_len must exceed the warm-start length {M}")
-    kw = dict(device=device, chunk=chunk, dtype=dtype, stream=stream)
+    pp = ar_kernel.kernel_weights(pp, cfg, dtype, fused, device)
+    kw = dict(device=device, chunk=chunk, dtype=dtype, stream=stream,
+              fused=fused)
     segs = []
     for s in range(0, T, seg_len):
         e = min(s + seg_len, T)

@@ -1,16 +1,17 @@
 """Persistent AR generation: the wrapper around `csrc/ar_generate.cu` and its
 plain PyTorch version.
 
-Same contract as `generate_pallas` in shallow_wavenet_tpu/ops/ar_kernel.py,
-in its unfused form: c_up (B, T, C) fp32 and one uniform per (row, step)
-in, (B, T) fp32 waveform out; Laplace or softmax head; "sample" or
-"greedy"; an optional teacher stream that forces the feedback input on
-every step, or on steps t < warmup only (the warm-start of segmented
-generation); `dtype` "float32" or "bfloat16" (bf16 weights and rings, fp32
-accumulation and sampling); `stream` keeps the rings of the layers
-`stream_split` picks for `chunk` in global memory instead of shared
-memory. Softmax class ids are dequantized here, outside the kernel, with
-the same op on both versions.
+Same contract as `generate_pallas` in shallow_wavenet_tpu/ops/ar_kernel.py:
+c_up (B, T, C) fp32 and one uniform per (row, step) in, (B, T) fp32
+waveform out; Laplace or softmax head; "sample" or "greedy"; an optional
+teacher stream that forces the feedback input on every step, or on steps
+t < warmup only (the warm-start of segmented generation); `dtype`
+"float32" or "bfloat16" (bf16 weights and rings, fp32 accumulation and
+sampling); `stream` keeps the rings of the layers `stream_split` picks for
+`chunk` in global memory instead of shared memory; `fused` = W expands the
+residual recurrence into the gate inputs within blocks of W layers (the
+fused window, `fused_weights`). Softmax class ids are dequantized here,
+outside the kernel, with the same op on both versions.
 
 On a CUDA tensor `generate` launches the kernel (one launch for the whole
 batch; the time loop runs inside it) or raises; on a CPU tensor it runs the
@@ -21,14 +22,17 @@ Where a ring is stored does not change the numbers, so the plain version
 keeps every ring in one tensor. `launches` counts kernel launches by
 variant.
 
-How the bf16 weights reach the kernel: the wrapper casts them once per
-call (`_prepare`). At deep_baseline that is 16 MB of fp32 read once on the
-card, against a call of thousands of sample steps.
+How the weights reach the kernel: `kernel_weights` casts them (bf16) and,
+for the fused window, forms its weight products as fp32 matmuls, then
+casts them (as the JAX wrapper computes them outside `pallas_call`). A
+call given plain params does this once per call (at deep_baseline, 16 MB
+of fp32 read once on the card, against thousands of sample steps); a
+caller that makes many calls passes the `KernelWeights` it made once.
 
-Not carried over from the TPU kernel: `fused` (ROADMAP B6) raises
-NotImplementedError; the chunk grid, lane padding and the VMEM estimate/
-probe are Mosaic artifacts, and `chunk` only picks the streamed layers. In
-their place `check_supported` raises on a config the recurrence cannot
+Not carried over from the TPU kernel: the chunk grid, lane padding and the
+VMEM estimate/probe are Mosaic artifacts (zero pads add exact zeros, so
+dropping them changes no sum), and `chunk` only picks the streamed layers.
+In their place `check_supported` raises on a config the recurrence cannot
 take, `smem_bytes` asks the kernel's own layout function what one block
 needs, and the kernel's C entry refuses, before it runs, a config whose
 layers, classes or shared memory it cannot hold (ValueError here).
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import dataclasses
 
 import torch
 
@@ -82,11 +87,104 @@ def _streamed_mask(cfg: ModelConfig, chunk: int, stream: bool):
     return (ctypes.c_int * L)(*(int(l in strm) for l in range(L)))
 
 
-def variant(dtype: str, streamed: bool) -> str:
+def variant(dtype: str, streamed: bool, fused: int = 0) -> str:
     """The kernel variant's name, as `launches` counts it."""
     tags = [t for t, on in (("bf16", dtype == "bfloat16"),
-                            ("stream", streamed)) if on]
+                            ("stream", streamed),
+                            (f"fused{fused}", fused > 0)) if on]
     return "ar_generate" + (f"[{','.join(tags)}]" if tags else "")
+
+
+def fused_blocks(n_layers: int, fused: int):
+    """Contiguous layer windows of the fused form (a copy of the JAX
+    package's `_fused_blocks`)."""
+    return tuple(tuple(range(b, min(b + fused, n_layers)))
+                 for b in range(0, n_layers, fused))
+
+
+def fused_weights(pp: dict, cfg: ModelConfig, fused: int) -> dict:
+    """The fused window's weights, fp32, from plain params (the JAX
+    wrapper's construction without its lane padding):
+
+      fm: every layer's [skip_w | res_w | res_w @ W1_m for each later layer
+          m of its block], (G/2, S + R + rem_l * G), flattened and packed in
+          layer order (as the kernel's `pack_fm` reads them; `fm_layers`
+          splits them again);
+      conv_b: (L, G), each layer's bias plus res_b_j @ W1_m of every
+          earlier layer j of its block, added in layer order.
+
+    The block input's weights are the layers' own tap-1 weights side by
+    side, which the kernel reads from conv_w.
+    """
+    f32 = {k: torch.as_tensor(v, dtype=torch.float32) for k, v in pp.items()}
+    w1 = f32["conv_w"][:, 1]                                 # (L, R, G)
+    conv_b = f32["conv_b"].clone()
+    fm = []
+    for blk in fused_blocks(len(cfg.dilations), fused):
+        for k, l in enumerate(blk):
+            parts = [f32["skip_w"][l], f32["res_w"][l]]
+            for m in blk[k + 1:]:
+                parts.append(f32["res_w"][l] @ w1[m])
+                conv_b[m] = conv_b[m] + f32["res_b"][l] @ w1[m]
+            fm.append(torch.cat(parts, dim=-1).reshape(-1))
+    return {"fm": torch.cat(fm), "conv_b": conv_b}
+
+
+def fm_layers(fm, cfg: ModelConfig, fused: int):
+    """The packed fused projections (`fused_weights`) as one
+    (G/2, S + R + rem_l * G) matrix per layer, in layer order."""
+    half = cfg.gate_channels // 2
+    cols = [cfg.skip_channels + cfg.residual_channels
+            + (len(blk) - 1 - k) * cfg.gate_channels
+            for blk in fused_blocks(len(cfg.dilations), fused)
+            for k in range(len(blk))]
+    return [m.reshape(half, c)
+            for m, c in zip(fm.split([half * c for c in cols]), cols)]
+
+
+def _check_kind(dtype: str, fused: int) -> None:
+    if fused < 0:
+        raise ValueError("fused must be >= 0 (0 disables the fused window)")
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
+                         f"{dtype!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelWeights:
+    """Plain params as the kernel reads them, for one dtype and fused
+    window, on one device (`kernel_weights`). A caller that makes many
+    calls with the same weights (the streaming session, segmented
+    generation) makes them once and passes them to `generate` in place of
+    the plain params."""
+    tensors: dict
+    dtype: str
+    fused: int
+
+
+def kernel_weights(pp, cfg: ModelConfig, dtype: str = "float32",
+                   fused: int = 0, device=None) -> KernelWeights:
+    """The kernel's weights from plain params, on `device` (None: CUDA):
+    the input projection (or the softmax embedding) as in_w/in_b, with
+    fused = W the fused window's `fm` and folded conv_b in place of res_w,
+    skip_w and conv_b, every tensor cast to `dtype`. Given KernelWeights,
+    returns them."""
+    if isinstance(pp, KernelWeights):
+        return pp
+    _check_kind(dtype, fused)
+    dev = resolve_device(device)
+    w = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
+         for k, v in pp.items()}
+    if cfg.head == "softmax":
+        w["in_w"] = w.pop("input_embed")
+        w["in_b"] = torch.zeros(cfg.residual_channels, device=dev)
+    else:
+        w["in_w"], w["in_b"] = w.pop("input_w"), w.pop("input_b")
+    if fused:
+        w.update(fused_weights(w, cfg, fused))
+        del w["res_w"], w["skip_w"]
+    return KernelWeights({k: v.to(DTYPES[dtype]).contiguous()
+                          for k, v in w.items()}, dtype, fused)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -112,12 +210,7 @@ def uniform_noise(shape, generator: torch.Generator):
 
 def _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
              unroll, dev, chunk, fused, dtype):
-    if fused:
-        raise NotImplementedError("fused=W (fused-window kernel) is ROADMAP "
-                                  "item B6")
-    if dtype not in DTYPES:
-        raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
-                         f"{dtype!r}")
+    _check_kind(dtype, fused)
     if chunk < 32 or chunk % 32 != 0:
         raise ValueError("chunk must be a multiple of 32")
     if mode not in ("sample", "greedy"):
@@ -156,15 +249,14 @@ def _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
         teacher = stream_of(teacher, 0.0, "teacher")
         n_forced = T if warmup == 0 else min(warmup, T)
 
-    w = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
-         for k, v in pp.items()}
-    if cfg.head == "softmax":
-        w["in_w"] = w.pop("input_embed")
-        w["in_b"] = torch.zeros(cfg.residual_channels, device=dev)
-    else:
-        w["in_w"], w["in_b"] = w.pop("input_w"), w.pop("input_b")
-    w = {k: v.to(DTYPES[dtype]).contiguous() for k, v in w.items()}
-    return c_up, noise, teacher, n_forced, w
+    w = kernel_weights(pp, cfg, dtype, fused, dev)
+    if (w.dtype, w.fused) != (dtype, fused) or any(
+            v.device != c_up.device for v in w.tensors.values()):
+        raise ValueError(
+            f"kernel weights are for dtype={w.dtype!r}, fused={w.fused} on "
+            f"{next(iter(w.tensors.values())).device}; the call asks for "
+            f"dtype={dtype!r}, fused={fused} on {c_up.device}")
+    return c_up, noise, teacher, n_forced, w.tensors
 
 
 def _finish(cfg: ModelConfig, raw):
@@ -173,14 +265,16 @@ def _finish(cfg: ModelConfig, raw):
     return raw
 
 
-def generate(pp: dict, cfg: ModelConfig, c_up, noise=None,
+def generate(pp, cfg: ModelConfig, c_up, noise=None,
              mode: str = "sample", teacher=None, warmup: int = 0,
              generator=None, unroll: int = 1, device=None, *,
              chunk: int = 64, stream: bool = False, fused: int = 0,
              dtype: str = "float32"):
     """AR generation; returns (B, T) fp32 on `device`.
 
-    pp: plain params (models.wavenet.extract_plain_params); c_up (B, T, C).
+    pp: plain params (models.wavenet.extract_plain_params), or the
+    `KernelWeights` made from them for this call's dtype, fused window and
+    device (ValueError otherwise); c_up (B, T, C).
     noise: (B, <=T) uniforms in (0, 1), padded with 0.5; drawn from
     `generator` in [1e-7, 1 - 1e-7] when omitted (sample mode).
     teacher: optional (B, <=T) forced feedback stream (samples, or class ids
@@ -194,19 +288,23 @@ def generate(pp: dict, cfg: ModelConfig, c_up, noise=None,
     stream, chunk: keep the rings of the layers whose dilation is a >1
     multiple of `chunk` (a multiple of 32) in global memory; the samples do
     not change.
+    fused: W > 0 runs the fused window over blocks of W layers: equal to
+    fused=0 in exact arithmetic, not to the bit (its sums run in another
+    order); 0 is the unfused form.
     """
     dev = resolve_device(device)
     args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
                     unroll, dev, chunk, fused, dtype)
     if args[0].is_cuda:
         raw = _launch(cfg, mode == "greedy", *args, dtype=dtype,
-                      streamed=_streamed_mask(cfg, chunk, stream))
+                      streamed=_streamed_mask(cfg, chunk, stream),
+                      fused=fused)
     else:
-        raw = _plain(cfg, mode == "greedy", *args)
+        raw = _plain(cfg, mode == "greedy", *args, fused=fused)
     return _finish(cfg, raw)
 
 
-def generate_plain(pp: dict, cfg: ModelConfig, c_up, noise=None,
+def generate_plain(pp, cfg: ModelConfig, c_up, noise=None,
                    mode: str = "sample", teacher=None, warmup: int = 0,
                    generator=None, unroll: int = 1, device=None, *,
                    chunk: int = 64, stream: bool = False, fused: int = 0,
@@ -221,16 +319,21 @@ def generate_plain(pp: dict, cfg: ModelConfig, c_up, noise=None,
     product is of two bf16 values, hence exact in fp32, so with the Laplace
     head this is the kernel's arithmetic operation for operation: on a card
     it meets the kernel to the bit wherever torch's tanh, exp and log1p
-    give the kernel's values. Slow: one torch op per k.
+    give the kernel's values. With `fused`, every gate input is summed in
+    the kernel's order too: its base (tap 0, folded bias, conditioning),
+    then the block input, then each earlier layer's P term in layer order.
+    Slow on the CPU: one torch op per k (on CUDA, one cumsum per dot).
     """
     dev = resolve_device(device)
     args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
                     unroll, dev, chunk, fused, dtype)
-    return _finish(cfg, _plain(cfg, mode == "greedy", *args, chain=chain))
+    return _finish(cfg, _plain(cfg, mode == "greedy", *args, fused=fused,
+                               chain=chain))
 
 
 @torch.no_grad()
-def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, chain=False):
+def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
+           chain=False):
     B, T, C = c_up.shape
     dil = cfg.dilations
     L, R, G, S = (len(dil), cfg.residual_channels, cfg.gate_channels,
@@ -254,9 +357,16 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, chain=False):
         if not chain:
             return [x @ m for x, m in pairs]
         p = torch.cat([x[:, :, None] * m[None] for x, m in pairs], dim=-1)
-        acc = torch.zeros_like(p[:, 0])
-        for k in range(p.shape[1]):
-            acc += p[:, k]
+        if p.is_cuda:
+            # ATen's CUDA cumsum over a dim that is not the innermost gives
+            # each output one thread that adds in k order in fp32, from 0:
+            # the same chain in one launch
+            acc = p.cumsum(1)[:, -1]
+        else:
+            # the CPU's cumsum accumulates in double: add step by step
+            acc = torch.zeros_like(p[:, 0])
+            for k in range(p.shape[1]):
+                acc += p[:, k]
         return acc.split([m.shape[1] for _, m in pairs], dim=-1)
 
     def sigmoid(x):
@@ -264,7 +374,14 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, chain=False):
 
     rings = torch.zeros(sum(dil), B, R, device=dev)
     cond_wcat = w["cond_w"].permute(1, 0, 2).reshape(C, L * G)
-    rs_w = torch.cat([w["skip_w"], w["res_w"]], dim=-1)     # (L, G/2, S+R)
+    if fused:
+        blocks = fused_blocks(L, fused)
+        fm = fm_layers(w["fm"], cfg, fused)
+        # the block input's weights: its layers' tap-1 weights side by side
+        w1cat = [torch.cat([w["conv_w"][l, 1] for l in blk], dim=-1)
+                 for blk in blocks]
+    else:
+        rs_w = torch.cat([w["skip_w"], w["res_w"]], dim=-1)  # (L, G/2, S+R)
     rs_b = torch.cat([w["skip_b"], w["res_b"]], dim=-1)
     fb = torch.full((B,), float(cfg.quantize_channels // 2) if softmax
                     else 0.0, device=dev)
@@ -278,17 +395,40 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, chain=False):
                     + w["in_b"][None, :])
         (cc,) = dots((rnd(c_up[:, t]), cond_wcat))
         skip = torch.zeros(B, S, device=dev)
-        for l in range(L):
-            slot = offs[l] + (t & (dil[l] - 1))
-            g0, g1 = dots((rings[slot], w["conv_w"][l, 0]),
-                          (h, w["conv_w"][l, 1]))
-            u = ((g0 + g1) + w["conv_b"][l]) + cc[:, l * G:(l + 1) * G]
-            z = rnd(torch.tanh(u[:, :half]) * sigmoid(u[:, half:]))
-            rings[slot] = h
-            (rs,) = dots((z, rs_w[l]))
-            rs = rs + rs_b[l]
-            h = rnd(h + rs[:, S:])
-            skip = skip + rs[:, :S]
+        slots = [offs[l] + (t & (dil[l] - 1)) for l in range(L)]
+        if fused:
+            # every layer's base, then per block: the block input, then
+            # each layer's z @ [skip | res | P toward the later layers]
+            taps = dots(*((rings[slots[l]], w["conv_w"][l, 0])
+                          for l in range(L)))
+            base = [(taps[l] + w["conv_b"][l]) + cc[:, l * G:(l + 1) * G]
+                    for l in range(L)]
+            for bi, blk in enumerate(blocks):
+                (a,) = dots((h, w1cat[bi]))
+                us = [base[l] + a[:, k * G:(k + 1) * G]
+                      for k, l in enumerate(blk)]
+                for k, l in enumerate(blk):
+                    z = rnd(torch.tanh(us[k][:, :half])
+                            * sigmoid(us[k][:, half:]))
+                    (o,) = dots((z, fm[l]))
+                    for q in range(k + 1, len(blk)):
+                        p0 = S + R + (q - k - 1) * G
+                        us[q] = us[q] + o[:, p0:p0 + G]
+                    rs = o[:, :S + R] + rs_b[l]
+                    rings[slots[l]] = h
+                    h = rnd(h + rs[:, S:])
+                    skip = skip + rs[:, :S]
+        else:
+            for l in range(L):
+                g0, g1 = dots((rings[slots[l]], w["conv_w"][l, 0]),
+                              (h, w["conv_w"][l, 1]))
+                u = ((g0 + g1) + w["conv_b"][l]) + cc[:, l * G:(l + 1) * G]
+                z = rnd(torch.tanh(u[:, :half]) * sigmoid(u[:, half:]))
+                rings[slots[l]] = h
+                (rs,) = dots((z, rs_w[l]))
+                rs = rs + rs_b[l]
+                h = rnd(h + rs[:, S:])
+                skip = skip + rs[:, :S]
         o = rnd(torch.relu(skip))
         (o,) = dots((o, w["head1_w"]))
         o = rnd(torch.relu(o + w["head1_b"]))
@@ -311,10 +451,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ar_generate")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ints = ctypes.POINTER(i32)
-    lib.ar_generate.argtypes = ([ptr] * 18 + [ints, ints] + [i32] * 13
+    lib.ar_generate.argtypes = ([ptr] * 19 + [ints, ints] + [i32] * 14
                                 + [f32, f32, ptr])
     lib.ar_generate.restype = i32
-    lib.ar_smem_bytes.argtypes = [ints, ints] + [i32] * 7
+    lib.ar_smem_bytes.argtypes = [ints, ints] + [i32] * 8
     lib.ar_smem_bytes.restype = ctypes.c_longlong
     lib.ar_smem_limit.argtypes = [ints]
     lib.ar_smem_limit.restype = i32
@@ -329,7 +469,7 @@ def _refusal(lib, err: int) -> ValueError:
 
 
 def smem_bytes(cfg: ModelConfig, dtype: str = "float32",
-               stream: bool = False, chunk: int = 64) -> int:
+               stream: bool = False, chunk: int = 64, fused: int = 0) -> int:
     """Shared memory one block of the CUDA kernel needs for this layout,
     from the kernel's own layout function (builds the kernel's library)."""
     lib = _lib()
@@ -338,7 +478,8 @@ def smem_bytes(cfg: ModelConfig, dtype: str = "float32",
     n = lib.ar_smem_bytes(dil, _streamed_mask(cfg, chunk, stream),
                           len(cfg.dilations), cfg.residual_channels,
                           cfg.gate_channels, cfg.skip_channels,
-                          cfg.cond_channels, O, int(dtype == "bfloat16"))
+                          cfg.cond_channels, O, int(dtype == "bfloat16"),
+                          fused)
     if n < 0:
         raise _refusal(lib, n)
     return n
@@ -357,7 +498,7 @@ def smem_limit(device) -> int:
 
 
 def _launch(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
-            streamed):
+            streamed, fused):
     lib = _lib()
     B, T, C = c_up.shape
     R = cfg.residual_channels
@@ -370,23 +511,27 @@ def _launch(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
                              device=c_up.device) if strm_rows else None)
     softmax = cfg.head == "softmax"
     O = cfg.quantize_channels if softmax else 2
+
+    def ptr(k):
+        return w[k].data_ptr() if k in w else None
+
     with torch.cuda.device(c_up.device):
         err = lib.ar_generate(
             c_up.data_ptr(), noise.data_ptr(),
             None if teacher is None else teacher.data_ptr(), out.data_ptr(),
-            *(w[k].data_ptr() for k in (
+            *(ptr(k) for k in (
                 "in_w", "in_b", "conv_w", "conv_b", "cond_w", "res_w",
                 "res_b", "skip_w", "skip_b", "head1_w", "head1_b",
-                "head2_w", "head2_b")),
+                "head2_w", "head2_b", "fm")),
             None if strm_ring is None else strm_ring.data_ptr(),
             dil, streamed, B, T, L, R, cfg.gate_channels, cfg.skip_channels,
             C, cfg.quantize_channels, O, int(softmax), int(greedy), n_forced,
-            int(dtype == "bfloat16"), cfg.log_b_min, cfg.log_b_max,
+            int(dtype == "bfloat16"), fused, cfg.log_b_min, cfg.log_b_max,
             torch.cuda.current_stream().cuda_stream)
     if err < 0:
         raise _refusal(lib, err)
     if err != 0:
         raise RuntimeError("ar_generate launch failed: "
                            + lib.ar_error_string(err).decode())
-    launches[variant(dtype, strm_rows > 0)] += 1
+    launches[variant(dtype, strm_rows > 0, fused)] += 1
     return out

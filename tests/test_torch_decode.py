@@ -123,13 +123,51 @@ def test_decode_cli_writes_wavs_and_summary(tmp_path):
                             "wall_seconds", "rtf", "audio_seconds_per_s",
                             "kernel"}
     assert summary["kernel"] == {"dtype": "bfloat16", "stream": False,
-                                 "chunk": 64}
+                                 "chunk": 64, "fused": 0}
     assert summary["utterances"] == 2
     assert summary["audio_seconds"] == pytest.approx(80 / 8000)
     for name, f in frames.items():
         with wave.open(str(out / f"{name}.wav")) as w:
             assert w.getnframes() == f * cfg.data.hop_length
             assert w.getframerate() == 8000
+
+
+def test_decode_cli_fused(tmp_path):
+    """--fused W reaches the plain generator and the summary; the samples
+    stay within the fused window's tolerance of the unfused decode."""
+    cfg = _cfg("laplace")
+    state = _state(cfg)
+    pcfg, model = _port_model(cfg, state)
+    save_params_npz(tmp_path / "params.npz",
+                    jax.tree.map(np.asarray, state.params))
+    (tmp_path / "config.json").write_text(pcfg.to_json())
+    feats_dir = tmp_path / "feats"
+    feats_dir.mkdir()
+    with h5py.File(feats_dir / "spk0_utt0.h5", "w") as h:
+        h.create_dataset("feats", data=_feats(cfg, (7,))[0])
+    (tmp_path / "eval.scp").write_text("/corpus/spk0_utt0.wav\n")
+    def run(fused):
+        out = tmp_path / f"out{fused}"
+        decode.main(["--config", str(tmp_path / "config.json"),
+                     "--eval-scp", str(tmp_path / "eval.scp"),
+                     "--feats-dir", str(feats_dir),
+                     "--params", str(tmp_path / "params.npz"),
+                     "--outdir", str(out), "--fused", str(fused),
+                     "--device", "cpu"])
+        return out
+
+    wavs = {}
+    for fused in (0, 3):
+        out = run(fused)
+        summary = json.loads((out / "decode_summary.json").read_text())
+        assert summary["kernel"] == {"dtype": "float32", "stream": False,
+                                     "chunk": 64, "fused": fused}
+        with wave.open(str(out / "spk0_utt0.wav")) as w:
+            wavs[fused] = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+    assert len(wavs[3]) == 7 * cfg.data.hop_length
+    assert np.abs(wavs[3].astype(int) - wavs[0].astype(int)).max() <= 1
+    with pytest.raises(ValueError, match="fused"):
+        run(-1)
 
 
 def test_decode_entry_points_raise_without_cuda(monkeypatch, tmp_path):

@@ -106,15 +106,16 @@ def test_kernel_layout_order_and_refusal(monkeypatch):
     stand-in for the kernel's own layout function."""
     deep = get_config("deep_baseline").model
     assert decode.kernel_layout(deep, "auto", "cpu") == {
-        "dtype": "float32", "stream": False, "chunk": 64}
+        "dtype": "float32", "stream": False, "chunk": 64, "fused": 0}
     assert decode.kernel_layout(deep, "bfloat16", "cpu")["dtype"] == "bfloat16"
     with pytest.raises(ValueError, match="kernel dtype"):
         decode.kernel_layout(deep, "float16", "cpu")
 
     asked = []
 
-    def fake_bytes(cfg, dtype, stream, chunk):
+    def fake_bytes(cfg, dtype, stream, chunk, fused):
         asked.append((dtype, stream, chunk))
+        assert fused == 0
         return {("float32", True, 32): 1000, ("bfloat16", True, 64): 1500}.get(
             (dtype, stream, chunk), 10**6)
 
@@ -122,7 +123,7 @@ def test_kernel_layout_order_and_refusal(monkeypatch):
     monkeypatch.setattr(ar_kernel, "smem_limit", lambda dev: 2000)
     monkeypatch.setattr(ar_kernel, "smem_bytes", fake_bytes)
     assert decode.kernel_layout(deep) == {"dtype": "float32", "stream": True,
-                                          "chunk": 32}
+                                          "chunk": 32, "fused": 0}
     assert asked == [("float32", False, 64), ("float32", True, 64),
                      ("float32", True, 32)]
     assert decode.kernel_layout(deep, "bfloat16")["chunk"] == 64

@@ -94,6 +94,8 @@ def test_port_imports_no_jax():
         "import shallow_wavenet_tpu_torch\n"
         "import shallow_wavenet_tpu_torch.bin.decode\n"
         "import shallow_wavenet_tpu_torch.models.generate\n"
+        "import shallow_wavenet_tpu_torch.models.streaming\n"
+        "import shallow_wavenet_tpu_torch.bin.kfuse\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'flax', "
         "'shallow_wavenet_tpu') or m.startswith(('jax.', 'jaxlib.', 'flax.', "
         "'shallow_wavenet_tpu.'))]\n"
@@ -145,7 +147,7 @@ def _tiny():
 
 @pytest.mark.parametrize("kw, exc, match", [
     (dict(stream=True, chunk=48), ValueError, "chunk"),
-    (dict(fused=3), NotImplementedError, "B6"),
+    (dict(fused=-1), ValueError, "fused"),
     (dict(dtype="float16"), ValueError, "dtype"),
     (dict(warmup=4), ValueError, "teacher"),
     (dict(warmup=-1, teacher=torch.zeros(2, 10)), ValueError, "warmup"),
