@@ -6,9 +6,10 @@
 Phases, each printing one JSON line; any failure exits nonzero:
   1. toolchain: the card (nvidia-smi name and power limit), torch, CUDA and
      nvcc versions; then every kernel in shallow_wavenet_tpu_torch/csrc is
-     built (one nvcc per source, started together) and the build timed,
-     with the registers of every AR kernel instantiation (ptxas -v, from an
-     nvcc started beside the build);
+     built (one nvcc per source, all started together; the registers of
+     every instantiation are read from ptxas's report in the build logs):
+     `build` waits for the AR kernel, and the probes' builds go on beside
+     phases 2-11 (`probe_build` waits for them before phase 12);
   2. weights: config 2 (shallow_laplace_single) at full width, random
      flax-layout weights from --seed with a random head2 (zero in the flax
      init), loaded through params_from_flax;
@@ -75,7 +76,22 @@ Phases, each printing one JSON line; any failure exits nonzero:
      call (kernel and plain on the same arguments; the kernel's output
      equal to the stream's);
   11. kfuse sweep: bin.kfuse at config 2, B = 1, 8, 32, T = 2048,
-     W = 0, 2, 3, 4, 6 (us per step).
+     W = 0, 2, 3, 4, 6 (us per step);
+  12. kprobe: the AR step's ablation probe (ops.ar_probe) at config 2 on
+     the TPU probe's recipe of weights, fp32 and bf16: no_resskip refused
+     before launch (S > G/2); the bin.kprobe sweep (B = 1, 8, 32, T = 2048,
+     us per step and saving per ablation, launches by variant), and every
+     call it timed checked on its own inputs over all its steps: full
+     equal to ar_generate and unroll2, unroll4, split2 (and gate_bf16 in
+     fp32) equal to full, exactly; every fp32 ablation against its plain
+     version fed the kernel's own samples, every bf16 one to the bit
+     against the plain version that sums in the kernel's order, with the
+     fp32 control; full and ar_generate timed in turns at B = 8;
+  13. dma_probe: the ring-window copy probe (ops.ring_probe), bulk copy
+     (TMA) and cp.async, exactly equal to the plain version and the closed
+     form at the TPU probe's shape (B = 8, 8 chunks), at one block per SM
+     over 64 chunks, and at each batch with the other chunk count, with
+     their times and rates.
 Then the card's nvidia-smi line, the kernels' JSON line and, last,
 {"ok": true, "device": {...}}. Without CUDA, or outside the repo, it exits
 nonzero before printing any result.
@@ -85,6 +101,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -95,7 +112,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from shallow_wavenet_tpu_torch.bin import decode, kfuse
+from shallow_wavenet_tpu_torch.bin import decode, dma_probe, kfuse, kprobe
 from shallow_wavenet_tpu_torch.config import get_config
 from shallow_wavenet_tpu_torch.data.dataset import (
     Utterance, pad_batch_for_decode,
@@ -105,7 +122,9 @@ from shallow_wavenet_tpu_torch.models.streaming import StreamingSynthesizer
 from shallow_wavenet_tpu_torch.models.wavenet import (
     WaveNet, extract_plain_params, init_params_tree, params_from_flax,
 )
-from shallow_wavenet_tpu_torch.ops import _build, ar_kernel
+from shallow_wavenet_tpu_torch.ops import (
+    _build, ar_kernel, ar_probe, ring_probe,
+)
 from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_quantize
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
@@ -165,6 +184,19 @@ FUSED_WINDOWS, FUSED_W_T = (2, 3, 5), 1024
 STREAM_BLOCK, STREAM_FRAMES = 6, 150
 TOL_UPSAMPLE = 2.0 ** -6
 KFUSE_B, KFUSE_T = (1, 8, 32), 2048
+# the ablation probe at config 2 (its recipe of weights, std 0.05): the
+# sweep runs every ablation at KPROBE_B rows over KPROBE_T steps, and the
+# first call of each (B, ablation) is checked on its own inputs: full
+# against ar_generate and the schedules against full, exactly; every fp32
+# ablation against its plain version fed the kernel's own samples, at
+# TOL_TEACHER; every bf16 ablation against the plain version that sums in
+# the kernel's order (`chain=True`), to the bit (TOL_CHAIN), over every
+# step (past twice the largest dilation, 512, so every ring is written and
+# read), where the fp32 plain version, the control, must miss by more than
+# KPROBE_CONTROL_MIN (its smallest miss on one first step of the CPU
+# tests' config: 5.4e-4).
+KPROBE_B, KPROBE_T = (1, 8, 32), 2048
+KPROBE_CONTROL_MIN = 1e-4
 
 
 def emit(phase: str, **kw):
@@ -184,17 +216,42 @@ def smi_line() -> str:
 
 
 def registers(ptxas_log: str) -> dict:
-    """{"fp32|bf16,unfused|fused": registers} from `ptxas -v` output."""
+    """{"fp32|bf16,unfused|fused": registers} of the AR kernel and
+    {"ar_probe,fp32|bf16,<ablation>": registers} of the probe kernel, from
+    `ptxas -v` output (other kernels' entries are skipped)."""
     regs, entry = {}, None
     for line in ptxas_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
+            if not re.search(r"ar_(generate|probe)_kernel", entry):
+                entry = None
         elif entry and "registers" in line:
-            key = (("bf16" if "bfloat16" in entry else "fp32") + ","
-                   + ("fused" if "Lb1E" in entry else "unfused"))
+            dtype = "bf16" if "bfloat16" in entry else "fp32"
+            probe = re.search(r"ar_probe_kernel.*?Li(\d+)E", entry)
+            if probe:
+                key = (f"ar_probe,{dtype},"
+                       f"{ar_probe.ABLATIONS[int(probe.group(1))]}")
+            else:
+                key = dtype + "," + ("fused" if "Lb1E" in entry
+                                     else "unfused")
             regs[key] = int(line.split("Used")[1].split("registers")[0])
             entry = None
     return regs
+
+
+def start_builds() -> dict:
+    """Phase 1's compiles, all started together: one nvcc per kernel source
+    (`_build.start`). The early phases wait only for the AR kernel; the
+    probes' builds go on beside them (`finish_builds`)."""
+    return {"t0": time.perf_counter(), "nvcc": _build.start()}
+
+
+def finish_builds(builds: dict, names) -> tuple[dict, dict]:
+    """Wait for the named sources' builds: returns ({name: library},
+    registers), the registers from ptxas's report in each build's log."""
+    libs = _build.finish({n: builds["nvcc"].pop(n) for n in names})
+    return libs, registers("\n".join(_build.log_path(n).read_text()
+                                     for n in names))
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -851,6 +908,160 @@ def phase_kfuse(smi: str) -> None:
          rows=rows, launches=dict(ar_kernel.launches), card=smi)
 
 
+def phase_kprobe(smi: str) -> dict:
+    """The AR step's ablation probe at config 2, fp32 and bf16: no_resskip
+    refused before launch; the bin.kprobe sweep (the phase's main path, its
+    launches counted by variant), each of its calls checked on its own
+    inputs (see KPROBE_* above); full and ar_generate timed in turns
+    (full, ar_generate, ar_generate, full) at B = 8; and the plain version
+    of full, free running, timed at B = 8 and held against the kernel."""
+    mc = get_config("shallow_laplace_single").model
+    require((mc.log_b_min, mc.log_b_max) == ar_probe.LOG_B_CLIP,
+            "config 2 clips log_b where the probe does")
+    w = {dt: {k: v.cuda() for k, v in ar_probe.probe_weights(mc, dt).items()}
+         for dt in ar_kernel.DTYPES}
+    defined = [ab for ab in ar_probe.ABLATIONS if ab != "no_resskip"]
+    checks = []
+
+    def record(name, e, limit, **kw):
+        checks.append({"check": name, "max_abs_err": e, "limit": limit,
+                       "ok": e <= limit, **kw})
+
+    # no_resskip is undefined at config 2 (S = 128 > G/2 = 64): refused
+    # before launch
+    try:
+        ar_probe.probe(w["float32"], mc, torch.zeros(128, 2, mc.cond_channels,
+                                                     device="cuda"),
+                       torch.full((128, 2), 0.5, device="cuda"), "no_resskip")
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    checks.append({"check": "no_resskip_refused", "error": refused,
+                   "ok": "no_resskip" in refused})
+    # the sweep, its launches counted by variant
+    ar_probe.launches.clear()
+    outs = {dt: {} for dt in ar_kernel.DTYPES}
+    sweep = {dt: kprobe.sweep("shallow_laplace_single", dt, KPROBE_B,
+                              KPROBE_T, outputs=outs[dt])
+             for dt in ar_kernel.DTYPES}
+    launched = dict(ar_probe.launches)
+    want = {ar_probe.variant(dt, ab) for dt in ar_kernel.DTYPES
+            for ab in defined}
+    require(set(launched) == want,
+            f"the kprobe sweep launched every defined variant: {launched}")
+    for dt, rows in sweep.items():
+        require(all(r["us_per_step"] > 0 for r in rows if "error" not in r)
+                and {(r["B"], r["ablate"]) for r in rows if "error" in r}
+                == {(1, "split2")} | {(b, "no_resskip") for b in KPROBE_B},
+                f"kprobe sweep {dt}: refused only split2 at B = 1 and "
+                f"no_resskip")
+    # each timed call on its own inputs: full is the production step to the
+    # bit, the schedules compute full, every ablation meets its plain
+    # version fed the kernel's own samples
+    for dt, by_b in outs.items():
+        wd = w[dt]
+        for B, o in by_b.items():
+            c, n, full = o["cond"], o["noise"], o["full"]
+            gen = ar_kernel.generate(ar_probe.plain_params(wd), mc,
+                                     c.transpose(0, 1).contiguous(),
+                                     noise=n.t().contiguous(), dtype=dt)
+            record(f"{dt}_B{B}_full_vs_ar_generate", err(full.t(), gen), 0.0,
+                   equal=torch.equal(full.t(), gen))
+            for ab in defined:
+                if ab not in o:             # refused at this B
+                    continue
+                k = o[ab]
+                require(bool(torch.isfinite(k).all()),
+                        f"probe {dt} {ab} B = {B} finite")
+                if ab in ar_probe.SCHEDULES or (ab, dt) == ("gate_bf16",
+                                                            "float32"):
+                    record(f"{dt}_B{B}_{ab}_vs_full", err(k, full), 0.0,
+                           equal=torch.equal(k, full))
+                fb = own_feedback(k.t())
+                if dt == "float32":
+                    record(f"float32_B{B}_{ab}_vs_plain", err(k, (
+                        ar_probe.probe_plain(wd, mc, c, n, ab, feedback=fb))),
+                        TOL_TEACHER)
+                    continue
+                e = err(k, ar_probe.probe_plain(wd, mc, c, n, ab,
+                                                feedback=fb, chain=True))
+                ctl = err(k, ar_probe.probe_plain(w["float32"], mc, c, n, ab,
+                                                  feedback=fb))
+                checks.append({
+                    "check": f"bfloat16_B{B}_{ab}_vs_chain", "max_abs_err": e,
+                    "limit": TOL_CHAIN, "control_fp32": ctl,
+                    "control_min": KPROBE_CONTROL_MIN,
+                    "ok": e <= TOL_CHAIN and ctl > KPROBE_CONTROL_MIN})
+    # full against the production kernel on the same call, in turns
+    o = outs["float32"][8]
+    c, n = o["cond"], o["noise"]
+    turns = {}
+    for dt, wd in w.items():
+        pp = ar_probe.plain_params(wd)
+        cb, nb = c.transpose(0, 1).contiguous(), n.t().contiguous()
+        us = {"full": [], "ar_generate": []}
+        for name in ("full", "ar_generate", "ar_generate", "full"):
+            fn = ((lambda: ar_probe.probe(wd, mc, c, n, "full"))
+                  if name == "full" else
+                  (lambda: ar_kernel.generate(pp, mc, cb, noise=nb,
+                                              dtype=dt)))
+            us[name].append(1e3 * cuda_ms(fn, 2) / KPROBE_T)
+        turns[dt] = us
+    # the plain version's time: full, free running, at B = 8, held at
+    # TOL_FREE (config 2 does not amplify fp32 rounding under its own
+    # feedback on these weights either)
+    free, plain_ms = host_ms(lambda: ar_probe.probe_plain(
+        w["float32"], mc, c, n, "full"))
+    record("float32_B8_full_free_running_vs_plain", err(o["full"], free),
+           TOL_FREE)
+    row = next(r for r in sweep["float32"]
+               if (r["B"], r["ablate"]) == (8, "full"))
+    times = {"max_abs_err": next(ck["max_abs_err"] for ck in checks
+                                 if ck["check"] == "float32_B8_full_vs_plain"),
+             "ms": row["us_per_step"] * KPROBE_T / 1e3, "plain_ms": plain_ms}
+    emit("kprobe", config="shallow_laplace_single", T=KPROBE_T,
+         checks=checks, full_B8=times, sweep=sweep, launches=launched,
+         full_vs_ar_generate_us_B8=turns, card=smi)
+    for ck in checks:
+        require(ck["ok"], f"kprobe: {ck}")
+    bound_ms, bound_by = bound(mc, 8, KPROBE_T, w["float32"], 4)
+    return {"launches": sum(launched.values()), "launches_by_variant":
+            launched, "bound_ms": bound_ms, "bound_by": bound_by, **times}
+
+
+def phase_dma_probe(smi: str) -> dict:
+    """The ring-window copy probe, both variants, at the TPU probe's shape
+    and the rate shape: exact against the plain version and the closed
+    form (the check runs, counted, are the phase's main path), then timed;
+    the plain version timed at the rate shape."""
+    ring_probe.launches.clear()
+    rows = [dma_probe.run(shape, variant) for shape in ring_probe.SHAPES
+            for variant in ring_probe.VARIANTS]
+    launched = dict(ring_probe.launches)
+    kw = ring_probe.SHAPES["rate"]
+    _, plain_ms = host_ms(lambda: ring_probe.ring_probe_plain(
+        **kw, device="cuda"))
+    nbytes = 4.0 * (kw["n_chunks"] + kw["per"]) * kw["chunk"] * \
+        kw["batch"] * kw["channels"]
+    emit("dma_probe", rows=rows, plain_ms_rate=plain_ms, launches=launched,
+         card=smi)
+    for r in rows:
+        require(r["exact"], f"ring probe {r['variant']} at {r['shape']}: "
+                f"max_abs_err {r['max_abs_err']}")
+    out = {}
+    for v in ring_probe.VARIANTS:
+        name = ring_probe.variant_name(v)
+        rate = next(r for r in rows if r["variant"] == v
+                    and r["shape"] == "rate")
+        require(launched.get(name, 0) >= 1, f"{name} launched")
+        out[v] = {"name": name, "launches": launched[name],
+                  "max_abs_err": max(r["max_abs_err"] for r in rows
+                                     if r["variant"] == v),
+                  "ms": rate["ms"], "plain_ms": plain_ms,
+                  "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes"}
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -868,21 +1079,22 @@ def main(argv=None) -> int:
          capability=list(torch.cuda.get_device_capability(0)),
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], nvcc=nvcc[-1])
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        # a second nvcc, started beside the build, reports the registers of
-        # every kernel instantiation (ptxas -v)
-        ptxas = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             str(Path(tmp) / "v.so"), str(_build.CSRC / "ar_generate.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        libs = _build.build()
-        verbose = ptxas.communicate()[0]
-    require(ptxas.returncode == 0, "ptxas -v compile")
-    emit("build", seconds=time.perf_counter() - t0,
+    builds = start_builds()
+    try:
+        return run(args, smi, builds)
+    finally:
+        for _, proc, _ in builds["nvcc"].values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run(args, smi: str, builds: dict) -> int:
+    libs, regs = finish_builds(builds, ("ar_generate",))
+    emit("build", seconds=time.perf_counter() - builds["t0"],
          libs=sorted(str(v.relative_to(Path(__file__).resolve().parent))
                      for v in libs.values()),
-         registers=registers(verbose))
+         registers=regs, building=sorted(builds["nvcc"]))
 
     cfg = get_config("shallow_laplace_single")
     model = random_model(cfg.model, args.seed)
@@ -914,6 +1126,13 @@ def main(argv=None) -> int:
     phase_deep_fused_times(dcfg.model, dmodel, dpp, args.seed)
     phase_streaming(cfg, model, pp, args.seed, smi)
     phase_kfuse(smi)
+    libs, regs = finish_builds(builds, ("ar_probe", "ring_probe"))
+    emit("probe_build", seconds=time.perf_counter() - builds["t0"],
+         libs=sorted(str(v.relative_to(Path(__file__).resolve().parent))
+                     for v in libs.values()),
+         registers=regs)
+    probe = phase_kprobe(smi)
+    rings = phase_dma_probe(smi)
 
     source = "shallow_wavenet_tpu_torch/csrc/ar_generate.cu"
     kernels = [{
@@ -946,6 +1165,22 @@ def main(argv=None) -> int:
             "library_ms": None})
     kernels[-3].update(check_ms=fused_check["kernel_ms"],
                        check_plain_ms=fused_check["plain_ms"])
+    kernels.append({
+        "name": "ar_probe", "route": "cuda",
+        "source": "shallow_wavenet_tpu_torch/csrc/ar_probe.cu",
+        "replaces": "tools/kprobe.py:46", "launches": probe["launches"],
+        "launches_by_variant": probe["launches_by_variant"],
+        "max_abs_err": probe["max_abs_err"], "ms": probe["ms"],
+        "plain_ms": probe["plain_ms"], "bound_ms": probe["bound_ms"],
+        "bound_by": probe["bound_by"], "library_ms": None})
+    for r in rings.values():
+        kernels.append({
+            "name": r["name"], "route": "cuda",
+            "source": "shallow_wavenet_tpu_torch/csrc/ring_probe.cu",
+            "replaces": "tools/dma_probe.py:25", "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

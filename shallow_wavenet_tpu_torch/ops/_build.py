@@ -5,7 +5,9 @@ C interface, loaded with ctypes (no PyTorch headers, so a build takes
 seconds). Builds happen at first use, never at import, into `build/` beside
 this package (listed in .gitignore); the library name carries a hash of the
 source and the nvcc flags, so an edited source or a change of flags never
-loads a stale build. A failed build raises; there is no fallback.
+loads a stale build. nvcc's messages, with ptxas's report of every
+kernel's registers and spills (`-Xptxas -v`), are kept beside the library
+(`log_path`). A failed build prints them and raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -22,6 +25,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# ptxas's resource report, into the build's log; it changes no code
+LOG_FLAGS = ("-Xptxas", "-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -44,21 +49,59 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names=None) -> dict[str, Path]:
-    """Compile the named sources (default: every `csrc/*.cu`) that have no
-    current build. Returns {name: library path}; nvcc's messages go to
-    stderr, and a failed build raises CalledProcessError."""
+def log_path(name: str) -> Path:
+    """nvcc's output for the current build of `csrc/<name>.cu`."""
+    return _lib_path(name).with_suffix(".log")
+
+
+def start(names=None) -> dict:
+    """Start one nvcc for each named source (default: every one) that has
+    no current build, all at once, and return the builds for `finish`."""
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {n: _lib_path(n) for n in names}
-    for n, path in paths.items():
+    started = {}
+    for n in names:
+        path, proc, cmd = _lib_path(n), None, None
         if not path.exists():
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                            str(CSRC / f"{n}.cu")], check=True)
+            cmd = [_nvcc(), *NVCC_FLAGS, *LOG_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{n}.cu")]
+            with open(tmp.with_suffix(".log"), "w") as log:
+                proc = subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT)
+        started[n] = (path, proc, cmd)
+    return started
+
+
+def finish(started: dict) -> dict[str, Path]:
+    """Wait for the builds `start` began. Returns {name: library path};
+    each build's messages go to its `log_path`, and a failed build prints
+    them to stderr and raises CalledProcessError (after every nvcc has
+    ended)."""
+    failed = None
+    for path, proc, cmd in started.values():
+        if proc is None:
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        code = proc.wait()
+        if code == 0:
             os.replace(tmp, path)
-    return paths
+            os.replace(tmp.with_suffix(".log"), path.with_suffix(".log"))
+            continue
+        sys.stderr.write(tmp.with_suffix(".log").read_text())
+        if failed is None:
+            failed = subprocess.CalledProcessError(code, cmd)
+    if failed is not None:
+        raise failed
+    return {n: path for n, (path, _, _) in started.items()}
+
+
+def build(names=None) -> dict[str, Path]:
+    """Compile the named sources (default: every `csrc/*.cu`) that have no
+    current build, one nvcc per source, all started together, and wait for
+    them (`start`, then `finish`)."""
+    return finish(start(names))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -89,19 +89,25 @@ def test_config_is_the_jax_config():
 
 
 def test_port_imports_no_jax():
+    """Every module of the port (a walk of the package, so none is missed)
+    and chip_smoke.py import without JAX, flax or the JAX package."""
     code = (
-        "import sys\n"
-        "import shallow_wavenet_tpu_torch\n"
-        "import shallow_wavenet_tpu_torch.bin.decode\n"
-        "import shallow_wavenet_tpu_torch.models.generate\n"
-        "import shallow_wavenet_tpu_torch.models.streaming\n"
-        "import shallow_wavenet_tpu_torch.bin.kfuse\n"
+        "import importlib, pkgutil, sys\n"
+        "import shallow_wavenet_tpu_torch as pkg\n"
+        "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'flax', "
         "'shallow_wavenet_tpu') or m.startswith(('jax.', 'jaxlib.', 'flax.', "
         "'shallow_wavenet_tpu.'))]\n"
-        "assert 'shallow_wavenet_tpu_torch.ops.ar_kernel' in sys.modules\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n")
+        "need = {'ops.ar_kernel', 'ops.ar_probe', 'ops.ring_probe', "
+        "'bin.decode', 'bin.kfuse', 'bin.kprobe', 'bin.dma_probe', "
+        "'models.streaming'}\n"
+        "missing = [n for n in need if pkg.__name__ + '.' + n not in mods]\n"
+        "print(bad, missing)\n"
+        "sys.exit(1 if bad or missing else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, (r.stdout, r.stderr)
