@@ -8,28 +8,32 @@ Phases, each printing one JSON line; any failure exits nonzero:
      nvcc versions; then every kernel in shallow_wavenet_tpu_torch/csrc is
      built (one nvcc per source, all started together; the registers of
      every instantiation are read from ptxas's report in the build logs):
-     `build` waits for the AR kernel, and the probes' builds go on beside
-     phases 2-11 (`probe_build` waits for them before phase 12);
+     `build` waits for the two AR kernels (ar_generate, ar_cluster), and
+     the probes' builds go on beside phases 2-11 (`probe_build` waits for
+     them before phase 12);
   2. weights: config 2 (shallow_laplace_single) at full width, random
      flax-layout weights from --seed with a random head2 (zero in the flax
      init), loaded through params_from_flax;
-  3. kernel against plain: the AR kernel and its plain PyTorch version on
-     the same conditioning and uniforms, B=4, T=4096 — Laplace teacher-
-     forced, Laplace free-running (sample and greedy), softmax teacher-
-     forced at config-2 widths, and segmented against unsegmented — each
-     error beside its limit, and both versions' times; the kernel's time
-     per call at B = 1..128 (T = 2048);
+  3. kernel against plain: the one-SM-per-row AR kernel (ar_generate, the
+     fallback layout) and its plain PyTorch version on the same
+     conditioning and uniforms, B=4, T=4096 — Laplace teacher-forced,
+     Laplace free-running (sample and greedy), softmax teacher-forced at
+     config-2 widths, and segmented against unsegmented — each error
+     beside its limit, and both versions' times; the kernel's time per
+     call at B = 1..128 (T = 2048); then the same checks of the cluster
+     kernel (ar_cluster) at the size the decode picks;
   4. main path: bin.decode.decode_utterances on 8 utterances of 75-150
-     random normalized frames (1-2 s) writes wavs and decode_summary.json;
-     the kernel launch counter, reset just before, must have risen. The
-     kernel is then re-run on the main path's inputs (same samples, which
-     are checked against the wavs) and held against the plain version,
+     random normalized frames (1-2 s) writes wavs and decode_summary.json,
+     on the layout the decode picks (the cluster kernel); the kernel
+     launch counter, reset just before, must have risen. The kernel is
+     then re-run on the main path's inputs (same samples, which are
+     checked against the wavs) and held against the plain version,
      teacher-forced with its own samples, over the whole call. Last,
      bin.decode.decode_batch with segment_samples=2048 (its launch count
      read the same way) must give the same samples;
   5. deep kernel against plain: deep_baseline at full width and depth
-     (30 layers, R=128, G=256, S=256), random weights, B=4, T=4096, on the
-     layouts the decode picks (fp32 and bf16, streamed rings) — fp32
+     (30 layers, R=128, G=256, S=256), random weights, B=4, T=2048, on the
+     fallback layouts (ar_generate, fp32 and bf16, streamed rings) — fp32
      teacher-forced; fp32 free-running, sample and greedy, each sample
      held against the plain version teacher-forced with the kernel's own
      samples; bf16 on the first step of 64 rows against the bf16 plain
@@ -42,12 +46,13 @@ Phases, each printing one JSON line; any failure exits nonzero:
      memory, unfused and fused;
   6. deep main path: decode_utterances at deep_baseline with
      --kernel-dtype float32 and then bfloat16, on 8 utterances of 40-80
-     random normalized frames (0.5-1.1 s): launches of the chosen variant,
-     wavs equal to a re-run of the kernel, the layout, wall seconds, RTF,
-     and the plain version teacher-forced with the kernel's own samples:
-     fp32 over the first 4096 steps; bf16 over the first 1024 in the
-     kernel's summation order (`chain=True`), exactly, with the fp32
-     control and the matmul-order version's drift beside it;
+     random normalized frames (0.5-1.1 s), on the cluster kernel: launches
+     of the chosen variant, wavs equal to a re-run of the kernel, the
+     layout, wall seconds, RTF, and the plain version teacher-forced with
+     the kernel's own samples: fp32 over the first 4096 steps; bf16 over
+     the first 1024 in the kernel's summation order (`chain=True,
+     split=N`), exactly, with the fp32 control and the matmul-order
+     version's drift beside it;
   7. fused kernel against plain: the fused window (fused=4) at config 2,
      B=4, T=4096 — Laplace teacher-forced, free-running sample and greedy
      (each sample against the plain version teacher-forced with the
@@ -67,7 +72,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
      in turns at B=8 (unfused, fused, fused, unfused);
   10. streaming: models.streaming.StreamingSynthesizer at config 2, B=1,
      80 ms blocks (6 frames), 150 frames pushed 6 at a time, fused=4 and
-     fused=0: push latency (mean, p95) and steady-state RTF; the streamed
+     unfused (the cluster kernel, as the decode picks it): push latency
+     (mean, p95) and steady-state RTF; the streamed
      samples equal one call over the session's conditioning and uniforms
      (0.0), and that conditioning against the whole utterance's
      upsampling, at the bf16 upsampler's limit; the kernel against the
@@ -91,8 +97,25 @@ Phases, each printing one JSON line; any failure exits nonzero:
      (TMA) and cp.async, exactly equal to the plain version and the closed
      form at the TPU probe's shape (B = 8, 8 chunks), at one block per SM
      over 64 chunks, and at each batch with the other chunk count, with
-     their times and rates.
-Then the card's nvidia-smi line, the kernels' JSON line and, last,
+     their times and rates;
+  14. cluster: the cluster kernel at config 2 and deep_baseline, fp32 and
+     bf16: cudaOccupancyMaxActiveClusters for N = 2, 4, 8, 16 (weights
+     resident and streamed, where a block fits), the N chosen, a block's
+     shared memory and the registers from the build's log; us per step
+     (T = 2048, CUDA events, in turns: each variant in order, then in the
+     reverse order) of ar_generate and of every N and weight placement
+     that fits at B = 1 and 8, and of ar_generate and the N chosen at B =
+     16 and 32 (in waves past the card's clusters); one N's two
+     placements equal to the bit; the same row decoded at B = 1 and
+     inside B = 8, 16 and 32 equal to the bit; at B = 1 over the first
+     1024 steps, the N chosen and, where its weights stream from L2, the
+     smallest N whose weights fit in shared memory (every template
+     instance of the kernel is held): fp32 free running held one step at
+     a time at TOL_FREE against the plain version fed the kernel's
+     samples, and bf16 to the bit against `chain=True, split=N`, where
+     the fp32 control misses by more than CONTROL_MIN.
+Every phase line carries `t`, the script's seconds so far. Then the
+card's nvidia-smi line, the kernels' JSON line and, last,
 {"ok": true, "device": {...}}. Without CUDA, or outside the repo, it exits
 nonzero before printing any result.
 """
@@ -129,6 +152,7 @@ from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_quantize
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12         # bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12             # HBM3
 TOL_TEACHER = 1e-5               # Laplace teacher-forced, kernel vs plain
 # Laplace free-running, kernel vs plain: the two sum in other orders, so
@@ -165,7 +189,7 @@ TOL_CHAIN = 0.0
 CONTROL_MIN = 1e-3
 TOL_BF16_FIRST = 1e-5
 CONTROL_FACTOR = 100.0
-DEEP_B, DEEP_T = 4, 4096
+DEEP_B, DEEP_T = 4, 2048
 FIRST_B, FIRST_T = 64, 16
 DEEP_SEG_T, DEEP_SEGMENT = 12288, 8192
 # the fused config-2 and the unfused deep fp32 main paths hold the plain
@@ -197,10 +221,19 @@ KFUSE_B, KFUSE_T = (1, 8, 32), 2048
 # tests' config: 5.4e-4).
 KPROBE_B, KPROBE_T = (1, 8, 32), 2048
 KPROBE_CONTROL_MIN = 1e-4
+# the cluster phase: every cluster size and weight placement that fits is
+# timed at CLUSTER_SIZES_B rows, the size the decode picks and ar_generate
+# at every CLUSTER_B, over CLUSTER_T steps; the checks against the plain
+# version run at B = 1 over CLUSTER_CHECK_T steps
+CLUSTER_B, CLUSTER_SIZES_B = (1, 8, 16, 32), (1, 8)
+CLUSTER_T, CLUSTER_CHECK_T = 2048, 1024
+CLUSTER_N = (2, 4, 8, 16)
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, "t": time.perf_counter() - T0, **kw}),
+          flush=True)
 
 
 def require(ok: bool, what: str):
@@ -216,14 +249,16 @@ def smi_line() -> str:
 
 
 def registers(ptxas_log: str) -> dict:
-    """{"fp32|bf16,unfused|fused": registers} of the AR kernel and
+    """{"fp32|bf16,unfused|fused": registers} of the AR kernel,
+    {"ar_cluster,fp32|bf16,smem|l2": registers} of the cluster kernel
+    (weights resident or streamed from L2) and
     {"ar_probe,fp32|bf16,<ablation>": registers} of the probe kernel, from
     `ptxas -v` output (other kernels' entries are skipped)."""
     regs, entry = {}, None
     for line in ptxas_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-            if not re.search(r"ar_(generate|probe)_kernel", entry):
+            if not re.search(r"ar_(generate|probe|cluster)_kernel", entry):
                 entry = None
         elif entry and "registers" in line:
             dtype = "bf16" if "bfloat16" in entry else "fp32"
@@ -231,6 +266,9 @@ def registers(ptxas_log: str) -> dict:
             if probe:
                 key = (f"ar_probe,{dtype},"
                        f"{ar_probe.ABLATIONS[int(probe.group(1))]}")
+            elif "ar_cluster_kernel" in entry:
+                key = (f"ar_cluster,{dtype},"
+                       + ("smem" if "Lb1E" in entry else "l2"))
             else:
                 key = dtype + "," + ("fused" if "Lb1E" in entry
                                      else "unfused")
@@ -254,16 +292,20 @@ def finish_builds(builds: dict, names) -> tuple[dict, dict]:
                                      for n in names))
 
 
+def event_ms(fn) -> float:
+    """Device time of fn(), by CUDA events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def cuda_ms(fn, reps: int = 3) -> float:
     """Mean device time of fn() over `reps` calls, after one warm-up call."""
     fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return event_ms(lambda: [fn() for _ in range(reps)]) / reps
 
 
 def host_ms(fn):
@@ -295,9 +337,11 @@ def random_cond(mc, model, B: int, T: int, seed: int):
 
 def bound(mc, B: int, T: int, pp, weight_bytes: int = 4, fused: int = 0
           ) -> tuple[float, str]:
-    """Least time (ms) for one generate call: the fp32 multiply-adds of
-    every step over the fp32 peak, or c_up + noise + out (fp32) + weights
-    (weight_bytes each) over the memory rate, whichever is larger. Rings
+    """Least time (ms) for one generate call: the multiply-adds of every
+    step over the peak of their type (fp32; bf16 products with fp32 sums,
+    weight_bytes = 2, over the dense bf16 tensor-core rate), or c_up +
+    noise + out (fp32) + weights (weight_bytes each) over the memory rate,
+    whichever is larger. Rings
     are the kernel's own state and are not counted. The fused window adds
     its P products: (G/2) x G weights, read and multiplied once per step,
     for every pair of layers j < m of a block."""
@@ -311,13 +355,17 @@ def bound(mc, B: int, T: int, pp, weight_bytes: int = 4, fused: int = 0
     flops = 2.0 * macs * B * T
     nbytes = (4.0 * (B * T * C + 2 * B * T)
               + weight_bytes * (sum(v.numel() for v in pp.values()) + extra))
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    peak = PEAK_BF16_FLOPS if weight_bytes == 2 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                        else "bytes")
 
 
 def phase_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
+    """Both AR kernels at config 2 against one set of plain outputs:
+    ar_generate (cluster 0) and the cluster kernel at the decode's N."""
     B, T = B_CHECK, T_CHECK
+    N = decode.kernel_layout(mc, "float32")["cluster"]
     c_up = random_cond(mc, model, B, T, seed)
     g = torch.Generator(device="cuda").manual_seed(seed)
     noise = ar_kernel.uniform_noise((B, T), g)
@@ -331,39 +379,53 @@ def phase_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
     def err(a, b):
         return float((a - b).abs().max())
 
-    # (a) Laplace, teacher-forced
-    k = ar_kernel.generate(pp, mc, c_up, noise=noise, teacher=teacher)
-    p = ar_kernel.generate_plain(pp, mc, c_up, noise=noise, teacher=teacher)
-    record("laplace_teacher_forced", err(k, p), TOL_TEACHER)
-    # (b) Laplace, free-running
-    for mode in ("sample", "greedy"):
-        k = ar_kernel.generate(pp, mc, c_up, noise=noise, mode=mode)
-        p, plain_ms = host_ms(lambda: ar_kernel.generate_plain(
-            pp, mc, c_up, noise=noise, mode=mode))
-        record(f"laplace_free_{mode}", err(k, p), TOL_FREE)
-        require(bool(torch.isfinite(k).all()), f"finite kernel output {mode}")
-    kernel_ms = cuda_ms(lambda: ar_kernel.generate(pp, mc, c_up, noise=noise))
-    # (c) softmax head at config-2 widths, teacher-forced: class ids
     mcs = get_config("shallow_laplace_single", ["model.head=softmax"]).model
     ms = random_model(mcs, seed + 1)
     pps = extract_plain_params(ms)
     ids = torch.randint(0, mcs.quantize_channels, (B, T), generator=g,
                         device="cuda").float()
     q = mcs.quantize_channels
-    k = mulaw_quantize(ar_kernel.generate(pps, mcs, c_up, noise=noise,
-                                          teacher=ids), q)
-    p = mulaw_quantize(ar_kernel.generate_plain(pps, mcs, c_up, noise=noise,
-                                                teacher=ids), q)
-    d = (k.long() - p.long()).abs()
-    flips = float((d != 0).float().mean())
-    checks.append({"check": "softmax_teacher_forced_ids",
-                   "max_bin_diff": int(d.max()), "limit_bins": 1,
-                   "flip_share": flips, "limit_share": 0.01,
-                   "ok": int(d.max()) <= 1 and flips < 0.01})
-    # (d) segmented against unsegmented, both on the kernel
-    full = ar_kernel.generate(pp, mc, c_up, noise=noise)
-    seg = generate_segmented(pp, mc, c_up, noise, 2048)
-    record("segmented_2048_vs_unsegmented", err(seg, full), 0.0)
+    # the plain outputs, shared by both kernels
+    ar_kernel.launches.clear()
+    p_tf = ar_kernel.generate_plain(pp, mc, c_up, noise=noise,
+                                    teacher=teacher)
+    p_free = {}
+    for mode in ("sample", "greedy"):
+        p_free[mode], plain_ms = host_ms(lambda: ar_kernel.generate_plain(
+            pp, mc, c_up, noise=noise, mode=mode))
+    p_ids = mulaw_quantize(ar_kernel.generate_plain(
+        pps, mcs, c_up, noise=noise, teacher=ids), q)
+    times = {}
+    for n in (0, N):
+        tag = "" if n == 0 else f"cluster{n}_"
+        # (a) Laplace, teacher-forced
+        k = ar_kernel.generate(pp, mc, c_up, noise=noise, teacher=teacher,
+                               cluster=n)
+        record(f"{tag}laplace_teacher_forced", err(k, p_tf), TOL_TEACHER)
+        # (b) Laplace, free-running
+        for mode in ("sample", "greedy"):
+            k = ar_kernel.generate(pp, mc, c_up, noise=noise, mode=mode,
+                                   cluster=n)
+            record(f"{tag}laplace_free_{mode}", err(k, p_free[mode]),
+                   TOL_FREE)
+            require(bool(torch.isfinite(k).all()),
+                    f"finite kernel output {tag}{mode}")
+        times[n] = cuda_ms(lambda: ar_kernel.generate(
+            pp, mc, c_up, noise=noise, cluster=n))
+        # (c) softmax head at config-2 widths, teacher-forced: class ids
+        k = mulaw_quantize(ar_kernel.generate(pps, mcs, c_up, noise=noise,
+                                              teacher=ids, cluster=n), q)
+        d = (k.long() - p_ids.long()).abs()
+        flips = float((d != 0).float().mean())
+        checks.append({"check": f"{tag}softmax_teacher_forced_ids",
+                       "max_bin_diff": int(d.max()), "limit_bins": 1,
+                       "flip_share": flips, "limit_share": 0.01,
+                       "ok": int(d.max()) <= 1 and flips < 0.01})
+        # (d) segmented against unsegmented, both on the kernel
+        full = ar_kernel.generate(pp, mc, c_up, noise=noise, cluster=n)
+        seg = generate_segmented(pp, mc, c_up, noise, 2048, cluster=n)
+        record(f"{tag}segmented_2048_vs_unsegmented", err(seg, full), 0.0)
+    launched = dict(ar_kernel.launches)
     # time per call across batch sizes: one block per row
     sweep = []
     for b in SWEEP_B:
@@ -372,11 +434,16 @@ def phase_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
         ms = cuda_ms(lambda: ar_kernel.generate(pp, mc, cb, noise=nb), 2)
         sweep.append({"B": b, "T": SWEEP_T, "ms": ms,
                       "us_per_step": 1e3 * ms / SWEEP_T})
-    result = {"B": B, "T": T, "checks": checks, "kernel_ms": kernel_ms,
-              "plain_ms": plain_ms, "batch_sweep": sweep}
+    result = {"B": B, "T": T, "cluster": N, "checks": checks,
+              "kernel_ms": times[0], "cluster_kernel_ms": times[N],
+              "plain_ms": plain_ms, "launches": launched,
+              "batch_sweep": sweep}
     emit("kernel_vs_plain", **result)
     for c in checks:
         require(c["ok"], f"kernel vs plain: {c}")
+    result["max_abs_err"] = next(c["max_abs_err"] for c in checks
+                                 if c["check"] == "laplace_teacher_forced")
+    result["bound_ms"], result["bound_by"] = bound(mc, B, T, pp)
     return result
 
 
@@ -388,13 +455,26 @@ def utterances(mc, seed: int, lo: int, hi: int):
         (f, mc.aux_channels)).astype(np.float32)) for f in frames]
 
 
+def layout_variant(mc, layout: dict) -> str:
+    """The `launches` name of the kernel variant a decode layout runs."""
+    n = layout["cluster"]
+    resident = bool(n) and ar_kernel.cluster_resident(mc, layout["dtype"],
+                                                      n, "cuda")
+    return ar_kernel.variant(layout["dtype"], layout["stream"],
+                             layout["fused"], n, resident)
+
+
 def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
                     unfused: dict | None = None) -> dict:
-    """The config-2 main path (`main_path`), or with the fused window
-    (`fused_main_path`, beside the unfused run's wall time and RTF)."""
+    """The config-2 main path (`main_path`, on the cluster kernel), or with
+    the fused window (`fused_main_path`, on ar_generate, beside the unfused
+    run's wall time and RTF)."""
     phase = "fused_main_path" if fused else "main_path"
-    name = ar_kernel.variant("float32", False, fused)
     mc, hop = cfg.model, cfg.data.hop_length
+    want = decode.kernel_layout(mc, "auto", fused=fused)
+    require(want["cluster"] == 0 if fused else want["cluster"] > 1,
+            f"{phase}: the decode's layout {want}")
+    name = layout_variant(mc, want)
     frames, utts = utterances(mc, seed + 7, 75, 150)
     names = [f"utt{i}.wav" for i in range(len(utts))]
     with tempfile.TemporaryDirectory() as tmp:
@@ -406,9 +486,8 @@ def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
         launched = dict(ar_kernel.launches)
         require(launched.get(name, 0) >= 1 and set(launched) == {name},
                 f"the {phase} launched {name}: {launched}")
-        require(summary["kernel"] == {"dtype": "float32", "stream": False,
-                                      "chunk": 64, "fused": fused},
-                f"{phase} layout {summary['kernel']}")
+        require(summary["kernel"] == want and want["dtype"] == "float32"
+                and not want["stream"], f"{phase} layout {summary['kernel']}")
         written = json.loads((Path(tmp) / "decode_summary.json").read_text())
         require(written == summary, "decode_summary.json written")
         pcm = []
@@ -434,7 +513,7 @@ def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
         c_up.shape[:2], torch.Generator(device="cuda").manual_seed(seed))
 
     def gen(c, n, **kw):
-        return ar_kernel.generate(pp, mc, c, noise=n, fused=fused, **kw)
+        return ar_kernel.generate(pp, mc, c, noise=n, **want, **kw)
 
     out = gen(c_up, noise)
     require(bool(torch.isfinite(out).all()), f"{phase} output finite")
@@ -447,8 +526,8 @@ def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
     full_ms = cuda_ms(lambda: gen(c_up, noise), 2)
     # plain version teacher-forced with the kernel's own samples (every
     # step sees the kernel's history, so only one step's rounding
-    # differs): unfused over the whole call, fused over its first PLAIN_T
-    # steps
+    # differs): unfused (the cluster kernel) over the whole call, fused
+    # over its first PLAIN_T steps
     Tp = PLAIN_T if fused else T
     cp, npl = c_up[:, :Tp].contiguous(), noise[:, :Tp].contiguous()
     ms = full_ms if Tp == T else cuda_ms(lambda: gen(cp, npl), 2)
@@ -496,11 +575,13 @@ def own_feedback(out):
 
 
 def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
+    """ar_generate's deep layouts, the decode's fallback (cluster=False)."""
     B, T = DEEP_B, DEEP_T
-    lay32 = decode.kernel_layout(mc, "float32")
-    laybf = decode.kernel_layout(mc, "bfloat16")
+    lay32 = decode.kernel_layout(mc, "float32", cluster=False)
+    laybf = decode.kernel_layout(mc, "bfloat16", cluster=False)
     require(lay32["stream"] and laybf["stream"],
-            f"deep layouts are streamed: {lay32}, {laybf}")
+            f"deep fallback layouts are streamed: {lay32}, {laybf}")
+    ar_kernel.launches.clear()
     c_up = random_cond(mc, model, B, T, seed)
     g = torch.Generator(device="cuda").manual_seed(seed)
     noise = ar_kernel.uniform_noise((B, T), g)
@@ -587,19 +668,29 @@ def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
                    "ok": "shared memory" in refused
                    and sum(ar_kernel.launches.values()) == before})
     times = {}
+    errs = {"fp32": next(c["max_abs_err"] for c in checks if c["check"]
+                         == "fp32_stream_teacher_forced"),
+            "bf16": e0}
     for name, layout, plain_ms, wb in (
             ("fp32", lay32, plain32_ms, 4), ("bf16", laybf, plainbf_ms, 2)):
         ms = cuda_ms(lambda: gen(c_up, noise, layout), 2)
         bound_ms, bound_by = bound(mc, B, T, pp, wb)
         times[name] = {"layout": layout, "ms": ms,
                        "us_per_step": 1e3 * ms / T, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bound_by": bound_by}
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "max_abs_err": errs[name]}
+    launched = dict(ar_kernel.launches)
+    for name, layout in (("fp32", lay32), ("bf16", laybf)):
+        times[name]["name"] = layout_variant(mc, layout)
+        times[name]["launches"] = launched[times[name]["name"]]
     smem = {f"{dt}_{'stream' if st else 'resident'}{ch}"
             + (f"_fused{f}" if f else ""):
             ar_kernel.smem_bytes(mc, dt, st, ch, f)
-            for dt, st, ch in decode.KERNEL_LAYOUTS for f in (0, FUSED)}
+            for dt, st, ch, clustered in decode.KERNEL_LAYOUTS
+            if not clustered for f in (0, FUSED)}
     emit("deep_kernel_vs_plain", B=B, T=T, checks=checks, readings=readings,
-         times=times, smem_bytes=smem, smem_limit=ar_kernel.smem_limit("cuda"))
+         times=times, launches=launched, smem_bytes=smem,
+         smem_limit=ar_kernel.smem_limit("cuda"))
     for c in checks:
         require(c["ok"], f"deep kernel vs plain: {c}")
     return times
@@ -607,8 +698,9 @@ def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
 
 def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
                          kernel_dtype: str, fused: int = 0) -> dict:
-    """The deep main path (`deep_main_path`), or with the fused window
-    (`deep_fused`: fp32 held over the first steps only, as bf16 is)."""
+    """The deep main path (`deep_main_path`, on the cluster kernel), or
+    with the fused window (`deep_fused`, on ar_generate with streamed
+    rings: fp32 held over the first steps only, as bf16 is)."""
     phase = "deep_fused" if fused else "deep_main_path"
     mc, hop = cfg.model, cfg.data.hop_length
     frames, utts = utterances(mc, seed + 8, 40, 80)
@@ -621,11 +713,13 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
             kernel_dtype=kernel_dtype, fused=fused)
         launched = dict(ar_kernel.launches)
         layout = summary["kernel"]
-        name = ar_kernel.variant(layout["dtype"], layout["stream"],
-                                 layout["fused"])
+        name = layout_variant(mc, layout)
         require(layout == decode.kernel_layout(mc, kernel_dtype, fused=fused)
-                and layout["dtype"] == kernel_dtype and layout["stream"]
-                and layout["fused"] == fused, f"deep layout {layout}")
+                and layout["dtype"] == kernel_dtype
+                and layout["fused"] == fused
+                and (layout["stream"] and layout["cluster"] == 0 if fused
+                     else not layout["stream"] and layout["cluster"] > 1),
+                f"deep layout {layout}")
         require(launched.get(name, 0) >= 1 and set(launched) == {name},
                 f"the deep main path launched {name}: {launched}")
         pcm = []
@@ -655,20 +749,20 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
                 f"deep utterance {i}: wav equals the kernel's samples")
     # the plain version teacher-forced with the kernel's own samples:
     # unfused fp32 over PLAIN_T steps; bf16 in the kernel's summation
-    # order, and fused fp32, over twice the largest streamed dilation (see
-    # TOL_CHAIN above)
+    # order (chain=True; the cluster kernel's split=N), and fused fp32,
+    # over twice the largest dilation, so every ring is written and read
+    # (see TOL_CHAIN above)
     bf16 = layout["dtype"] == "bfloat16"
-    strm = ar_kernel.stream_split(mc.dilations, layout["chunk"], True)[1]
+    split = layout["cluster"] if bf16 else 0
     B = c_up.shape[0]
-    Tp = (2 * max(mc.dilations[l] for l in strm) if bf16 or fused
-          else PLAIN_T)
+    Tp = 2 * max(mc.dilations) if bf16 or fused else PLAIN_T
     cp, npl = c_up[:, :Tp].contiguous(), noise[:, :Tp].contiguous()
     teacher = own_feedback(out)[:, :Tp]
     ms = cuda_ms(lambda: ar_kernel.generate(pp, mc, cp, noise=npl,
                                             **layout), 2)
     plain, plain_ms = host_ms(lambda: ar_kernel.generate_plain(
         pp, mc, cp, noise=npl, teacher=teacher, dtype=layout["dtype"],
-        chain=bf16, fused=fused))
+        chain=bf16, split=split, fused=fused))
     max_err = err(plain, out[:, :Tp])
     extra = {}
     if bf16:
@@ -690,7 +784,7 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
     bound_ms, bound_by = bound(mc, B, Tp, pp, 2 if bf16 else 4, fused)
     emit(f"{phase}_vs_plain", variant=name, B=B, T=Tp,
          full_T=out.shape[1], full_call_ms=full_ms, max_abs_err=max_err,
-         limit=limit, chain=bf16, **extra, kernel_ms=ms,
+         limit=limit, chain=bf16, split=split, **extra, kernel_ms=ms,
          us_per_step=1e3 * ms / Tp, plain_ms=plain_ms, bound_ms=bound_ms,
          bound_by=bound_by)
     require(max_err <= limit, f"deep main-path kernel vs plain ({name})")
@@ -698,7 +792,8 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
             f"deep main-path fp32 control misses the bf16 kernel ({name})")
     return {"name": name, "launches": launched[name], "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "wall_seconds": summary["wall_seconds"],
+            "rtf": summary["rtf"], "T": Tp}
 
 
 def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
@@ -812,7 +907,8 @@ def phase_deep_fused_times(mc, model, pp, seed: int) -> None:
 
 
 def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
-    """The streaming session at config 2, B = 1, fused=4 and fused=0."""
+    """The streaming session at config 2, B = 1, fused=4 (ar_generate) and
+    unfused (the cluster kernel, the session's default, as the decode)."""
     mc, hop, sr = cfg.model, cfg.data.hop_length, cfg.data.sample_rate
     frames = np.random.default_rng(seed + 9).standard_normal(
         (1, STREAM_FRAMES, mc.aux_channels)).astype(np.float32)
@@ -822,10 +918,14 @@ def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
     n_blocks = -(-STREAM_FRAMES // STREAM_BLOCK)
     runs, checks = {}, []
     for W in (FUSED, 0):
-        name = ar_kernel.variant("float32", False, W)
+        layout = decode.kernel_layout(mc, "float32", fused=W)
+        name = layout_variant(mc, layout)
         syn = StreamingSynthesizer(pp, model, mc, hop, batch=1,
                                    block_frames=STREAM_BLOCK, seed=seed,
                                    record_noise=True, fused=W)
+        require(syn.cluster == layout["cluster"],
+                f"the session's cluster {syn.cluster}, the decode's {layout}")
+        n = syn.cluster
         ar_kernel.launches.clear()
         pieces, pushes = [], []
         for s0 in range(0, STREAM_FRAMES, STREAM_BLOCK):
@@ -846,7 +946,8 @@ def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
         # and uniforms; the upsampler half: that conditioning against the
         # whole utterance's
         c_all, n_all = syn.cond_so_far(), syn.noise_so_far()
-        one_t = ar_kernel.generate(pp, mc, c_all, noise=n_all, fused=W)
+        one_t = ar_kernel.generate(pp, mc, c_all, noise=n_all, fused=W,
+                                   cluster=n)
         one = one_t.cpu().numpy()
         kerr, uerr = float(np.abs(one - wav).max()), err(c_all, full)
         ulimit = TOL_UPSAMPLE * float(full.abs().max())
@@ -871,7 +972,8 @@ def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
         push = dict(noise=n_all[:, n_blk - M:2 * n_blk],
                     teacher=one_t[:, n_blk - M - 1:n_blk - 1], warmup=M,
                     fused=W)
-        kp = ar_kernel.generate(pp, mc, c_all[:, n_blk - M:2 * n_blk], **push)
+        kp = ar_kernel.generate(pp, mc, c_all[:, n_blk - M:2 * n_blk],
+                                cluster=n, **push)
         pe = err(ar_kernel.generate_plain(
             pp, mc, c_all[:, n_blk - M:2 * n_blk], **push), kp)
         se = float(np.abs(kp[:, M:].cpu().numpy()
@@ -885,7 +987,8 @@ def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
                    {"check": f"fused{W}_push_call_vs_stream",
                     "max_abs_err": se, "limit": 0.0, "ok": se == 0.0}]
         runs[f"fused{W}"] = {
-            "variant": name, "launches": launched[name], "blocks": n_blocks,
+            "variant": name, "layout": layout, "launches": launched[name],
+            "blocks": n_blocks,
             "block_ms": 1e3 * block_s, "steady_pushes": len(steady),
             "push_ms_mean": float(steady.mean()),
             "push_ms_p95": float(np.percentile(steady, 95)),
@@ -896,6 +999,149 @@ def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
          checks=checks, card=smi)
     for c in checks:
         require(c["ok"], f"streaming: {c}")
+
+
+def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
+    """The cluster kernel at config 2 and deep_baseline, fp32 and bf16 (see
+    phase 14 above). models: {preset: (model config, model, plain
+    params)}. Returns {variant: row} for the kernels line, one for each
+    variant held against its plain version here."""
+    limit = ar_kernel.smem_limit("cuda")
+    g = torch.Generator(device="cuda").manual_seed(17)
+    ar_kernel.launches.clear()
+    runs, checks, checked = {}, [], {}
+    for preset, (mc, model, pp) in models.items():
+        # one batch of the largest size; the smaller are its first rows
+        Bmax = max(CLUSTER_B)
+        c_all = random_cond(mc, model, Bmax, CLUSTER_T, 23)
+        n_all = ar_kernel.uniform_noise((Bmax, CLUSTER_T), g)
+        c1 = c_all[:1, :CLUSTER_CHECK_T].contiguous()
+        n1 = n_all[:1, :CLUSTER_CHECK_T].contiguous()
+        for dtype in ar_kernel.DTYPES:
+            tag = f"{preset}_{dtype}"
+            lay = decode.kernel_layout(mc, dtype)
+            old = decode.kernel_layout(mc, dtype, cluster=False)
+            n = lay["cluster"]
+            require(n > 1, f"{tag}: a cluster layout {lay}")
+            chosen = layout_variant(mc, lay)
+            occ, fits = {}, []
+            for size in CLUSTER_N:
+                occ[size] = {}
+                for l2, key in ((False, "smem"), (True, "l2")):
+                    try:
+                        b = ar_kernel.cluster_smem_bytes(mc, dtype, size,
+                                                         not l2)
+                    except ValueError as e:
+                        occ[size] = {"refused": str(e)}
+                        break
+                    occ[size][f"{key}_bytes"] = b
+                    active = (ar_kernel.max_active_clusters(
+                        mc, dtype, size, not l2) if b <= limit else None)
+                    occ[size][f"{key}_clusters"] = active
+                    if active:
+                        fits.append((size, l2))
+            w_old = ar_kernel.kernel_weights(pp, mc, dtype, 0, "cuda")
+            w_new = {size: ar_kernel.kernel_weights(pp, mc, dtype, 0, "cuda",
+                                                    size)
+                     for size in {size for size, _ in fits}}
+            # every size and placement that fits, by its `launches` name
+            fns = {"ar_generate": lambda c, u: ar_kernel.generate(
+                w_old, mc, c, noise=u, **old)}
+            for size, l2 in fits:
+                fns[ar_kernel.variant(dtype, False, 0, size, not l2)] = (
+                    lambda c, u, size=size, l2=l2: ar_kernel.generate(
+                        w_new[size], mc, c, noise=u, dtype=dtype,
+                        cluster=size, weights_l2=l2))
+            require(chosen in fns, f"{tag}: {chosen} fits")
+            us, outs = {}, {}
+            for b in CLUSTER_B:
+                cb, nb = c_all[:b].contiguous(), n_all[:b].contiguous()
+                names = (list(fns) if b in CLUSTER_SIZES_B
+                         else ["ar_generate", chosen])
+                out = {k: fns[k](cb, nb) for k in names}
+                outs[b] = out[chosen]
+                # one size, both placements: the same sums, to the bit
+                for size in {size for size, _ in fits}:
+                    smem, l2 = (ar_kernel.variant(dtype, False, 0, size, r)
+                                for r in (True, False))
+                    if smem in out and l2 in out:
+                        checks.append({
+                            "check": f"{tag}_N{size}_smem_equals_l2_B{b}",
+                            "ok": torch.equal(out[smem], out[l2])})
+                # in turns: each in order, then in the reverse order
+                t = {k: [] for k in names}
+                for k in names + names[::-1]:
+                    t[k].append(1e3 * event_ms(lambda: fns[k](cb, nb))
+                                / CLUSTER_T)
+                us[b] = t
+            same = all(torch.equal(outs[b], outs[Bmax][:b]) for b in CLUSTER_B)
+            checks.append({"check": f"{tag}_row_equal_at_B_"
+                           + "_".join(map(str, CLUSTER_B)), "ok": same})
+            require(bool(torch.isfinite(outs[Bmax]).all()),
+                    f"{tag} cluster output finite")
+            # held against the plain version at B = 1 over the first steps:
+            # the size the decode picks, and, where its weights stream from
+            # L2, the smallest size whose weights fit in shared memory
+            held = [chosen]
+            res = [ar_kernel.variant(dtype, False, 0, size, True)
+                   for size, l2 in fits if not l2]
+            if res and res[0] != chosen and chosen.endswith(",l2]"):
+                held.append(res[0])
+            for name in held:
+                size = int(re.search(r"N(\d+)", name).group(1))
+                k = fns[name](c1, n1)
+                ms = event_ms(lambda: fns[name](c1, n1))
+                if name == chosen:
+                    checks.append({"check": f"{tag}_prefix_of_T{CLUSTER_T}",
+                                   "ok": torch.equal(
+                                       k, outs[1][:, :CLUSTER_CHECK_T])})
+                fb = own_feedback(k)
+                fp32, plain_ms = host_ms(lambda: ar_kernel.generate_plain(
+                    pp, mc, c1, noise=n1, teacher=fb))
+                if dtype == "float32":
+                    e = err(fp32, k)
+                    checks.append({"check": f"{name}_{tag}_free_one_step"
+                                   "_vs_plain", "max_abs_err": e,
+                                   "limit": TOL_FREE, "ok": e <= TOL_FREE})
+                else:
+                    chain, plain_ms = host_ms(
+                        lambda: ar_kernel.generate_plain(
+                            pp, mc, c1, noise=n1, teacher=fb, dtype=dtype,
+                            chain=True, split=size))
+                    e, ctl = err(chain, k), err(fp32, k)
+                    cmin = CONTROL_MIN if preset == "deep_baseline" \
+                        else KPROBE_CONTROL_MIN
+                    checks.append({"check": f"{name}_{tag}_vs_chain_split"
+                                   f"{size}", "max_abs_err": e,
+                                   "limit": TOL_CHAIN, "control_fp32": ctl,
+                                   "control_min": cmin,
+                                   "ok": e <= TOL_CHAIN and ctl > cmin})
+                bound_ms, bound_by = bound(mc, 1, CLUSTER_CHECK_T, pp,
+                                           2 if dtype == "bfloat16" else 4)
+                checked[name] = {
+                    "name": name, "preset": preset, "dtype": dtype,
+                    "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "B": 1, "T": CLUSTER_CHECK_T}
+            resident = not chosen.endswith(",l2]")
+            key = f"ar_cluster,{'bf16' if dtype == 'bfloat16' else 'fp32'}," \
+                + ("smem" if resident else "l2")
+            runs[tag] = {
+                "N": n, "weights": "shared memory" if resident else "L2",
+                "variant": chosen, "fallback": old,
+                "smem_bytes": ar_kernel.cluster_smem_bytes(mc, dtype, n,
+                                                           resident),
+                "registers": regs.get(key), "occupancy": occ,
+                "us_per_step": us}
+    launches = dict(ar_kernel.launches)
+    for d in checked.values():
+        d["launches"] = launches.get(d["name"], 0)
+    emit("cluster", T=CLUSTER_T, check_T=CLUSTER_CHECK_T, smem_limit=limit,
+         runs=runs, checks=checks, held=checked, launches=launches,
+         card=smi)
+    for c in checks:
+        require(c["ok"], f"cluster: {c}")
+    return checked
 
 
 def phase_kfuse(smi: str) -> None:
@@ -1090,7 +1336,7 @@ def main(argv=None) -> int:
 
 
 def run(args, smi: str, builds: dict) -> int:
-    libs, regs = finish_builds(builds, ("ar_generate",))
+    libs, regs = finish_builds(builds, ("ar_generate", "ar_cluster"))
     emit("build", seconds=time.perf_counter() - builds["t0"],
          libs=sorted(str(v.relative_to(Path(__file__).resolve().parent))
                      for v in libs.values()),
@@ -1125,6 +1371,8 @@ def run(args, smi: str, builds: dict) -> int:
                   for dt in ("float32", "bfloat16")]
     phase_deep_fused_times(dcfg.model, dmodel, dpp, args.seed)
     phase_streaming(cfg, model, pp, args.seed, smi)
+    held = phase_cluster(smi, regs, {cfg.name: (cfg.model, model, pp),
+                                     dcfg.name: (dcfg.model, dmodel, dpp)})
     phase_kfuse(smi)
     libs, regs = finish_builds(builds, ("ar_probe", "ring_probe"))
     emit("probe_build", seconds=time.perf_counter() - builds["t0"],
@@ -1134,35 +1382,41 @@ def run(args, smi: str, builds: dict) -> int:
     probe = phase_kprobe(smi)
     rings = phase_dma_probe(smi)
 
-    source = "shallow_wavenet_tpu_torch/csrc/ar_generate.cu"
-    kernels = [{
-        "name": "ar_generate", "route": "cuda", "source": source,
-        "replaces": "shallow_wavenet_tpu/ops/ar_kernel.py:560",
-        "launches": main_path["launches"],
-        "max_abs_err": main_path["max_abs_err"],
-        "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
-        "bound_ms": main_path["bound_ms"],
-        "bound_by": main_path["bound_by"], "library_ms": None,
-        "check_ms": check["kernel_ms"], "check_plain_ms": check["plain_ms"],
-    }]
-    for d, replaces, key in zip(deep, (":297", ":616"), ("fp32", "bf16")):
-        kernels.append({
-            "name": d["name"], "route": "cuda", "source": source,
-            "replaces": "shallow_wavenet_tpu/ops/ar_kernel.py" + replaces,
-            "launches": d["launches"], "max_abs_err": d["max_abs_err"],
-            "ms": d["ms"], "plain_ms": d["plain_ms"],
-            "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-            "library_ms": None, "check_ms": deep_check[key]["ms"],
-            "check_plain_ms": deep_check[key]["plain_ms"]})
-    for d, replaces in ((fused_main, ":368"), (deep_fused[0], ":378"),
-                        (deep_fused[1], ":742")):
-        kernels.append({
-            "name": d["name"], "route": "cuda", "source": source,
-            "replaces": "shallow_wavenet_tpu/ops/ar_kernel.py" + replaces,
-            "launches": d["launches"], "max_abs_err": d["max_abs_err"],
-            "ms": d["ms"], "plain_ms": d["plain_ms"],
-            "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-            "library_ms": None})
+    tpu = "shallow_wavenet_tpu/ops/ar_kernel.py"
+    csrc = "shallow_wavenet_tpu_torch/csrc/"
+
+    def row(d, source, replaces, **kw):
+        return {"name": d["name"], "route": "cuda", "source": csrc + source,
+                "replaces": tpu + replaces, "launches": d["launches"],
+                "max_abs_err": d["max_abs_err"], "ms": d["ms"],
+                "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+                "bound_by": d["bound_by"], "library_ms": None, **kw}
+
+    # the cluster kernel on the main paths (config 2, deep fp32, deep bf16)
+    kernels = [row(main_path, "ar_cluster.cu", ":560",
+                   check_ms=check["cluster_kernel_ms"])]
+    kernels += [row(d, "ar_cluster.cu", r)
+                for d, r in zip(deep, (":560", ":616"))]
+    # its other template instances (weights in shared memory), on no main
+    # path on an H100: launches counted in the cluster phase
+    kernels += [row(d, "ar_cluster.cu",
+                    ":616" if d["dtype"] == "bfloat16" else ":560",
+                    counted_in="cluster")
+                for d in held.values()
+                if d["name"] not in {k["name"] for k in kernels}]
+    # ar_generate, the fallback layouts: launches counted in the phases
+    # that hold them against their plain versions
+    kernels.append(row({**check, "name": "ar_generate",
+                        "launches": check["launches"]["ar_generate"],
+                        "ms": check["kernel_ms"]}, "ar_generate.cu", ":560",
+                       counted_in="kernel_vs_plain"))
+    for key, r in (("fp32", ":297"), ("bf16", ":616")):
+        kernels.append(row(deep_check[key], "ar_generate.cu", r,
+                           counted_in="deep_kernel_vs_plain"))
+    # ar_generate's fused window, on the --fused main paths
+    for d, r in ((fused_main, ":368"), (deep_fused[0], ":378"),
+                 (deep_fused[1], ":742")):
+        kernels.append(row(d, "ar_generate.cu", r))
     kernels[-3].update(check_ms=fused_check["kernel_ms"],
                        check_plain_ms=fused_check["plain_ms"])
     kernels.append({

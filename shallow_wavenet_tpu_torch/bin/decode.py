@@ -4,13 +4,17 @@ of `shallow_wavenet_tpu/bin/decode.py`.
 Reads normalized features (--feats-dir, --stats), loads the weights from a
 flat .npz of the flax parameter tree (--params; see
 models.wavenet.save_params_npz), upsamples the conditioning, generates each
-padded batch with the CUDA AR kernel in one launch, trims every utterance to
+padded batch with a CUDA AR kernel in one launch, trims every utterance to
 n_frames * hop and writes wavs plus decode_summary.json (audio-seconds/s,
-RTF and the kernel layout). There is no backend ladder: the card has one
-kernel, laid out as the first of KERNEL_LAYOUTS whose shared memory fits
-the device, chosen from sizes before any launch; a failure raises. With
---fused W the layout is the fused window's; unlike the JAX ladder, a fused
-layout that fits nowhere raises instead of dropping --fused.
+RTF and the kernel layout). There is no backend ladder: the layout is the
+first of KERNEL_LAYOUTS that fits the device, chosen from the kernels' own
+sizes and occupancy query before any launch; a failure raises. The cluster
+kernel (`csrc/ar_cluster.cu`, a cluster of N SMs per row, each reading
+1/N of the weights) comes first; the one-SM-per-row kernel
+(`csrc/ar_generate.cu`) is the fallback where no cluster fits, and runs
+--fused W, the fused window, which the cluster kernel does not have;
+unlike the JAX ladder, a fused layout that fits nowhere raises instead of
+dropping --fused.
 
     python -m shallow_wavenet_tpu_torch.bin.decode --preset shallow_laplace_single \
         --eval-scp eval.scp --feats-dir feats --stats stats.h5 \
@@ -50,35 +54,53 @@ from shallow_wavenet_tpu_torch.ops import ar_kernel
 
 log = logging.getLogger("decode")
 
-# The kernel layouts in the JAX decode's tier order (PALLAS_TIERS):
-# (dtype, streamed, chunk). The fp32 layouts give identical samples;
-# streaming moves the rings of the layers whose dilation is a >1 multiple
-# of the chunk from shared to global memory.
+# The kernel layouts, in order: (dtype, streamed, chunk, cluster). Every
+# fp32 layout comes before any bf16 one, as in the JAX decode's tier order
+# (PALLAS_TIERS), so "auto" lowers the precision only where no fp32 layout
+# fits. Within a dtype, the cluster kernel first (cluster=True: its size N
+# is the model's and the card's, `ar_kernel.cluster_size`; its rings are
+# always resident), then the one-SM-per-row kernel, where streaming moves
+# the rings of the layers whose dilation is a >1 multiple of the chunk from
+# shared to global memory. The fp32 layouts of one kernel give identical
+# samples.
 KERNEL_LAYOUTS = (
-    ("float32", False, 64),
-    ("float32", True, 64),
-    ("float32", True, 32),
-    ("bfloat16", False, 64),
-    ("bfloat16", True, 64),
-    ("bfloat16", True, 32),
+    ("float32", False, 64, True),
+    ("float32", False, 64, False),
+    ("float32", True, 64, False),
+    ("float32", True, 32, False),
+    ("bfloat16", False, 64, True),
+    ("bfloat16", False, 64, False),
+    ("bfloat16", True, 64, False),
+    ("bfloat16", True, 32, False),
 )
 
 
 def kernel_layout(model_cfg, kernel_dtype: str = "auto", device=None,
-                  fused: int = 0) -> dict:
-    """The first of KERNEL_LAYOUTS of `kernel_dtype` ("auto": any) whose
-    shared memory (the kernel's `ar_smem_bytes`, for the fused window W
-    when fused > 0) fits a block on the CUDA `device`; on the CPU, where
-    the plain version has no such limit, the first of that dtype. A
-    streamed layout that streams no layer is the resident one and is
-    skipped. Returns the generate() keywords {"dtype", "stream", "chunk",
-    "fused"}. Raises ValueError when none fits."""
+                  fused: int = 0, cluster: bool = True) -> dict:
+    """The first of KERNEL_LAYOUTS of `kernel_dtype` ("auto": any) that
+    fits the CUDA `device`: a cluster layout where the cluster kernel has a
+    size for this model, dtype and card (`ar_kernel.cluster_size`: its
+    block's shared memory and occupancy), an `ar_generate` layout where its
+    shared memory (`ar_smem_bytes`, for the fused window W when fused > 0)
+    fits a block. On the CPU, where the plain version has no such limits,
+    the first of that dtype. A streamed layout that streams no layer is the
+    resident one and is skipped; fused > 0, or cluster=False, skips the
+    cluster layouts. Returns the generate() keywords {"dtype", "stream",
+    "chunk", "fused", "cluster"} (cluster: N, or 0 for ar_generate).
+    Raises ValueError when none fits."""
     dev = resolve_device(device)
     if kernel_dtype not in ("auto", *ar_kernel.DTYPES):
         raise ValueError(f"unknown kernel dtype {kernel_dtype!r}")
     limit = ar_kernel.smem_limit(dev) if dev.type == "cuda" else None
-    for dtype, stream, chunk in KERNEL_LAYOUTS:
+    for dtype, stream, chunk, clustered in KERNEL_LAYOUTS:
         if kernel_dtype not in ("auto", dtype):
+            continue
+        if clustered:
+            n = (ar_kernel.cluster_size(model_cfg, dtype, dev)
+                 if cluster and not fused else 0)
+            if n:
+                return {"dtype": dtype, "stream": False, "chunk": chunk,
+                        "fused": 0, "cluster": n}
             continue
         if stream and not ar_kernel.stream_split(model_cfg.dilations, chunk,
                                                  True)[1]:
@@ -86,10 +108,32 @@ def kernel_layout(model_cfg, kernel_dtype: str = "auto", device=None,
         if limit is None or ar_kernel.smem_bytes(
                 model_cfg, dtype, stream, chunk, fused) <= limit:
             return {"dtype": dtype, "stream": stream, "chunk": chunk,
-                    "fused": fused}
+                    "fused": fused, "cluster": 0}
     raise ValueError(f"no AR kernel layout of dtype {kernel_dtype!r} and "
                      f"fused={fused} fits the shared memory of a block on "
                      f"{dev}")
+
+
+def warn_waves(model_cfg, layout: dict, batch_size: int, device=None
+               ) -> int:
+    """Log a warning when a batch of `batch_size` rows is more than the
+    card holds clusters of the layout's size at once: the cluster kernel
+    then runs the batch in waves, and past a few waves the one-SM-per-row
+    kernel is faster (README). Returns the number of waves (1 off the
+    cluster kernel or the card)."""
+    n, dtype, dev = layout["cluster"], layout["dtype"], resolve_device(device)
+    if not n or dev.type != "cuda":
+        return 1
+    at_once = ar_kernel.max_active_clusters(
+        model_cfg, dtype, n,
+        ar_kernel.cluster_resident(model_cfg, dtype, n, dev), dev)
+    waves = -(-batch_size // at_once)
+    if waves > 1:
+        log.warning("--batch-size %d is more than the %d clusters of %d "
+                    "SMs the card holds at once: each batch runs in %d "
+                    "waves of the cluster kernel", batch_size, at_once, n,
+                    waves)
+    return waves
 
 
 @torch.no_grad()
@@ -141,6 +185,7 @@ def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
     chosen once, from `kernel_dtype` and `fused`, for every batch."""
     layout = kernel_layout(cfg.model, kernel_dtype, device, fused)
     log.info("AR kernel layout: %s", layout)
+    warn_waves(cfg.model, layout, batch_size, device)
     outdir = Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     sr = cfg.data.sample_rate

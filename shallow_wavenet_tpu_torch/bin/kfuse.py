@@ -9,11 +9,13 @@ The prototype's kernel computes the production kernel's function on a
 recipe of weights: every weight normal with std 0.05 from
 `np.random.default_rng(0)`, the input encoded as x * 1 + in_b (unit input
 weights), zero biases elsewhere, and the config's log-scale clip. Here the
-same recipe runs through the port's own CUDA kernel (`ops.ar_kernel`, one
+same recipe runs through the port's own CUDA kernel (`ops.ar_kernel`'s
+one-SM-per-row `ar_generate`, the kernel that has the fused window; one
 launch per call), unfused for W = 0 and the fused window otherwise, on
-random normal conditioning and uniforms, each W on the layout the decode
-would pick for it (`bin.decode.kernel_layout`, so a preset whose resident
-rings do not fit runs streamed). Prints one JSON line per (B, W): mean us
+random normal conditioning and uniforms, each W on the layout of that
+kernel the decode would pick for it (`bin.decode.kernel_layout(...,
+cluster=False)`, so a preset whose resident rings do not fit runs
+streamed). Prints one JSON line per (B, W): mean us
 per sample step by CUDA events over --reps calls after one warm-up call,
 RTF at the preset's sample rate, the weights the kernel reads per step,
 and the layout. Needs CUDA.
@@ -88,7 +90,8 @@ def sweep(preset: str = "shallow_laplace_single", dtype: str = "float32",
     mc = dataclasses.replace(cfg.model, head="laplace")
     sr = cfg.data.sample_rate
     pp = recipe_params(mc, dev)
-    layouts = {W: kernel_layout(mc, dtype, dev, fused=W) for W in windows}
+    layouts = {W: kernel_layout(mc, dtype, dev, fused=W, cluster=False)
+               for W in windows}
     # made once per W, so that a timed call is the kernel's launch alone
     weights = {W: ar_kernel.kernel_weights(pp, mc, dtype, W, dev)
                for W in windows}

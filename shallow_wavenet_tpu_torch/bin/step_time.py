@@ -2,7 +2,8 @@
 two trees of the port.
 
     python3 shallow_wavenet_tpu_torch/bin/step_time.py [--root DIR] \\
-        [--preset shallow_laplace_single] [--batch 8] [--steps 2048]
+        [--preset shallow_laplace_single] [--batch 8] [--steps 2048] \\
+        [--cluster N]
 
 Imports shallow_wavenet_tpu_torch from --root (default: the tree that holds
 this file), so one copy of this script times any tree whose `ops.ar_kernel`
@@ -11,8 +12,11 @@ draws random weights (seed 0, head2 std 0.05, as chip_smoke.py does) and
 random normalized frames, and prints one JSON line: the root, the card's
 name and power limit, and the kernel's mean time per call and per step by
 CUDA events over --reps calls after one warm-up call. The layout timed is
-the fp32 resident one, which every tree of the port has. Compare two trees
-on one card in one session, in the order parent, change, change, parent.
+the fp32 one-SM-per-row kernel with resident rings, which every tree of the
+port has; --cluster N times the cluster kernel of N SMs per row instead
+(trees from the one that added it), and --cluster auto the size the decode
+picks. Compare two trees on one card in one session, in the order parent,
+change, change, parent.
 """
 
 from __future__ import annotations
@@ -32,6 +36,10 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=2048)
     p.add_argument("--reps", type=int, default=3)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--cluster", default="0",
+                   help="cluster size N of the cluster kernel, 'auto' for "
+                        "the decode's choice, 0 for the one-SM-per-row "
+                        "kernel")
     args = p.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -63,9 +71,15 @@ def main(argv=None) -> int:
         c_up = model.upsample_cond(cond)[:, :T].contiguous()
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     noise = ar_kernel.uniform_noise((B, T), g)
+    if args.cluster == "auto":
+        from shallow_wavenet_tpu_torch.bin.decode import kernel_layout
+        cluster = kernel_layout(mc, "float32")["cluster"]
+    else:
+        cluster = int(args.cluster)
+    kw = {"cluster": cluster} if cluster else {}
 
     def call():
-        return ar_kernel.generate(pp, mc, c_up, noise=noise)
+        return ar_kernel.generate(pp, mc, c_up, noise=noise, **kw)
 
     call()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -80,7 +94,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(json.dumps({"root": str(root), "card": smi, "preset": args.preset,
-                      "B": B, "T": T, "reps": args.reps, "ms": ms,
+                      "cluster": cluster, "B": B, "T": T, "reps": args.reps,
+                      "ms": ms,
                       "us_per_step": 1e3 * ms / T}), flush=True)
     return 0
 

@@ -1,0 +1,915 @@
+// Autoregressive WaveNet generation on Hopper (sm_90a), one thread-block
+// cluster of N SMs per batch row.
+//
+// Replaces, on the decode's unfused path, the Pallas TPU kernel built by
+// `_make_kernel` and launched by `generate_pallas` in
+// shallow_wavenet_tpu/ops/ar_kernel.py, as ar_generate.cu does, and
+// computes the same function as ar_generate.cu's unfused form: both heads
+// (Laplace, softmax), sample and greedy, teacher forcing for every step or
+// a warm-up prefix, silence seeding, out-of-range class ids (a zero
+// embedding), fp32 or bf16 weights and rings with bf16 rounded where
+// ar_generate.cu rounds (`rnd<W>`). Only the fused window stays on
+// ar_generate.cu.
+//
+// What bounds ar_generate.cu: one SM per row reads every weight from L2 on
+// every step (1.8 MB fp32 at config 2, 16.0 MB at deep_baseline) in a
+// chain of dependent stages, while at B = 8 the other 124 SMs sit idle.
+// The step follows the bytes one SM pulls, not the batch.
+//
+// The design here: every product is split along its input dimension
+// (K-split) over the N blocks of a cluster, so each SM owns a fixed slice
+// of the state and reads only 1/N of the weights:
+// - rank k owns rows [kR/N, (k+1)R/N) of the residual stream h and the
+//   same columns of every ring row, in its own shared memory; its tap
+//   products multiply its slices of x[t-d] and h by its R/N rows of W0
+//   and W1, a partial of all G gate inputs; ring reads and writes never
+//   leave the SM;
+// - it holds C/N rows of every layer's V, and computes its partial of
+//   c_t @ V for the layer's G columns beside its tap products (from the
+//   layer's weight stage, so streamed with them);
+// - reduce-scatter 1: each rank stores each owner's columns of its
+//   (tap, conditioning) partials into the owner's shared memory through
+//   distributed shared memory (DSMEM); owner k takes columns j and
+//   j + G/2 for j in its G/(2N) block, so each gate pair is local; after
+//   one cluster barrier the owner sums the N partials in rank order, adds
+//   the bias and gates: its G/(2N) values of z;
+// - reduce-scatter 2: z @ [Ws | Wr] is split on z's rows; rank k receives
+//   the partials of S/N skip outputs and of the R/N residual outputs of
+//   its own h slice, writes its old h slice to its ring slot and updates
+//   h += res locally;
+// - the head is split on skip: relu(skip) @ H1 is reduce-scattered to
+//   slices of a1, and the partials of a1 @ H2 (O = 2 for Laplace, Q for
+//   softmax) are all-gathered, so that every rank sums them in rank order
+//   and draws the same sample from the same uniform (rank 0 writes it);
+//   no broadcast of the sample is needed.
+// That is 2L + 2 exchanges per step (26 at config 2, 62 at deep_baseline).
+// An exchange is point to point: each sender stores its partials into the
+// owner's receive buffer with st.async, which counts the bytes on the
+// owner's mbarrier, and the owner waits on that mbarrier alone. A first
+// version synchronised every exchange with barrier.cluster arrive.release
+// / wait.acquire, and was slower on an H100: its fences make every
+// exchange a cluster-wide flush. Every
+// receive buffer is double-buffered by exchange parity: a sender reaches
+// exchange e + 2 only after it has received exchange e + 1 from every rank,
+// which each sent after reading exchange e, so a buffer is never written
+// before its reader is done, and no other synchronisation is needed.
+//
+// Weights: the wrapper packs each rank's slice contiguously, per stage
+// (each layer's [W0|W1 interleaved by tap | V rows | Ws|Wr rows], then
+// the head's [H1 rows | H2 rows]). With kResident (config 2 at N = 16:
+// 119.8 KB per SM fp32, 59.9 KB bf16) the slice is copied into shared
+// memory once per call and never read from L2 again. Otherwise (config 2
+// fp32 at N = 8: 240 KB per SM per step; deep_baseline at N = 16: 1.02
+// MB fp32) each stage is read from L2 one stage ahead into a double
+// buffer with cp.async.
+// The rings are always resident: split over N, deep_baseline's take
+// 3,069 rows x 8 columns, 98.2 KB fp32 or 49.1 KB bf16 per SM.
+//
+// Summation order, a function of the model, the dtype and N only (never
+// of B, so a row's samples do not depend on its batch): each rank's dot is
+// one fp32 chain in k order over its slice; the tap partial is tap0 + tap1,
+// then the N partials are summed in rank order; a gate input is
+// ((sum of tap partials + b) + sum of conditioning partials). The plain
+// version's `split=N, chain=True` does this kernel's operations one for
+// one; with N = 1 that order is ar_generate.cu's (`chain=True`).
+//
+// The wrapper picks N from the model, the dtype and the card, never from
+// the batch (`ar_kernel.cluster_size`): with one block per SM, an H100's
+// GPCs hold only 7 clusters of 16 (112 of 132 SMs), 15 of 8. A batch
+// larger than the clusters the card holds at once runs in waves.
+// No library kernel stands in for any part of the recurrence; fp32 FMA,
+// no tensor cores.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxLayers = 64;
+constexpr int kMaxPerLane = 32;   // softmax classes per lane: Q <= 1024
+constexpr int kMaxCluster = 16;
+// passes of the block over a partial's outputs (2G tap lanes, S + R
+// projection outputs, S head outputs): at most 4 of 256 threads
+constexpr int kMaxPass = 4;
+constexpr unsigned kFull = 0xffffffffu;
+// The entry points' own refusals; cudaError_t codes are >= 0.
+constexpr int kErrLayers = -1, kErrClasses = -2, kErrSharedMemory = -3,
+              kErrSplit = -4, kErrOccupancy = -5, kErrWidth = -6;
+
+struct Params {
+  const float* c_up;     // (B, T, C)
+  const float* noise;    // (B, T) uniforms in (0, 1)
+  const float* teacher;  // (B, T) forced inputs, or nullptr
+  float* out;            // (B, T) samples, or class ids as floats
+  const void* in_w;      // (1, R) projection or (Q, R) embedding, W
+  const void* in_b;      // (R,)
+  const void* conv_b;    // (L, G)
+  const void* res_b;     // (L, R)
+  const void* skip_b;    // (L, S)
+  const void* h1_b;      // (S,)
+  const void* h2_b;      // (O,)
+  const void* stages;    // (N, L + 1, stride): each rank's weight slices
+  int B, T, L, R, G, S, C, Q, O, N;
+  int softmax, greedy, n_forced, rows, stride;
+  float log_b_min, log_b_max;
+  int dil[kMaxLayers];
+  int off[kMaxLayers];   // ring row offset of each layer
+};
+
+// The widths of one rank's slices.
+struct Split {
+  int Rn, Hn, Cn, Sn;    // R/N, (G/2)/N, C/N, S/N
+};
+
+__host__ __device__ inline Split split_of(int R, int G, int S, int C,
+                                          int N) {
+  return {R / N, G / 2 / N, C / N, S / N};
+}
+
+// Elements of one stage of a rank's packed weights: a layer is
+// [W0|W1 (R/N, G, 2) | V rows (C/N, G) | Ws|Wr rows (G/(2N), S + R)], the
+// head [H1 rows (S/N, S) | H2 rows (S/N, O)]; every stage is padded to
+// the larger, rounded up to 8 elements (16 bytes in bf16) for cp.async.
+__host__ __device__ inline int stage_stride(int R, int G, int S, int C,
+                                            int O, int N) {
+  const Split s = split_of(R, G, S, C, N);
+  const int layer = 2 * s.Rn * G + s.Cn * G + s.Hn * (S + R);
+  const int head = s.Sn * (S + O);
+  return ((layer > head ? layer : head) + 7) / 8 * 8;
+}
+
+// One block's dynamic shared memory: its ring slice (rows x R/N elements
+// of `elem` bytes), its weights (resident: every stage; streamed: two
+// stage buffers), then fp32 scratch at the float offsets below. The only statement of the layout, used by the kernel to carve it
+// and by the host to size it.
+struct SmemLayout {
+  size_t ring_bytes, weight_bytes;
+  size_t recv_each;     // floats per parity of the receive buffer
+  size_t bar, recv, h, c, z, skip, a1, o, fb, cb, rsb, h1b, h2b, inw, inb;
+  size_t floats, bytes;
+};
+
+__host__ __device__ inline SmemLayout smem_layout(int rows, int L, int R,
+                                                  int G, int S, int C,
+                                                  int O, int N, int elem,
+                                                  bool resident) {
+  const Split s = split_of(R, G, S, C, N);
+  const int stride = stage_stride(R, G, S, C, O, N);
+  SmemLayout m;
+  m.ring_bytes = ((size_t)rows * s.Rn * elem + 15) / 16 * 16;
+  const size_t welems = (resident ? L + 1 : 2) * (size_t)stride;
+  m.weight_bytes = (welems * elem + 15) / 16 * 16;
+  size_t r = 2 * (size_t)G;                        // (N, G/N) float2
+  if ((size_t)(S + R) > r) r = S + R;              // (N, S/N + R/N)
+  if ((size_t)N * O > r) r = (size_t)N * O;        // (N, O); S/N * N = S
+  m.recv_each = (r + 3) / 4 * 4;
+  size_t n = 0;
+  m.bar = n;   n += 4;               // two mbarriers (8 bytes each)
+  m.recv = n;  n += 2 * m.recv_each;               // two parities
+  m.h = n;     n += s.Rn;            // this rank's slice of h
+  m.c = n;     n += s.Cn;            // its slice of c_t
+  m.z = n;     n += s.Hn;            // its gated activations
+  m.skip = n;  n += s.Sn;            // its skip sums
+  m.a1 = n;    n += s.Sn;            // its head hidden values
+  m.o = n;     n += O;               // the head output (every rank)
+  m.fb = n;    n += 1;               // feedback sample or class id
+  m.cb = n;    n += (size_t)L * 2 * s.Hn;          // its gate biases
+  m.rsb = n;   n += (size_t)L * (s.Sn + s.Rn);     // its skip|res biases
+  m.h1b = n;   n += s.Sn;
+  m.h2b = n;   n += O;
+  m.inw = n;   n += s.Rn;            // Laplace input projection slice
+  m.inb = n;   n += s.Rn;
+  m.floats = n;
+  m.bytes = m.ring_bytes + m.weight_bytes + n * sizeof(float);
+  return m;
+}
+
+void pack_rings(const int* dil, int L, int* off, int* rows) {
+  *rows = 0;
+  for (int l = 0; l < L; ++l) {
+    off[l] = *rows;
+    *rows += dil[l];
+  }
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename W> __device__ __forceinline__ W from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+// x as stored in W: the TPU kernel's `.astype(wdt)`.
+template <typename W> __device__ __forceinline__ float rnd(float x) {
+  return to_f(from_f<W>(x));
+}
+
+// Terms loaded ahead of their adds, for the head's dots and the owners'
+// rank-order sums: their lengths are known only at run time, so an
+// unrolled loop would run its serial remainder, each add waiting for its
+// own load; here every chunk's loads are issued before its adds. Terms
+// past the end are exact zeros, which leave a chain unchanged: it starts
+// at +0 and an fp32 sum is -0 only when both terms are, so it never holds
+// -0. (The tap and skip|res loops stay plain unrolled loops: chunked
+// there, they timed slower on an H100.)
+constexpr int kChunk = 8;
+
+struct Identity {
+  __device__ float operator()(float v) const { return v; }
+};
+// relu, then the storage type's rounding: the head's input
+template <typename W> struct ReluRound {
+  __device__ float operator()(float v) const {
+    return rnd<W>(v > 0.f ? v : 0.f);
+  }
+};
+
+// f(x[0]) w[0] + f(x[1]) w[ld] + ... over k < n: one fp32 chain of FMAs
+// in k order from 0, as ar_generate.cu's dot_col over a slice.
+template <typename X, typename W, typename F = Identity>
+__device__ __forceinline__ float dot_chain(const X* x, const W* w, int n,
+                                           size_t ld, F f = F()) {
+  float acc = 0.f;
+  for (int k0 = 0; k0 < n; k0 += kChunk) {
+    float xv[kChunk], wv[kChunk];
+    #pragma unroll
+    for (int q = 0; q < kChunk; ++q) {
+      const bool ok = k0 + q < n;
+      xv[q] = ok ? f(to_f(x[k0 + q])) : 0.f;
+      wv[q] = ok ? to_f(w[(size_t)(k0 + q) * ld]) : 0.f;
+    }
+    #pragma unroll
+    for (int q = 0; q < kChunk; ++q) acc = fmaf(xv[q], wv[q], acc);
+  }
+  return acc;
+}
+
+// x[0] + x[ld] + ... + x[(n - 1) ld], added in rank order.
+__device__ __forceinline__ float rank_sum(const float* x, int n, int ld) {
+  float acc = x[0];
+  for (int k0 = 1; k0 < n; k0 += kChunk) {
+    float v[kChunk];
+    #pragma unroll
+    for (int q = 0; q < kChunk; ++q)
+      v[q] = k0 + q < n ? x[(k0 + q) * ld] : 0.f;
+    #pragma unroll
+    for (int q = 0; q < kChunk; ++q) acc += v[q];
+  }
+  return acc;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// The same shared-memory address in block `rank` of the cluster.
+__device__ __forceinline__ unsigned mapa(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+// One arrival that also expects `bytes` of st.async stores this phase.
+__device__ __forceinline__ void mbar_arm(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 _, [%0], %1;\n"
+      ::"r"(bar), "r"(bytes)
+      : "memory");
+}
+// Waits for the phase of `parity` to complete; the stores it counted, from
+// any block of the cluster, are then visible. A wait that never ends is a
+// fault of the exchange: trap, rather than hang the card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  for (long long spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > (1ll << 24)) __trap();
+  }
+}
+// Stores into another block's shared memory (`addr`, `bar` from mapa) and
+// counts the bytes on that block's mbarrier.
+__device__ __forceinline__ void st_async(unsigned addr, float v,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(addr), "f"(v), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async(unsigned addr, float a, float b,
+                                         unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];\n" ::"r"(addr), "f"(a), "f"(b), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most one committed group is still in flight.
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Starts the copy of one stage (`stride` elements) into shared memory.
+template <typename W>
+__device__ __forceinline__ void copy_stage(W* dst, const W* src, int stride,
+                                           int tid) {
+  const int chunks = stride * (int)sizeof(W) / 16;
+  for (int i = tid; i < chunks; i += kThreads)
+    cp_async16(reinterpret_cast<char*>(dst) + 16 * i,
+               reinterpret_cast<const char*>(src) + 16 * i);
+  cp_async_commit();
+}
+
+// One softmax draw by warp 0 (ar_generate.cu's, unchanged): id =
+// clip(#{q : cdf(q) < u}, 0, Q-1), or the first argmax when greedy. Lane l
+// holds classes [l*per, (l+1)*per).
+__device__ int sample_class(const float* o, int Q, float u, bool greedy,
+                            int lane) {
+  const int per = Q / 32;
+  float v[kMaxPerLane];
+#pragma unroll
+  for (int i = 0; i < kMaxPerLane; ++i)
+    v[i] = i < per ? o[lane * per + i] : -INFINITY;
+  if (greedy) {
+    float best = v[0];
+    int bi = lane * per;
+#pragma unroll
+    for (int i = 1; i < kMaxPerLane; ++i)
+      if (i < per && v[i] > best) { best = v[i]; bi = lane * per + i; }
+    for (int s = 16; s > 0; s >>= 1) {
+      const float ob = __shfl_xor_sync(kFull, best, s);
+      const int oi = __shfl_xor_sync(kFull, bi, s);
+      if (ob > best || (ob == best && oi < bi)) { best = ob; bi = oi; }
+    }
+    return bi;
+  }
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kMaxPerLane; ++i) if (i < per) m = fmaxf(m, v[i]);
+  for (int s = 16; s > 0; s >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, s));
+  float tot = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxPerLane; ++i)
+    if (i < per) { v[i] = expf(v[i] - m); tot += v[i]; }
+  for (int s = 16; s > 0; s >>= 1) tot += __shfl_xor_sync(kFull, tot, s);
+  float run = 0.f;
+#pragma unroll
+  for (int i = 0; i < kMaxPerLane; ++i)
+    if (i < per) { run += v[i] / tot; v[i] = run; }
+  float incl = run;
+  for (int s = 1; s < 32; s <<= 1) {
+    const float y = __shfl_up_sync(kFull, incl, s);
+    if (lane >= s) incl += y;
+  }
+  float base = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) base = 0.f;
+  int n = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxPerLane; ++i)
+    if (i < per && base + v[i] < u) ++n;
+  for (int s = 16; s > 0; s >>= 1) n += __shfl_xor_sync(kFull, n, s);
+  return min(max(n, 0), Q - 1);
+}
+
+// One block per SM (rows and ranks on their own SMs), as ar_generate.cu.
+template <typename W, bool kResident>
+__global__ void __launch_bounds__(kThreads, 1)
+ar_cluster_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int N = p.N;
+  const int rank = (int)cluster.block_rank();
+  const int row = blockIdx.x / N;
+  const int tid = threadIdx.x;
+  const int L = p.L, R = p.R, G = p.G, S = p.S, C = p.C, O = p.O;
+  const int half = G / 2;
+  const Split sp = split_of(R, G, S, C, N);
+  const int Rn = sp.Rn, Hn = sp.Hn, Cn = sp.Cn, Sn = sp.Sn;
+  const int stride = p.stride;
+
+  const SmemLayout m = smem_layout(p.rows, L, R, G, S, C, O, N, sizeof(W),
+                                   kResident);
+  W* ring = reinterpret_cast<W*>(smem);
+  W* wsm = reinterpret_cast<W*>(smem + m.ring_bytes);
+  float* f = reinterpret_cast<float*>(smem + m.ring_bytes + m.weight_bytes);
+  const unsigned bar0 = smem_u32(f + m.bar);   // buffer b's: bar0 + 8 b
+  float* recv = f + m.recv;
+  float* h = f + m.h;
+  float* c = f + m.c;
+  float* z = f + m.z;
+  float* skip = f + m.skip;
+  float* a1 = f + m.a1;
+  float* o = f + m.o;
+  float* fb = f + m.fb;
+  float* cb = f + m.cb;
+  float* rsb = f + m.rsb;
+  float* h1b = f + m.h1b;
+  float* h2b = f + m.h2b;
+  float* inw = f + m.inw;
+  float* inb = f + m.inb;
+
+  const W* stages = static_cast<const W*>(p.stages)
+      + (size_t)rank * (L + 1) * stride;
+  const W* in_w = static_cast<const W*>(p.in_w);
+
+  // -- this rank's biases and input projection, fp32; zero ring
+  {
+    const W* conv_b = static_cast<const W*>(p.conv_b);
+    const W* skip_b = static_cast<const W*>(p.skip_b);
+    const W* res_b = static_cast<const W*>(p.res_b);
+    for (int i = tid; i < L * 2 * Hn; i += kThreads) {
+      const int l = i / (2 * Hn), cl = i % (2 * Hn);
+      const int g = cl < Hn ? rank * Hn + cl : half + rank * Hn + cl - Hn;
+      cb[i] = to_f(conv_b[(size_t)l * G + g]);
+    }
+    for (int i = tid; i < L * (Sn + Rn); i += kThreads) {
+      const int l = i / (Sn + Rn), n = i % (Sn + Rn);
+      rsb[i] = n < Sn ? to_f(skip_b[(size_t)l * S + rank * Sn + n])
+                      : to_f(res_b[(size_t)l * R + rank * Rn + n - Sn]);
+    }
+    for (int n = tid; n < Sn; n += kThreads)
+      h1b[n] = to_f(static_cast<const W*>(p.h1_b)[rank * Sn + n]);
+    for (int n = tid; n < O; n += kThreads)
+      h2b[n] = to_f(static_cast<const W*>(p.h2_b)[n]);
+    if (!p.softmax)
+      for (int r = tid; r < Rn; r += kThreads) {
+        inw[r] = to_f(in_w[rank * Rn + r]);
+        inb[r] = to_f(static_cast<const W*>(p.in_b)[rank * Rn + r]);
+      }
+  }
+  for (int i = tid; i < p.rows * Rn; i += kThreads) ring[i] = from_f<W>(0.f);
+  // The global inputs of step t + 1 (this rank's conditioning slice, the
+  // uniform, the teacher sample), loaded during step t, off the chain.
+  const float* c_row = p.c_up + (size_t)row * p.T * C + rank * Cn;
+  float c_in = 0.f, u_in = 0.f, x_in = 0.f;
+  auto load_inputs = [&](int t) {
+    if (t >= p.T) return;
+    const size_t bt = (size_t)row * p.T + t;
+    if (tid < Cn) c_in = c_row[(size_t)t * C + tid];
+    if (tid < 32) u_in = p.noise[bt];
+    if (tid == 0 && t < p.n_forced) x_in = p.teacher[bt];
+  };
+  load_inputs(0);
+  // fb: the next step's input, a teacher sample or the sample just drawn
+  // (silence before the first)
+  if (tid == 0)
+    fb[0] = p.n_forced > 0 ? x_in : p.softmax ? (float)(p.Q / 2) : 0.f;
+  if constexpr (kResident) {
+    // every stage: copied once, never read from L2 again
+    const size_t n_st = (size_t)(L + 1) * stride;
+    for (size_t i = tid; i < n_st; i += kThreads) wsm[i] = stages[i];
+  } else {
+    copy_stage(wsm, stages, stride, tid);          // layer 0 into buffer 0
+  }
+  // The exchanges of a step, in order: per layer, reduce-scatter 1 on
+  // receive buffer 0 and 2 on buffer 1; then the head's reduce-scatter on
+  // buffer 0 and the gather on buffer 1. Each buffer has an mbarrier that
+  // completes a phase when its one local arrival (which also states the
+  // bytes to expect) and every sender's st.async bytes are in. The
+  // receiver re-arms a buffer for its next exchange right after its wait,
+  // before this block sends anything more, so no byte of the next exchange
+  // (whose senders need this block's next send first) can come before.
+  const unsigned rs1_bytes = N * 2 * Hn * 8, rs2_bytes = N * (Sn + Rn) * 4,
+                 head_bytes = N * Sn * 4, gather_bytes = N * O * 4;
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_arm(bar0, rs1_bytes);
+    mbar_arm(bar0 + 8, rs2_bytes);
+  }
+  // every block of the cluster runs, its mbarriers armed, before the first
+  // DSMEM store
+  cluster.sync();
+  unsigned phase = 0;   // bit b: the parity of buffer b's next phase
+  // Each thread's destinations (an owner's receive slot and mbarrier, in
+  // the cluster's address space), the same at every layer and step.
+  unsigned tap_dst[kMaxPass], tap_bar[kMaxPass], rs_dst[kMaxPass],
+      rs_bar[kMaxPass], head_dst[kMaxPass], head_bar[kMaxPass];
+  #pragma unroll
+  for (int ps = 0; ps < kMaxPass; ++ps) {
+    const int i = tid + ps * kThreads;
+    const int g = i >> 1, j = g < half ? g : g - half;
+    const int owner = min(j / Hn, N - 1);
+    const int col = (g < half ? 0 : Hn) + j % Hn;
+    tap_dst[ps] = mapa(smem_u32(recv + 2 * (rank * 2 * Hn + col)), owner);
+    tap_bar[ps] = mapa(bar0, owner);
+    const int n = i;                // a skip|res output
+    const int ro = min(n < S ? n / Sn : (n - S) / Rn, N - 1);
+    const int loc = n < S ? n % Sn : Sn + (n - S) % Rn;
+    rs_dst[ps] = mapa(smem_u32(recv + m.recv_each + rank * (Sn + Rn) + loc),
+                      ro);
+    rs_bar[ps] = mapa(bar0 + 8, ro);
+    const int ho = min(n / Sn, N - 1);   // a head output
+    head_dst[ps] = mapa(smem_u32(recv + rank * Sn + n % Sn), ho);
+    head_bar[ps] = mapa(bar0, ho);
+  }
+  // waits for buffer b's exchange, then arms it for `next_bytes`
+  auto received = [&](int b, unsigned next_bytes) {
+    mbar_wait(bar0 + 8 * b, (phase >> b) & 1u);
+    phase ^= 1u << b;
+    if (tid == 0) mbar_arm(bar0 + 8 * b, next_bytes);
+  };
+
+  int st = 0;   // stages so far (streamed weights): the stage buffer
+  // The weights of stage s (layers 0..L-1, then the head): resident, in
+  // place; streamed, the copy started one stage earlier, with the next
+  // stage's copy started into the other buffer first. The other buffer's
+  // last readers (the previous stage's) finished before a __syncthreads
+  // that every thread has passed.
+  auto stage_weights = [&](int s) -> const W* {
+    if constexpr (kResident) {
+      return wsm + (size_t)s * stride;
+    } else {
+      const int next = s == L ? 0 : s + 1;
+      copy_stage(wsm + (size_t)((st + 1) & 1) * stride,
+                 stages + (size_t)next * stride, stride, tid);
+      cp_async_wait1();
+      __syncthreads();
+      const W* w = wsm + (size_t)(st & 1) * stride;
+      ++st;
+      return w;
+    }
+  };
+
+  for (int t = 0; t < p.T; ++t) {
+    const size_t bt = (size_t)row * p.T + t;
+    const float c_t = c_in, u_t = u_in;
+    load_inputs(t + 1);
+    // -- this rank's slices: encoded input, conditioning frame; zero skip
+    const float x_t = fb[0];
+    if (p.softmax) {
+      const int id = (int)x_t;
+      const bool ok = id >= 0 && id < p.Q;   // one-hot of an out-of-range id is 0
+      for (int r = tid; r < Rn; r += kThreads)
+        h[r] = ok ? to_f(in_w[(size_t)id * R + rank * Rn + r]) : 0.f;
+    } else {
+      const float xw = rnd<W>(x_t);
+      for (int r = tid; r < Rn; r += kThreads)
+        h[r] = rnd<W>(__fadd_rn(rnd<W>(__fmul_rn(xw, inw[r])), inb[r]));
+    }
+    if (tid < Cn) c[tid] = rnd<W>(c_t);
+    for (int s = tid; s < Sn; s += kThreads) skip[s] = 0.f;
+    __syncthreads();
+    // -- residual layers
+    for (int l = 0; l < L; ++l) {
+      const W* w = stage_weights(l);
+      W* slot = ring + ((size_t)p.off[l] + (t & (p.dil[l] - 1))) * Rn;
+      // tap partials: lane pair (g, tap) runs tap's chain over this rank's
+      // rows (tap 0 on x[t - d], tap 1 on h), the even lane also the
+      // conditioning's chain over its rows of V; the even lane adds the
+      // taps and stores (taps, conditioning) into the owner of column g
+      // (2G is a multiple of 32, so whole warps run each pass)
+      float2* rb = reinterpret_cast<float2*>(recv);
+      #pragma unroll
+      for (int ps = 0; ps < kMaxPass; ++ps) {
+        const int i = tid + ps * kThreads;
+        if (i >= 2 * G) break;
+        const int g = i >> 1, tap = i & 1;
+        const W* wt = w + (size_t)g * 2 + tap;
+        float acc = 0.f, cond = 0.f;
+        #pragma unroll 8
+        for (int r = 0; r < Rn; ++r) {
+          const float x = tap ? h[r] : to_f(slot[r]);
+          acc = fmaf(x, to_f(wt[(size_t)r * 2 * G]), acc);
+        }
+        if (!tap) {
+          const W* v = w + (size_t)2 * Rn * G + g;
+          #pragma unroll 8
+          for (int k = 0; k < Cn; ++k)
+            cond = fmaf(c[k], to_f(v[(size_t)k * G]), cond);
+        }
+        const float other = __shfl_xor_sync(kFull, acc, 1);
+        if (!tap) st_async(tap_dst[ps], acc + other, cond, tap_bar[ps]);
+      }
+      received(0, l + 1 < L ? rs1_bytes : head_bytes);
+      // owner: sum the N partials in rank order, bias, gate
+      for (int j = tid; j < Hn; j += kThreads) {
+        float2 a = rb[j], b = rb[Hn + j];
+        for (int k0 = 1; k0 < N; k0 += kChunk) {
+          float2 av[kChunk], bv[kChunk];
+          #pragma unroll
+          for (int q = 0; q < kChunk; ++q) {
+            const int k = k0 + q;
+            av[q] = k < N ? rb[k * 2 * Hn + j] : make_float2(0.f, 0.f);
+            bv[q] = k < N ? rb[k * 2 * Hn + Hn + j] : make_float2(0.f, 0.f);
+          }
+          #pragma unroll
+          for (int q = 0; q < kChunk; ++q) {
+            a.x += av[q].x; a.y += av[q].y; b.x += bv[q].x; b.y += bv[q].y;
+          }
+        }
+        const float* bias = cb + (size_t)l * 2 * Hn;
+        const float ua = (a.x + bias[j]) + a.y;
+        const float ub = (b.x + bias[Hn + j]) + b.y;
+        z[j] = rnd<W>(tanhf(ua) * (1.f / (1.f + expf(-ub))));
+      }
+      __syncthreads();
+      // skip|res partials over this rank's rows of z, into their owners
+      float* rq = recv + m.recv_each;
+      const W* wsr = w + (size_t)(2 * Rn + Cn) * G;
+      #pragma unroll
+      for (int ps = 0; ps < kMaxPass; ++ps) {
+        const int n = tid + ps * kThreads;
+        if (n >= S + R) break;
+        float acc = 0.f;
+        #pragma unroll 8
+        for (int j = 0; j < Hn; ++j)
+          acc = fmaf(z[j], to_f(wsr[(size_t)j * (S + R) + n]), acc);
+        st_async(rs_dst[ps], acc, rs_bar[ps]);
+      }
+      received(1, l + 1 < L ? rs2_bytes : gather_bytes);
+      // owner: skip sums; the ring keeps the layer's INPUT h
+      for (int n = tid; n < Sn + Rn; n += kThreads) {
+        const float q = rank_sum(rq + n, N, Sn + Rn);
+        const float b = rsb[(size_t)l * (Sn + Rn) + n];
+        if (n < Sn) {
+          skip[n] += q + b;
+        } else {
+          const int r = n - Sn;
+          slot[r] = from_f<W>(h[r]);
+          h[r] = rnd<W>(h[r] + (q + b));
+        }
+      }
+      __syncthreads();
+    }
+    // -- head: relu -> dense -> relu -> dense, split on skip, then a1
+    {
+      const W* w = stage_weights(L);
+      float* rq = recv;
+      #pragma unroll
+      for (int ps = 0; ps < kMaxPass; ++ps) {
+        const int n = tid + ps * kThreads;
+        if (n >= S) break;
+        st_async(head_dst[ps], dot_chain(skip, w + n, Sn, S, ReluRound<W>()),
+                 head_bar[ps]);
+      }
+      received(0, rs1_bytes);
+      for (int n = tid; n < Sn; n += kThreads) {
+        const float acc = rank_sum(rq + n, N, Sn) + h1b[n];
+        a1[n] = rnd<W>(acc > 0.f ? acc : 0.f);
+      }
+      __syncthreads();
+      // a1 @ H2 partials, gathered by every rank
+      float* ro = recv + m.recv_each;
+      const W* w2 = w + (size_t)Sn * S;
+      for (int n = tid; n < O; n += kThreads) {
+        const float acc = dot_chain(a1, w2 + n, Sn, O);
+        const unsigned at = smem_u32(ro + rank * O + n);
+        for (int d = 0; d < N; ++d)
+          st_async(mapa(at, d), acc, mapa(bar0 + 8, d));
+      }
+      received(1, rs2_bytes);
+      for (int n = tid; n < O; n += kThreads) {
+        o[n] = rank_sum(ro + n, N, O) + h2b[n];
+      }
+      __syncthreads();
+    }
+    // -- one draw per row, by warp 0 of every rank (the same draw)
+    if (tid < 32) {
+      const float u = u_t;
+      float x = 0.f;
+      if (p.softmax) {
+        x = (float)sample_class(o, p.Q, u, p.greedy != 0, tid);
+      } else if (tid == 0) {
+        const float mu = o[0];
+        const float lb = fminf(fmaxf(o[1], p.log_b_min), p.log_b_max);
+        x = mu;
+        if (!p.greedy) {
+          const float uu = u - 0.5f;
+          const float sg = (float)((uu > 0.f) - (uu < 0.f));
+          x = __fsub_rn(mu, __fmul_rn(__fmul_rn(expf(lb), sg),
+                                      log1pf(-2.f * fabsf(uu))));
+        }
+        x = fminf(fmaxf(x, -1.f), 1.f);
+      }
+      if (tid == 0) {
+        if (rank == 0) p.out[bt] = x;
+        fb[0] = t + 1 < p.n_forced ? x_in : x;
+      }
+    }
+    __syncthreads();
+  }
+  if constexpr (!kResident) cp_async_wait0();
+  // no block leaves while another may still store into its shared memory
+  cluster.sync();
+}
+
+template <typename W, bool kResident>
+cudaError_t prepare(size_t smem_bytes) {
+  const auto kernel = ar_cluster_kernel<W, kResident>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+cudaLaunchConfig_t launch_config(int blocks, int N, size_t smem_bytes,
+                                 cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = N;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename W, bool kResident>
+cudaError_t max_active(int N, size_t smem_bytes, int* clusters) {
+  cudaError_t e = prepare<W, kResident>(smem_bytes);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(N, N, smem_bytes, 0, attr);
+  return cudaOccupancyMaxActiveClusters(
+      clusters, (const void*)ar_cluster_kernel<W, kResident>, &cfg);
+}
+
+cudaError_t max_active_any(int bf16, int resident, int N, size_t smem_bytes,
+                           int* clusters) {
+  if (bf16)
+    return resident ? max_active<__nv_bfloat16, true>(N, smem_bytes, clusters)
+                    : max_active<__nv_bfloat16, false>(N, smem_bytes,
+                                                       clusters);
+  return resident ? max_active<float, true>(N, smem_bytes, clusters)
+                  : max_active<float, false>(N, smem_bytes, clusters);
+}
+
+template <typename W, bool kResident>
+cudaError_t start(const Params& p, size_t smem_bytes, cudaStream_t stream) {
+  cudaError_t e = prepare<W, kResident>(smem_bytes);
+  if (e != cudaSuccess) return e;
+  if (p.B == 0 || p.T == 0) return cudaSuccess;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      launch_config(p.B * p.N, p.N, smem_bytes, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, ar_cluster_kernel<W, kResident>, p);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// The shape refusals shared by every entry point.
+int check_shape(int L, int R, int G, int S, int C, int N) {
+  if (L < 1 || L > kMaxLayers) return kErrLayers;
+  if (2 * G > kMaxPass * kThreads || S + R > kMaxPass * kThreads
+      || C > N * kThreads)
+    return kErrWidth;
+  if (N < 2 || N > kMaxCluster || (N & (N - 1)) != 0 || G % 16 != 0
+      || R % N != 0 || (G / 2) % N != 0 || C % N != 0 || S % N != 0)
+    return kErrSplit;
+  return 0;
+}
+
+}  // namespace
+
+// Bytes of shared memory one block needs for this layout: weights resident
+// (resident != 0) or streamed from L2; bf16 != 0 stores weights and rings
+// in bf16. Returns a kErr* refusal on a shape the kernel cannot take.
+extern "C" long long ar_cluster_smem_bytes(const int* dilations, int L,
+                                           int R, int G, int S, int C, int O,
+                                           int N, int bf16, int resident) {
+  const int e = check_shape(L, R, G, S, C, N);
+  if (e != 0) return e;
+  int off[kMaxLayers], rows;
+  pack_rings(dilations, L, off, &rows);
+  return (long long)smem_layout(rows, L, R, G, S, C, O, N, bf16 ? 2 : 4,
+                                resident != 0)
+      .bytes;
+}
+
+// Elements of one stage of a rank's packed weights (the wrapper packs
+// them at this stride).
+extern "C" int ar_cluster_stage_stride(int R, int G, int S, int C, int O,
+                                       int N) {
+  return stage_stride(R, G, S, C, O, N);
+}
+
+// cudaOccupancyMaxActiveClusters for clusters of N blocks of this layout
+// on the current device, into *clusters. Returns a kErr* refusal or the
+// cudaError_t.
+extern "C" int ar_cluster_max_active(const int* dilations, int L, int R,
+                                     int G, int S, int C, int O, int N,
+                                     int bf16, int resident, int* clusters) {
+  const long long bytes =
+      ar_cluster_smem_bytes(dilations, L, R, G, S, C, O, N, bf16, resident);
+  if (bytes < 0) return (int)bytes;
+  *clusters = 0;
+  return (int)max_active_any(bf16, resident, N, (size_t)bytes, clusters);
+}
+
+// Launch on `stream` on the current device: clusters of N blocks, one
+// cluster per batch row. `stages` (N, L + 1, stride) holds every rank's
+// packed weight slices (`stage_stride`), of the storage type
+// (fp32, or bf16 when bf16 != 0), as are the biases and in_w/in_b;
+// resident != 0 keeps the weights in shared memory for the whole call.
+// Returns 0, one of the kErr* refusals (checked before anything runs: too
+// many layers, a class count the sampler cannot split over a warp, a
+// width N does not divide or an N the kernel does not take, a block's
+// shared memory, or no cluster of N such blocks fitting the card), or the
+// cudaError_t of the attribute calls or the launch.
+extern "C" int ar_cluster_generate(
+    const float* c_up, const float* noise, const float* teacher, float* out,
+    const void* in_w, const void* in_b, const void* conv_b,
+    const void* res_b, const void* skip_b, const void* h1_b,
+    const void* h2_b, const void* stages, const int* dilations, int B,
+    int T, int L, int R, int G, int S, int C, int Q, int O, int N, int softmax, int greedy, int n_forced, int bf16,
+    int resident, float log_b_min, float log_b_max, void* stream) {
+  int e = check_shape(L, R, G, S, C, N);
+  if (e != 0) return e;
+  if (softmax && (Q % 32 != 0 || Q > 32 * kMaxPerLane)) return kErrClasses;
+  Params p;
+  p.c_up = c_up; p.noise = noise; p.teacher = teacher; p.out = out;
+  p.in_w = in_w; p.in_b = in_b; p.conv_b = conv_b; p.res_b = res_b;
+  p.skip_b = skip_b; p.h1_b = h1_b; p.h2_b = h2_b;
+  p.stages = stages;
+  p.B = B; p.T = T; p.L = L; p.R = R; p.G = G; p.S = S; p.C = C;
+  p.Q = Q; p.O = O; p.N = N;
+  p.softmax = softmax; p.greedy = greedy; p.n_forced = n_forced;
+  p.stride = stage_stride(R, G, S, C, O, N);
+  p.log_b_min = log_b_min; p.log_b_max = log_b_max;
+  for (int l = 0; l < L; ++l) p.dil[l] = dilations[l];
+  pack_rings(dilations, L, p.off, &p.rows);
+  const size_t smem_bytes = smem_layout(p.rows, L, R, G, S, C, O, N,
+                                        bf16 ? 2 : 4, resident != 0)
+                                .bytes;
+  int device = 0, smem_max = 0;
+  e = (int)cudaGetDevice(&device);
+  if (e == 0)
+    e = (int)cudaDeviceGetAttribute(
+        &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (e != 0) return e;
+  if (smem_bytes > (size_t)smem_max) return kErrSharedMemory;
+  int clusters = 0;
+  e = (int)max_active_any(bf16, resident, N, smem_bytes, &clusters);
+  if (e != 0) return e;
+  if (clusters < 1) return kErrOccupancy;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return (int)(resident ? start<__nv_bfloat16, true>(p, smem_bytes, s)
+                          : start<__nv_bfloat16, false>(p, smem_bytes, s));
+  return (int)(resident ? start<float, true>(p, smem_bytes, s)
+                        : start<float, false>(p, smem_bytes, s));
+}
+
+extern "C" const char* ar_cluster_error_string(int e) {
+  switch (e) {
+    case kErrLayers:
+      return "more than 64 layers";
+    case kErrClasses:
+      return "softmax quantize_channels must be a multiple of 32 and <= 1024";
+    case kErrSharedMemory:
+      return "shared memory: one rank's ring slice, weights and scratch "
+             "exceed a block's shared memory; stream the weights from L2 "
+             "or use a larger cluster";
+    case kErrSplit:
+      return "cluster size must be 2, 4, 8 or 16 and divide "
+             "residual_channels, gate_channels / 2, cond_channels and "
+             "skip_channels; gate_channels must be a multiple of 16";
+    case kErrWidth:
+      return "gate_channels must be <= 512, skip_channels + "
+             "residual_channels <= 1024 and cond_channels <= 256 x the "
+             "cluster size";
+    case kErrOccupancy:
+      return "occupancy: no cluster of this many blocks with this shared "
+             "memory fits the card";
+  }
+  return cudaGetErrorString((cudaError_t)e);
+}

@@ -40,7 +40,7 @@ def generate_fast(pp: dict, cfg: ModelConfig, c_up, noise=None,
 def generate_segmented(pp: dict, cfg: ModelConfig, c_up, noise,
                        seg_len: int, device=None, *, chunk: int = 64,
                        dtype: str = "float32", stream: bool = False,
-                       fused: int = 0):
+                       fused: int = 0, cluster: int = 0):
     """Generate (B, T) in kernel calls of at most seg_len output samples.
 
     Ring state is not carried between calls: each segment after the first
@@ -48,16 +48,16 @@ def generate_segmented(pp: dict, cfg: ModelConfig, c_up, noise,
     inputs from the previous segment's samples, which rebuilds every ring
     exactly (layer l's horizon is the prefix sum of dilations < M). The
     output is therefore identical to one unsegmented call. chunk, dtype,
-    stream and fused pass to every kernel call; the kernel's weights are
-    made once (`ar_kernel.kernel_weights`) for all of them.
+    stream, fused and cluster pass to every kernel call; the kernel's
+    weights are made once (`ar_kernel.kernel_weights`) for all of them.
     """
     B, T, _ = c_up.shape
     M = ar_kernel.warmup_length(cfg, chunk)
     if seg_len <= M:
         raise ValueError(f"seg_len must exceed the warm-start length {M}")
-    pp = ar_kernel.kernel_weights(pp, cfg, dtype, fused, device)
+    pp = ar_kernel.kernel_weights(pp, cfg, dtype, fused, device, cluster)
     kw = dict(device=device, chunk=chunk, dtype=dtype, stream=stream,
-              fused=fused)
+              fused=fused, cluster=cluster)
     segs = []
     for s in range(0, T, seg_len):
         e = min(s + seg_len, T)

@@ -74,11 +74,14 @@ class StreamingSynthesizer:
 
     pp: plain params of `model` (models.wavenet.extract_plain_params);
     model: the torch WaveNet on `device` (its upsampler runs per block).
-    block_frames * hop must be a multiple of `chunk` and exceed M; larger
+    block_frames * hop must be a multiple of `chunk` and at least M; larger
     blocks amortize the M warm-up steps per call, smaller ones cut latency.
     chunk, dtype, stream and fused pass to every kernel call (fused = W:
     the fused window; not bit-exact against fused=0, but the stream still
-    equals one fused call). record_noise: keep every block's uniforms and
+    equals one fused call). Unfused, the session runs the kernel the
+    decode picks first: the cluster kernel at the model's and card's size
+    (`ar_kernel.cluster_size`, `self.cluster`; 0 where it has none, and
+    for the fused window, which only the one-SM-per-row kernel has). record_noise: keep every block's uniforms and
     conditioning rows, for `noise_so_far` and `cond_so_far` (they grow
     with the session). device: None means CUDA; "cpu" runs the plain
     version.
@@ -99,27 +102,30 @@ class StreamingSynthesizer:
                 f"be a multiple of chunk ({chunk})")
         self.halo = upsampler_halo(cfg.upsample_factors)
         self.M = ar_kernel.warmup_length(cfg, chunk)
-        if self.block_frames * self.hop <= self.M:
+        if self.block_frames * self.hop < self.M:
             raise ValueError(
                 f"block_frames * hop ({self.block_frames * self.hop}) must "
-                f"exceed the warm-start length M={self.M}; raise "
+                f"cover the warm-start length M={self.M}; raise "
                 f"block_frames")
         if self.block_frames < self.halo:
             raise ValueError(
                 f"block_frames ({self.block_frames}) must be >= the "
                 f"upsampler halo ({self.halo})")
         self.dev = resolve_device(device)
+        self.cluster = (0 if fused
+                        else ar_kernel.cluster_size(cfg, dtype, self.dev))
         # the kernel's weights, made once for every block's call
         self.weights = ar_kernel.kernel_weights(pp, cfg, dtype, int(fused),
-                                                self.dev)
+                                                self.dev, self.cluster)
         self.speaker = speaker
         self._kw = dict(chunk=chunk, dtype=dtype, stream=stream,
-                        fused=int(fused), device=self.dev)
+                        fused=int(fused), cluster=self.cluster,
+                        device=self.dev)
         self._rng = np.random.default_rng(seed)
         self._frames = None          # (B, F_pending, aux) not yet upsampled
         self._frames_base = 0        # global index of self._frames[:, 0]
         self._done_frames = 0        # frames fully synthesized
-        self._hist = None            # warm-up (teacher, c_up rows, uniforms)
+        self._hist = None            # warm-up (M + 1 samples, c_up rows, uniforms)
         self._record = bool(record_noise)
         self._noise_cols, self._cond_cols = [], []
         self._closed = False
@@ -149,7 +155,8 @@ class StreamingSynthesizer:
             out = ar_kernel.generate(self.weights, self.cfg, c_blk,
                                      noise=noise, **self._kw)
         else:
-            prev, c_prev, n_prev = self._hist
+            wav, c_prev, n_prev = self._hist
+            prev = wav[:, :-1]
             if self.cfg.head == "softmax":
                 prev = mulaw_quantize(prev, self.cfg.quantize_channels).float()
             # the warm-up replays the previous M steps: step s - M + t is
@@ -159,8 +166,14 @@ class StreamingSynthesizer:
                 self.weights, self.cfg, torch.cat([c_prev, c_blk], dim=1),
                 noise=torch.cat([n_prev, noise], dim=1), teacher=prev,
                 warmup=self.M, **self._kw)[:, self.M:]
-        # a block holds more than M samples, so the history is its own
-        self._hist = (out[:, -(self.M + 1):-1], c_blk[:, -self.M:],
+        # roll the history: the M + 1 samples before the next block, from
+        # the previous history and this block (before the first block, the
+        # silence seed: 0.0, whose class id is the kernel's Q / 2), and the
+        # M conditioning rows and uniforms of this block (it has >= M)
+        before = (torch.zeros_like(out[:, :1]) if self._hist is None
+                  else self._hist[0])
+        wav = torch.cat([before, out], dim=1)
+        self._hist = (wav[:, -(self.M + 1):], c_blk[:, -self.M:],
                       noise[:, -self.M:])
         return out
 

@@ -1,5 +1,5 @@
-"""Persistent AR generation: the wrapper around `csrc/ar_generate.cu` and its
-plain PyTorch version.
+"""Persistent AR generation: the wrappers around `csrc/ar_generate.cu` and
+`csrc/ar_cluster.cu` and their plain PyTorch version.
 
 Same contract as `generate_pallas` in shallow_wavenet_tpu/ops/ar_kernel.py:
 c_up (B, T, C) fp32 and one uniform per (row, step) in, (B, T) fp32
@@ -10,8 +10,11 @@ t < warmup only (the warm-start of segmented generation); `dtype`
 sampling); `stream` keeps the rings of the layers `stream_split` picks for
 `chunk` in global memory instead of shared memory; `fused` = W expands the
 residual recurrence into the gate inputs within blocks of W layers (the
-fused window, `fused_weights`). Softmax class ids are dequantized here,
-outside the kernel, with the same op on both versions.
+fused window, `fused_weights`); `cluster` = N runs the unfused function on
+`ar_cluster.cu` instead, one thread-block cluster of N SMs per batch row,
+every product split along its input dimension over the N ranks
+(`cluster_partition`). Softmax class ids are dequantized here, outside the
+kernel, with the same op on both versions.
 
 On a CUDA tensor `generate` launches the kernel (one launch for the whole
 batch; the time loop runs inside it) or raises; on a CPU tensor it runs the
@@ -27,7 +30,9 @@ for the fused window, forms its weight products as fp32 matmuls, then
 casts them (as the JAX wrapper computes them outside `pallas_call`). A
 call given plain params does this once per call (at deep_baseline, 16 MB
 of fp32 read once on the card, against thousands of sample steps); a
-caller that makes many calls passes the `KernelWeights` it made once.
+caller that makes many calls passes the `KernelWeights` it made once. For
+a cluster of N they also hold each rank's weight slices packed as the
+cluster kernel reads them (`pack_cluster`).
 
 Not carried over from the TPU kernel: the chunk grid, lane padding and the
 VMEM estimate/probe are Mosaic artifacts (zero pads add exact zeros, so
@@ -87,12 +92,111 @@ def _streamed_mask(cfg: ModelConfig, chunk: int, stream: bool):
     return (ctypes.c_int * L)(*(int(l in strm) for l in range(L)))
 
 
-def variant(dtype: str, streamed: bool, fused: int = 0) -> str:
-    """The kernel variant's name, as `launches` counts it."""
+def variant(dtype: str, streamed: bool, fused: int = 0, cluster: int = 0,
+            resident: bool = True) -> str:
+    """The kernel variant's name, as `launches` counts it: `ar_generate[...]`,
+    or with cluster = N `ar_cluster[...,N<N>]`, tagged `l2` where the
+    cluster kernel streams its weights from L2."""
+    if cluster:
+        tags = [t for t, on in (("bf16", dtype == "bfloat16"),
+                                (f"N{cluster}", True),
+                                ("l2", not resident)) if on]
+        return f"ar_cluster[{','.join(tags)}]"
     tags = [t for t, on in (("bf16", dtype == "bfloat16"),
                             ("stream", streamed),
                             (f"fused{fused}", fused > 0)) if on]
     return "ar_generate" + (f"[{','.join(tags)}]" if tags else "")
+
+
+# cluster sizes the cluster kernel takes, largest first
+CLUSTER_SIZES = (16, 8, 4, 2)
+
+
+def cluster_partition(cfg: ModelConfig, n: int) -> dict:
+    """Which rank of a cluster of n owns which indices: {"h": rows of the
+    residual stream, its ring columns and its rows of the tap weights;
+    "cond": rows of the conditioning weights; "z": gated activations, and
+    their rows of the skip|res weights; "gate": gate columns, j and
+    j + G/2 for each j of its z; "skip": skip outputs, its rows of the
+    head's first layer and its a1 outputs}, each a list of n ranges (gate:
+    lists). Raises ValueError when n does not divide a width."""
+    R, G, S, C = (cfg.residual_channels, cfg.gate_channels,
+                  cfg.skip_channels, cfg.cond_channels)
+    half = G // 2
+    widths = (("residual_channels", R), ("gate_channels / 2", half),
+              ("cond_channels", C), ("skip_channels", S))
+    bad = [f"{name}={w}" for name, w in widths if w % n]
+    if n < 1 or bad:
+        raise ValueError(f"a cluster of {n} does not divide "
+                         + ", ".join(bad or ["n < 1"]))
+
+    def blocks(w):
+        return [range(k * w // n, (k + 1) * w // n) for k in range(n)]
+
+    z = blocks(half)
+    return {"h": blocks(R), "cond": blocks(C), "z": z, "skip": blocks(S),
+            "gate": [list(b) + [half + j for j in b] for b in z]}
+
+
+def cluster_sizes(cfg: ModelConfig):
+    """The cluster sizes of CLUSTER_SIZES whose split divides every width
+    (and a gate width that is a multiple of 16), largest first."""
+    if cfg.gate_channels % 16:
+        return ()
+    out = []
+    for n in CLUSTER_SIZES:
+        try:
+            cluster_partition(cfg, n)
+        except ValueError:
+            continue
+        out.append(n)
+    return tuple(out)
+
+
+def _head_width(cfg: ModelConfig) -> int:
+    return cfg.quantize_channels if cfg.head == "softmax" else 2
+
+
+def cluster_stage_stride(cfg: ModelConfig, n: int) -> int:
+    """Elements of one stage of a rank's packed weights (`pack_cluster`),
+    as `ar_cluster.cu`'s stage_stride: the larger of a layer's
+    2 (R/n) G + (C/n) G + (G/2n)(S + R) and the head's (S/n)(S + O),
+    rounded up to 8."""
+    R, G, S, C = (cfg.residual_channels, cfg.gate_channels,
+                  cfg.skip_channels, cfg.cond_channels)
+    layer = 2 * (R // n) * G + (C // n) * G + (G // 2 // n) * (S + R)
+    head = (S // n) * (S + _head_width(cfg))
+    return -(-max(layer, head) // 8) * 8
+
+
+def pack_cluster(w: dict, cfg: ModelConfig, n: int) -> dict:
+    """Each rank's weight slices, packed as the cluster kernel reads them,
+    from the kernel's fp32 weights (`kernel_weights`' dict):
+
+      cluster_stages: (n, L + 1, stride): rank k's layer l is
+          [W0|W1 rows of its h, (R/n, G, 2) with the taps interleaved |
+          cond_w rows of its slice of c, (C/n, G) | skip_w|res_w rows of
+          its z, (G/2n, S + R)], its head [head1_w rows of its skip,
+          (S/n, S) | head2_w rows, (S/n, O)], each zero-padded to
+          `cluster_stage_stride`.
+    """
+    part = cluster_partition(cfg, n)
+    L = len(cfg.dilations)
+    stride = cluster_stage_stride(cfg, n)
+    rs_w = torch.cat([w["skip_w"], w["res_w"]], dim=-1)
+    stages = torch.zeros((n, L + 1, stride), device=w["conv_w"].device)
+    for k in range(n):
+        hr, zr, sr, cr = (list(part[key][k])
+                          for key in ("h", "z", "skip", "cond"))
+        layer = torch.cat([
+            w["conv_w"][:, :, hr].permute(0, 2, 3, 1).reshape(L, -1),
+            w["cond_w"][:, cr].reshape(L, -1),
+            rs_w[:, zr].reshape(L, -1)], dim=-1)
+        head = torch.cat([w["head1_w"][sr].reshape(-1),
+                          w["head2_w"][sr].reshape(-1)])
+        stages[k, :L, :layer.shape[1]] = layer
+        stages[k, L, :head.numel()] = head
+    return {"cluster_stages": stages}
 
 
 def fused_blocks(n_layers: int, fused: int):
@@ -142,9 +246,12 @@ def fm_layers(fm, cfg: ModelConfig, fused: int):
             for m, c in zip(fm.split([half * c for c in cols]), cols)]
 
 
-def _check_kind(dtype: str, fused: int) -> None:
+def _check_kind(dtype: str, fused: int, cluster: int = 0) -> None:
     if fused < 0:
         raise ValueError("fused must be >= 0 (0 disables the fused window)")
+    if cluster < 0 or (cluster and fused):
+        raise ValueError("cluster must be >= 0, and the cluster kernel has "
+                         "no fused window (fused=0)")
     if dtype not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
                          f"{dtype!r}")
@@ -160,18 +267,21 @@ class KernelWeights:
     tensors: dict
     dtype: str
     fused: int
+    cluster: int = 0
 
 
 def kernel_weights(pp, cfg: ModelConfig, dtype: str = "float32",
-                   fused: int = 0, device=None) -> KernelWeights:
+                   fused: int = 0, device=None,
+                   cluster: int = 0) -> KernelWeights:
     """The kernel's weights from plain params, on `device` (None: CUDA):
     the input projection (or the softmax embedding) as in_w/in_b, with
     fused = W the fused window's `fm` and folded conv_b in place of res_w,
-    skip_w and conv_b, every tensor cast to `dtype`. Given KernelWeights,
+    skip_w and conv_b, with cluster = N also every rank's packed slices
+    (`pack_cluster`), every tensor cast to `dtype`. Given KernelWeights,
     returns them."""
     if isinstance(pp, KernelWeights):
         return pp
-    _check_kind(dtype, fused)
+    _check_kind(dtype, fused, cluster)
     dev = resolve_device(device)
     w = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
          for k, v in pp.items()}
@@ -183,8 +293,10 @@ def kernel_weights(pp, cfg: ModelConfig, dtype: str = "float32",
     if fused:
         w.update(fused_weights(w, cfg, fused))
         del w["res_w"], w["skip_w"]
+    if cluster:
+        w.update(pack_cluster(w, cfg, cluster))
     return KernelWeights({k: v.to(DTYPES[dtype]).contiguous()
-                          for k, v in w.items()}, dtype, fused)
+                          for k, v in w.items()}, dtype, fused, cluster)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -209,8 +321,8 @@ def uniform_noise(shape, generator: torch.Generator):
 
 
 def _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
-             unroll, dev, chunk, fused, dtype):
-    _check_kind(dtype, fused)
+             unroll, dev, chunk, fused, dtype, cluster=0):
+    _check_kind(dtype, fused, cluster)
     if chunk < 32 or chunk % 32 != 0:
         raise ValueError("chunk must be a multiple of 32")
     if mode not in ("sample", "greedy"):
@@ -249,13 +361,15 @@ def _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
         teacher = stream_of(teacher, 0.0, "teacher")
         n_forced = T if warmup == 0 else min(warmup, T)
 
-    w = kernel_weights(pp, cfg, dtype, fused, dev)
-    if (w.dtype, w.fused) != (dtype, fused) or any(
+    w = kernel_weights(pp, cfg, dtype, fused, dev, cluster)
+    if (w.dtype, w.fused, w.cluster) != (dtype, fused, cluster) or any(
             v.device != c_up.device for v in w.tensors.values()):
         raise ValueError(
-            f"kernel weights are for dtype={w.dtype!r}, fused={w.fused} on "
+            f"kernel weights are for dtype={w.dtype!r}, fused={w.fused}, "
+            f"cluster={w.cluster} on "
             f"{next(iter(w.tensors.values())).device}; the call asks for "
-            f"dtype={dtype!r}, fused={fused} on {c_up.device}")
+            f"dtype={dtype!r}, fused={fused}, cluster={cluster} on "
+            f"{c_up.device}")
     return c_up, noise, teacher, n_forced, w.tensors
 
 
@@ -269,12 +383,13 @@ def generate(pp, cfg: ModelConfig, c_up, noise=None,
              mode: str = "sample", teacher=None, warmup: int = 0,
              generator=None, unroll: int = 1, device=None, *,
              chunk: int = 64, stream: bool = False, fused: int = 0,
-             dtype: str = "float32"):
+             dtype: str = "float32", cluster: int = 0,
+             weights_l2: bool = False):
     """AR generation; returns (B, T) fp32 on `device`.
 
     pp: plain params (models.wavenet.extract_plain_params), or the
-    `KernelWeights` made from them for this call's dtype, fused window and
-    device (ValueError otherwise); c_up (B, T, C).
+    `KernelWeights` made from them for this call's dtype, fused window,
+    cluster and device (ValueError otherwise); c_up (B, T, C).
     noise: (B, <=T) uniforms in (0, 1), padded with 0.5; drawn from
     `generator` in [1e-7, 1 - 1e-7] when omitted (sample mode).
     teacher: optional (B, <=T) forced feedback stream (samples, or class ids
@@ -291,16 +406,28 @@ def generate(pp, cfg: ModelConfig, c_up, noise=None,
     fused: W > 0 runs the fused window over blocks of W layers: equal to
     fused=0 in exact arithmetic, not to the bit (its sums run in another
     order); 0 is the unfused form.
+    cluster: N > 0 launches `ar_cluster.cu` (clusters of N blocks, one per
+    row; `stream` and `chunk` do not apply: its rings are resident), equal
+    to cluster=0 in exact arithmetic, not to the bit; on the CPU, the plain
+    version with split=N. 0 launches `ar_generate.cu`. A launch the cluster
+    kernel refuses (cluster size, shared memory, occupancy) raises.
+    weights_l2: with cluster = N, stream the weights from L2 even where
+    they fit in shared memory (`cluster_resident`), to time the two
+    placements; the samples do not change.
     """
     dev = resolve_device(device)
     args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
-                    unroll, dev, chunk, fused, dtype)
-    if args[0].is_cuda:
+                    unroll, dev, chunk, fused, dtype, cluster)
+    if args[0].is_cuda and cluster:
+        raw = _launch_cluster(cfg, mode == "greedy", *args, dtype=dtype,
+                              n=cluster, weights_l2=weights_l2)
+    elif args[0].is_cuda:
         raw = _launch(cfg, mode == "greedy", *args, dtype=dtype,
                       streamed=_streamed_mask(cfg, chunk, stream),
                       fused=fused)
     else:
-        raw = _plain(cfg, mode == "greedy", *args, fused=fused)
+        raw = _plain(cfg, mode == "greedy", *args, fused=fused,
+                     split=cluster)
     return _finish(cfg, raw)
 
 
@@ -308,7 +435,8 @@ def generate_plain(pp, cfg: ModelConfig, c_up, noise=None,
                    mode: str = "sample", teacher=None, warmup: int = 0,
                    generator=None, unroll: int = 1, device=None, *,
                    chunk: int = 64, stream: bool = False, fused: int = 0,
-                   dtype: str = "float32", chain: bool = False):
+                   dtype: str = "float32", chain: bool = False,
+                   split: int = 0):
     """The plain PyTorch version of `generate`, on any device: one Python
     step per sample, the kernel's arithmetic in torch ops. Where the
     rings are stored (`stream`, `chunk`) changes nothing here.
@@ -323,17 +451,41 @@ def generate_plain(pp, cfg: ModelConfig, c_up, noise=None,
     the kernel's order too: its base (tap 0, folded bias, conditioning),
     then the block input, then each earlier layer's P term in layer order.
     Slow on the CPU: one torch op per k (on CUDA, one cumsum per dot).
+
+    split: N > 0 sums in the cluster kernel's order (`cluster=N`), with
+    `chain`: every dot as N chains, one over each rank's contiguous slice
+    of k (`cluster_partition`), then the N partials in rank order; a gate
+    input is ((sum over ranks of (tap0 + tap1) + b) + sum over ranks of
+    the conditioning), so split=1 is the order of chain=True alone.
+    Without `chain`, matmuls sum in their own order and split changes
+    nothing. Unfused only.
     """
     dev = resolve_device(device)
     args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
                     unroll, dev, chunk, fused, dtype)
+    if split and fused:
+        raise ValueError("split is the cluster kernel's order, which has no "
+                         "fused window")
     return _finish(cfg, _plain(cfg, mode == "greedy", *args, fused=fused,
-                               chain=chain))
+                               chain=chain, split=split))
+
+
+def _chain_sum(p, dim):
+    """p summed over `dim` as one fp32 chain in index order, from 0."""
+    if p.is_cuda:
+        # ATen's CUDA cumsum over a dim that is not the innermost gives
+        # each output one thread that adds in index order in fp32, from 0
+        return p.cumsum(dim).select(dim, -1)
+    # the CPU's cumsum accumulates in double: add step by step
+    acc = torch.zeros_like(p.select(dim, 0))
+    for k in range(p.shape[dim]):
+        acc += p.select(dim, k)
+    return acc
 
 
 @torch.no_grad()
 def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
-           chain=False):
+           chain=False, split=0):
     B, T, C = c_up.shape
     dil = cfg.dilations
     L, R, G, S = (len(dil), cfg.residual_channels, cfg.gate_channels,
@@ -357,17 +509,27 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
         if not chain:
             return [x @ m for x, m in pairs]
         p = torch.cat([x[:, :, None] * m[None] for x, m in pairs], dim=-1)
-        if p.is_cuda:
-            # ATen's CUDA cumsum over a dim that is not the innermost gives
-            # each output one thread that adds in k order in fp32, from 0:
-            # the same chain in one launch
-            acc = p.cumsum(1)[:, -1]
-        else:
-            # the CPU's cumsum accumulates in double: add step by step
-            acc = torch.zeros_like(p[:, 0])
-            for k in range(p.shape[1]):
-                acc += p[:, k]
-        return acc.split([m.shape[1] for _, m in pairs], dim=-1)
+        return _chain_sum(p, 1).split([m.shape[1] for _, m in pairs],
+                                      dim=-1)
+
+    def dot_sum(*pairs):
+        """The sum of the pairs' products, x0 @ m0 + x1 @ m1 + ...; with
+        `split` and `chain`, in the cluster kernel's order: per rank, each
+        pair's chain over the rank's slice of k, added in pair order, then
+        the ranks' partials in rank order."""
+        if not (split and chain):
+            out = dots(*pairs)
+            acc = out[0]
+            for o in out[1:]:
+                acc = acc + o
+            return acc
+        part = None
+        for x, m in pairs:
+            B, K = x.shape
+            p = (x[:, :, None] * m[None]).reshape(B, split, K // split, -1)
+            c = _chain_sum(p, 2)                       # (B, split, out)
+            part = c if part is None else part + c
+        return _chain_sum(part, 1)
 
     def sigmoid(x):
         return 1.0 / (1.0 + torch.exp(-x)) if chain else torch.sigmoid(x)
@@ -393,7 +555,7 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
         else:
             h = rnd(rnd(rnd(x_in)[:, None] * w["in_w"][0][None, :])
                     + w["in_b"][None, :])
-        (cc,) = dots((rnd(c_up[:, t]), cond_wcat))
+        cc = dot_sum((rnd(c_up[:, t]), cond_wcat))
         skip = torch.zeros(B, S, device=dev)
         slots = [offs[l] + (t & (dil[l] - 1)) for l in range(L)]
         if fused:
@@ -420,20 +582,17 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
                     skip = skip + rs[:, :S]
         else:
             for l in range(L):
-                g0, g1 = dots((rings[slots[l]], w["conv_w"][l, 0]),
-                              (h, w["conv_w"][l, 1]))
-                u = ((g0 + g1) + w["conv_b"][l]) + cc[:, l * G:(l + 1) * G]
+                g = dot_sum((rings[slots[l]], w["conv_w"][l, 0]),
+                            (h, w["conv_w"][l, 1]))
+                u = (g + w["conv_b"][l]) + cc[:, l * G:(l + 1) * G]
                 z = rnd(torch.tanh(u[:, :half]) * sigmoid(u[:, half:]))
                 rings[slots[l]] = h
-                (rs,) = dots((z, rs_w[l]))
-                rs = rs + rs_b[l]
+                rs = dot_sum((z, rs_w[l])) + rs_b[l]
                 h = rnd(h + rs[:, S:])
                 skip = skip + rs[:, :S]
-        o = rnd(torch.relu(skip))
-        (o,) = dots((o, w["head1_w"]))
+        o = dot_sum((rnd(torch.relu(skip)), w["head1_w"]))
         o = rnd(torch.relu(o + w["head1_b"]))
-        (o,) = dots((o, w["head2_w"]))
-        o = o + w["head2_b"]
+        o = dot_sum((o, w["head2_w"])) + w["head2_b"]
         if softmax:
             ids = (torch.argmax(o, dim=-1) if greedy
                    else heads.categorical_from_uniform(o, noise[:, t]))
@@ -534,4 +693,147 @@ def _launch(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
         raise RuntimeError("ar_generate launch failed: "
                            + lib.ar_error_string(err).decode())
     launches[variant(dtype, strm_rows > 0, fused)] += 1
+    return out
+
+
+def _cluster_lib() -> ctypes.CDLL:
+    lib = _build.load("ar_cluster")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ints = ctypes.POINTER(i32)
+    lib.ar_cluster_generate.argtypes = ([ptr] * 12 + [ints] + [i32] * 15
+                                        + [f32, f32, ptr])
+    lib.ar_cluster_generate.restype = i32
+    lib.ar_cluster_smem_bytes.argtypes = [ints] + [i32] * 9
+    lib.ar_cluster_smem_bytes.restype = ctypes.c_longlong
+    lib.ar_cluster_max_active.argtypes = [ints] + [i32] * 9 + [ints]
+    lib.ar_cluster_max_active.restype = i32
+    lib.ar_cluster_stage_stride.argtypes = [i32] * 6
+    lib.ar_cluster_stage_stride.restype = i32
+    lib.ar_cluster_error_string.argtypes = [i32]
+    lib.ar_cluster_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _cluster_refusal(lib, err: int) -> ValueError:
+    return ValueError("config not supported by the cluster AR kernel: "
+                      + lib.ar_cluster_error_string(err).decode())
+
+
+def _cluster_shape(cfg: ModelConfig, n: int, dtype: str, resident: bool):
+    L = len(cfg.dilations)
+    return ((ctypes.c_int * L)(*cfg.dilations), L, cfg.residual_channels,
+            cfg.gate_channels, cfg.skip_channels, cfg.cond_channels,
+            _head_width(cfg), n, int(dtype == "bfloat16"), int(resident))
+
+
+def cluster_smem_bytes(cfg: ModelConfig, dtype: str, n: int,
+                       resident: bool) -> int:
+    """Shared memory one block of the cluster kernel needs, with its weights
+    resident in shared memory or streamed from L2, from the kernel's own
+    layout function (builds the kernel's library). Raises ValueError on a
+    shape the kernel refuses."""
+    lib = _cluster_lib()
+    b = lib.ar_cluster_smem_bytes(*_cluster_shape(cfg, n, dtype, resident))
+    if b < 0:
+        raise _cluster_refusal(lib, b)
+    return b
+
+
+def max_active_clusters(cfg: ModelConfig, dtype: str, n: int,
+                        resident: bool, device=None) -> int:
+    """cudaOccupancyMaxActiveClusters for clusters of n blocks of this
+    layout on the CUDA `device`: the rows the card runs at once."""
+    lib = _cluster_lib()
+    count = ctypes.c_int(0)
+    with torch.cuda.device(resolve_device(device)):
+        err = lib.ar_cluster_max_active(
+            *_cluster_shape(cfg, n, dtype, resident), ctypes.byref(count))
+    if err < 0:
+        raise _cluster_refusal(lib, err)
+    if err:
+        raise RuntimeError("cudaOccupancyMaxActiveClusters failed: "
+                           + lib.ar_cluster_error_string(err).decode())
+    return count.value
+
+
+def cluster_resident(cfg: ModelConfig, dtype: str, n: int, device) -> bool:
+    """Whether the cluster kernel keeps its weights in shared memory (they
+    fit a block beside the ring slice and scratch) or streams them from
+    L2, on the CUDA `device`."""
+    return cluster_smem_bytes(cfg, dtype, n, True) <= smem_limit(device)
+
+
+# A cluster size fills the card when its clusters, all resident at once,
+# cover at least this share of the SMs (GPCs hold whole clusters only: an
+# H100 holds 7 clusters of 16, 112 of its 132 SMs, and 15 of 8). A choice
+# made for the H100 from chip_smoke.py's `cluster` phase, which times every
+# size that fits at B = 1 and 8: at config 2 the size it picks, 8, is the
+# fastest at both (16 is slower even at B = 1, and runs B = 8 in two
+# waves); at deep_baseline bf16, 16 is a few percent faster at B = 1 and
+# half as fast at B = 8.
+FILL_SHARE = 0.9
+
+
+def cluster_size(cfg: ModelConfig, dtype: str, device=None) -> int:
+    """The cluster size for this model and dtype on `device`, never from
+    the batch. Of `cluster_sizes(cfg)` whose block fits the card's shared
+    memory (weights resident, else streamed from L2) with at least one
+    cluster resident (the kernel's own byte counts and occupancy query):
+    the largest that fills the card (N x max active clusters >= FILL_SHARE
+    x SMs), so that a batch as large as the card's clusters leaves no SM
+    idle; else the largest that fits. On the CPU, the largest that divides
+    the widths. 0 when none does."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        sizes = cluster_sizes(cfg)
+        return sizes[0] if sizes else 0
+    limit, fits = smem_limit(dev), []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in cluster_sizes(cfg):
+        resident = cluster_smem_bytes(cfg, dtype, n, True) <= limit
+        if not resident and cluster_smem_bytes(cfg, dtype, n, False) > limit:
+            continue
+        active = max_active_clusters(cfg, dtype, n, resident, dev)
+        if active >= 1:
+            fits.append(n)
+            if n * active >= FILL_SHARE * sms:
+                return n
+    return fits[0] if fits else 0
+
+
+def _launch_cluster(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
+                    n, weights_l2):
+    lib = _cluster_lib()
+    B, T, C = c_up.shape
+    L = len(cfg.dilations)
+    resident = (not weights_l2
+                and cluster_resident(cfg, dtype, n, c_up.device))
+    stride = w["cluster_stages"].shape[-1]
+    O = _head_width(cfg)
+    if stride != lib.ar_cluster_stage_stride(
+            cfg.residual_channels, cfg.gate_channels, cfg.skip_channels, C,
+            O, n):
+        raise ValueError(f"packed stage stride {stride} is not the "
+                         f"kernel's")
+    out = torch.empty((B, T), dtype=torch.float32, device=c_up.device)
+    softmax = cfg.head == "softmax"
+    with torch.cuda.device(c_up.device):
+        err = lib.ar_cluster_generate(
+            c_up.data_ptr(), noise.data_ptr(),
+            None if teacher is None else teacher.data_ptr(), out.data_ptr(),
+            *(w[k].data_ptr() for k in (
+                "in_w", "in_b", "conv_b", "res_b", "skip_b", "head1_b",
+                "head2_b", "cluster_stages")),
+            (ctypes.c_int * L)(*cfg.dilations), B, T, L,
+            cfg.residual_channels, cfg.gate_channels, cfg.skip_channels, C,
+            cfg.quantize_channels, O, n, int(softmax), int(greedy),
+            n_forced, int(dtype == "bfloat16"), int(resident),
+            cfg.log_b_min, cfg.log_b_max,
+            torch.cuda.current_stream().cuda_stream)
+    if err < 0:
+        raise _cluster_refusal(lib, err)
+    if err != 0:
+        raise RuntimeError("ar_cluster launch failed: "
+                           + lib.ar_cluster_error_string(err).decode())
+    launches[variant(dtype, False, 0, n, resident)] += 1
     return out

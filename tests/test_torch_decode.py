@@ -123,7 +123,7 @@ def test_decode_cli_writes_wavs_and_summary(tmp_path):
                             "wall_seconds", "rtf", "audio_seconds_per_s",
                             "kernel"}
     assert summary["kernel"] == {"dtype": "bfloat16", "stream": False,
-                                 "chunk": 64, "fused": 0}
+                                 "chunk": 64, "fused": 0, "cluster": 4}
     assert summary["utterances"] == 2
     assert summary["audio_seconds"] == pytest.approx(80 / 8000)
     for name, f in frames.items():
@@ -161,7 +161,8 @@ def test_decode_cli_fused(tmp_path):
         out = run(fused)
         summary = json.loads((out / "decode_summary.json").read_text())
         assert summary["kernel"] == {"dtype": "float32", "stream": False,
-                                     "chunk": 64, "fused": fused}
+                                     "chunk": 64, "fused": fused,
+                                     "cluster": 0 if fused else 4}
         with wave.open(str(out / "spk0_utt0.wav")) as w:
             wavs[fused] = np.frombuffer(w.readframes(w.getnframes()), "<i2")
     assert len(wavs[3]) == 7 * cfg.data.hop_length

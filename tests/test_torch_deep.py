@@ -100,13 +100,15 @@ def test_decode_batch_stack8_plain_matches_jax():
 
 
 def test_kernel_layout_order_and_refusal(monkeypatch):
-    """On the CPU: the first layout of the dtype. On a card: the first in
-    the JAX tier order whose shared memory fits, skipping streamed layouts
-    that stream nothing; ValueError when none fits. The sizes here are a
-    stand-in for the kernel's own layout function."""
+    """On the CPU: the first layout of the dtype (the cluster kernel's).
+    On a card where no cluster size fits: the first of ar_generate's in the
+    JAX tier order whose shared memory fits, skipping streamed layouts that
+    stream nothing; ValueError when none fits. The sizes here are a
+    stand-in for the kernels' own layout functions."""
     deep = get_config("deep_baseline").model
     assert decode.kernel_layout(deep, "auto", "cpu") == {
-        "dtype": "float32", "stream": False, "chunk": 64, "fused": 0}
+        "dtype": "float32", "stream": False, "chunk": 64, "fused": 0,
+        "cluster": 16}
     assert decode.kernel_layout(deep, "bfloat16", "cpu")["dtype"] == "bfloat16"
     with pytest.raises(ValueError, match="kernel dtype"):
         decode.kernel_layout(deep, "float16", "cpu")
@@ -122,8 +124,10 @@ def test_kernel_layout_order_and_refusal(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(ar_kernel, "smem_limit", lambda dev: 2000)
     monkeypatch.setattr(ar_kernel, "smem_bytes", fake_bytes)
+    monkeypatch.setattr(ar_kernel, "cluster_size", lambda cfg, dtype, dev: 0)
     assert decode.kernel_layout(deep) == {"dtype": "float32", "stream": True,
-                                          "chunk": 32, "fused": 0}
+                                          "chunk": 32, "fused": 0,
+                                          "cluster": 0}
     assert asked == [("float32", False, 64), ("float32", True, 64),
                      ("float32", True, 32)]
     assert decode.kernel_layout(deep, "bfloat16")["chunk"] == 64

@@ -50,9 +50,9 @@ from tests.test_torch_generate import assert_same_samples
 from tests.test_torch_model import port_cfg, port_model
 
 
-def _setup(head, B=2, F=100, seed=0):
+def _setup(head, B=2, F=100, seed=0, **cfg_kw):
     """tests/test_streaming.py's setup_stream with a random head2."""
-    cfg = tiny_cfg(head=head, n_stacks=2, stack_size=3)
+    cfg = tiny_cfg(head=head, n_stacks=2, stack_size=3, **cfg_kw)
     m = FlaxWaveNet(cfg)
     rng = np.random.default_rng(seed)
     hop = int(np.prod(cfg.upsample_factors))
@@ -156,6 +156,38 @@ def test_stream_equals_one_batch_call(head, fused):
     with torch.no_grad():
         full = model.upsample_cond(torch.from_numpy(frames))
     torch.testing.assert_close(c_up, full, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("head", ["laplace", "softmax"])
+def test_block_of_exactly_m_samples(head):
+    """A block of exactly M samples (hop 8, 8-frame blocks, M = 64) is
+    taken, as the JAX session takes it, and the stream still equals one
+    call: the warm-up's M + 1 history samples roll over from the previous
+    history and the block."""
+    cfg, m, v, model, frames, hop = _setup(head, F=45,
+                                           upsample_factors=(2, 4))
+    B = frames.shape[0]
+    syn = StreamingSynthesizer(extract_plain_params(model), model,
+                               port_cfg(cfg), hop_length=hop, batch=B,
+                               block_frames=8, chunk=64, device="cpu",
+                               seed=5, record_noise=True)
+    assert 8 * hop == syn.M == 64
+    wav = _run(syn, frames, 3)
+    assert wav.shape == (B, 45 * hop)
+    batch = ar_kernel.generate(extract_plain_params(model), syn.cfg,
+                               syn.cond_so_far(), noise=syn.noise_so_far(),
+                               device="cpu").numpy()
+    if head == "softmax":
+        q = cfg.quantize_channels
+        wav, batch = (mulaw_quantize(torch.from_numpy(x), q).numpy()
+                      for x in (wav, batch))
+    np.testing.assert_array_equal(wav, batch)
+    # below M it is refused: dilations 1..16 twice, M = 64 at chunk 32
+    deep = port_cfg(tiny_cfg(n_stacks=2, stack_size=5,
+                             upsample_factors=(2, 4)))
+    with pytest.raises(ValueError, match="warm-start length M=64"):
+        StreamingSynthesizer({}, None, deep, hop_length=hop, batch=B,
+                             block_frames=4, chunk=32, device="cpu")
 
 
 def test_session_rejects_bad_shapes_and_closed_use():
