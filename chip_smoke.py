@@ -43,7 +43,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
      and streamed equal to resident at config-2 widths with stack_size=8;
      segmented (8192) equal to unsegmented; the resident deep layout
      refused before launch; both variants' times; every layout's shared
-     memory, unfused and fused;
+     memory, unfused and fused; then ar_generate's fused fallback layouts
+     (fused=4, streamed, fp32 and bf16) at B=4, T=2048: fp32
+     teacher-forced over the first 1024 steps against the plain version,
+     bf16 fed its own samples over the first 1024 to the bit against
+     `chain=True` with the fp32 control, and their times;
   6. deep main path: decode_utterances at deep_baseline with
      --kernel-dtype float32 and then bfloat16, on 8 utterances of 40-80
      random normalized frames (0.5-1.1 s), on the cluster kernel: launches
@@ -54,25 +58,31 @@ Phases, each printing one JSON line; any failure exits nonzero:
      split=N`), exactly, with the fp32 control and the matmul-order
      version's drift beside it;
   7. fused kernel against plain: the fused window (fused=4) at config 2,
-     B=4, T=4096 — Laplace teacher-forced, free-running sample and greedy
-     (each sample against the plain version teacher-forced with the
-     kernel's own samples), softmax teacher-forced ids, fused against the
-     unfused kernel, segmented (2048) equal to unsegmented, streamed equal
-     to resident at config-2 widths with stack_size=8 (and their times),
-     and W = 2, 3, 5 teacher-forced over the first 1024 steps;
-  8. fused main path: phase 4 with decode_utterances(..., fused=4):
-     launches of ar_generate[fused4], wavs equal to a re-run, wall seconds
-     and RTF beside the unfused main path's, the plain version teacher-
-     forced with the kernel's samples over the first 4096 steps, and the
-     segmented decode;
+     B=4, T=4096, on both kernels against one set of plain outputs:
+     ar_generate (the fallback layout) and the cluster kernel at the size
+     the decode picks for fused=4 — Laplace teacher-forced, free-running
+     sample and greedy (each sample against the plain version
+     teacher-forced with the kernel's own samples), softmax teacher-forced
+     ids, fused against the same kernel unfused, segmented (2048) equal to
+     unsegmented, and W = 2, 3, 5 teacher-forced over the first 1024 steps
+     (each W on its own cluster size); ar_generate's streamed equal to
+     resident at config-2 widths with stack_size=8 (and their times);
+  8. fused main path: phase 4 with decode_utterances(..., fused=4), on the
+     layout the decode picks (the cluster kernel): launches of
+     ar_cluster[fused4,...], wavs equal to a re-run, wall seconds and RTF
+     beside the unfused main path's, the plain version teacher-forced with
+     the kernel's samples over the first 4096 steps, and the segmented
+     decode;
   9. deep fused: the deep main path with fused=4, fp32 and bf16, on the
-     layouts kernel_layout(..., fused=4) picks: fp32 held at 1e-5 over the
-     first 1024 steps, bf16 to the bit against `chain=True` over twice the
-     largest streamed dilation; then the fused and unfused variants timed
-     in turns at B=8 (unfused, fused, fused, unfused);
+     layouts kernel_layout(..., fused=4) picks (the cluster kernel): fp32
+     held at 1e-5 over the first 1024 steps, bf16 to the bit against
+     `chain=True, split=N` over twice the largest dilation, with the fp32
+     control; then the decode's unfused and fused layouts timed in turns
+     at B=8 (unfused, fused, fused, unfused);
   10. streaming: models.streaming.StreamingSynthesizer at config 2, B=1,
      80 ms blocks (6 frames), 150 frames pushed 6 at a time, fused=4 and
-     unfused (the cluster kernel, as the decode picks it): push latency
+     unfused (both on the cluster kernel, as the decode picks it): push
+     latency
      (mean, p95) and steady-state RTF; the streamed
      samples equal one call over the session's conditioning and uniforms
      (0.0), and that conditioning against the whole utterance's
@@ -82,7 +92,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
      call (kernel and plain on the same arguments; the kernel's output
      equal to the stream's);
   11. kfuse sweep: bin.kfuse at config 2, B = 1, 8, 32, T = 2048,
-     W = 0, 2, 3, 4, 6 (us per step);
+     W = 0, 2, 3, 4, 6 (us per step), on the kernel the decode picks for
+     each W (--kernel cluster) and on ar_generate;
   12. kprobe: the AR step's ablation probe (ops.ar_probe) at config 2 on
      the TPU probe's recipe of weights, fp32 and bf16: no_resskip refused
      before launch (S > G/2); the bin.kprobe sweep (B = 1, 8, 32, T = 2048,
@@ -113,7 +124,13 @@ Phases, each printing one JSON line; any failure exits nonzero:
      instance of the kernel is held): fp32 free running held one step at
      a time at TOL_FREE against the plain version fed the kernel's
      samples, and bf16 to the bit against `chain=True, split=N`, where
-     the fp32 control misses by more than CONTROL_MIN.
+     the fp32 control misses by more than CONTROL_MIN. Then the same for
+     the fused window (fused=4): us per step in turns of ar_generate's
+     fused layout, every N and weight placement of the fused cluster
+     kernel that fits at B = 1, and ar_generate's and the chosen N's at
+     B = 8 (beside the unfused rows); the same row equal at B = 1, 8 and
+     16; each fused template instance held at B = 1 as above (bf16 against
+     `chain=True, split=N, fused=4`).
 Every phase line carries `t`, the script's seconds so far. Then the
 card's nvidia-smi line, the kernels' JSON line and, last,
 {"ok": true, "device": {...}}. Without CUDA, or outside the repo, it exits
@@ -250,8 +267,9 @@ def smi_line() -> str:
 
 def registers(ptxas_log: str) -> dict:
     """{"fp32|bf16,unfused|fused": registers} of the AR kernel,
-    {"ar_cluster,fp32|bf16,smem|l2": registers} of the cluster kernel
-    (weights resident or streamed from L2) and
+    {"ar_cluster,fp32|bf16[,fused],smem|l2": registers} of the cluster
+    kernel (unfused or with the fused window, weights resident or streamed
+    from L2) and
     {"ar_probe,fp32|bf16,<ablation>": registers} of the probe kernel, from
     `ptxas -v` output (other kernels' entries are skipped)."""
     regs, entry = {}, None
@@ -267,8 +285,11 @@ def registers(ptxas_log: str) -> dict:
                 key = (f"ar_probe,{dtype},"
                        f"{ar_probe.ABLATIONS[int(probe.group(1))]}")
             elif "ar_cluster_kernel" in entry:
+                res, fused = re.search(r"Lb([01])ELb([01])E",
+                                       entry).groups()
                 key = (f"ar_cluster,{dtype},"
-                       + ("smem" if "Lb1E" in entry else "l2"))
+                       + ("fused," if fused == "1" else "")
+                       + ("smem" if res == "1" else "l2"))
             else:
                 key = dtype + "," + ("fused" if "Lb1E" in entry
                                      else "unfused")
@@ -410,8 +431,9 @@ def phase_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
                    TOL_FREE)
             require(bool(torch.isfinite(k).all()),
                     f"finite kernel output {tag}{mode}")
+        wk = ar_kernel.kernel_weights(pp, mc, "float32", 0, "cuda", n)
         times[n] = cuda_ms(lambda: ar_kernel.generate(
-            pp, mc, c_up, noise=noise, cluster=n))
+            wk, mc, c_up, noise=noise, cluster=n))
         # (c) softmax head at config-2 widths, teacher-forced: class ids
         k = mulaw_quantize(ar_kernel.generate(pps, mcs, c_up, noise=noise,
                                               teacher=ids, cluster=n), q)
@@ -466,13 +488,13 @@ def layout_variant(mc, layout: dict) -> str:
 
 def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
                     unfused: dict | None = None) -> dict:
-    """The config-2 main path (`main_path`, on the cluster kernel), or with
-    the fused window (`fused_main_path`, on ar_generate, beside the unfused
-    run's wall time and RTF)."""
+    """The config-2 main path (`main_path`), or with the fused window
+    (`fused_main_path`, beside the unfused run's wall time and RTF), both
+    on the cluster kernel."""
     phase = "fused_main_path" if fused else "main_path"
     mc, hop = cfg.model, cfg.data.hop_length
     want = decode.kernel_layout(mc, "auto", fused=fused)
-    require(want["cluster"] == 0 if fused else want["cluster"] > 1,
+    require(want["cluster"] > 1 and want["fused"] == fused,
             f"{phase}: the decode's layout {want}")
     name = layout_variant(mc, want)
     frames, utts = utterances(mc, seed + 7, 75, 150)
@@ -512,8 +534,12 @@ def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
     noise = ar_kernel.uniform_noise(
         c_up.shape[:2], torch.Generator(device="cuda").manual_seed(seed))
 
-    def gen(c, n, **kw):
-        return ar_kernel.generate(pp, mc, c, noise=n, **want, **kw)
+    # the kernel's weights made once, so that a timed call is its launch
+    w = ar_kernel.kernel_weights(pp, mc, want["dtype"], want["fused"],
+                                 "cuda", want["cluster"])
+
+    def gen(c, n):
+        return ar_kernel.generate(w, mc, c, noise=n, **want)
 
     out = gen(c_up, noise)
     require(bool(torch.isfinite(out).all()), f"{phase} output finite")
@@ -526,8 +552,8 @@ def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
     full_ms = cuda_ms(lambda: gen(c_up, noise), 2)
     # plain version teacher-forced with the kernel's own samples (every
     # step sees the kernel's history, so only one step's rounding
-    # differs): unfused (the cluster kernel) over the whole call, fused
-    # over its first PLAIN_T steps
+    # differs): unfused over the whole call, fused over its first PLAIN_T
+    # steps
     Tp = PLAIN_T if fused else T
     cp, npl = c_up[:, :Tp].contiguous(), noise[:, :Tp].contiguous()
     ms = full_ms if Tp == T else cuda_ms(lambda: gen(cp, npl), 2)
@@ -575,12 +601,17 @@ def own_feedback(out):
 
 
 def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
-    """ar_generate's deep layouts, the decode's fallback (cluster=False)."""
+    """ar_generate's deep layouts, the decode's fallback (cluster=False),
+    unfused and fused."""
     B, T = DEEP_B, DEEP_T
     lay32 = decode.kernel_layout(mc, "float32", cluster=False)
     laybf = decode.kernel_layout(mc, "bfloat16", cluster=False)
-    require(lay32["stream"] and laybf["stream"],
-            f"deep fallback layouts are streamed: {lay32}, {laybf}")
+    lay32f, laybff = (decode.kernel_layout(mc, dt, fused=FUSED,
+                                           cluster=False)
+                      for dt in ("float32", "bfloat16"))
+    require(all(lay["stream"] for lay in (lay32, laybf, lay32f, laybff)),
+            f"deep fallback layouts are streamed: {lay32}, {laybf}, "
+            f"{lay32f}, {laybff}")
     ar_kernel.launches.clear()
     c_up = random_cond(mc, model, B, T, seed)
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -667,20 +698,51 @@ def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
     checks.append({"check": "deep_resident_refused", "error": refused,
                    "ok": "shared memory" in refused
                    and sum(ar_kernel.launches.values()) == before})
+    # the fused fallback layouts over the first Tf steps, twice the
+    # largest dilation (every ring written and read): fp32 teacher-forced;
+    # bf16 fed its own samples, to the bit against chain=True, where the
+    # fp32 control misses
+    Tf = 2 * max(mc.dilations)
+    cf_, nf_, tf_ = (x[:, :Tf].contiguous() for x in (c_up, noise, teacher))
+    k = gen(cf_, nf_, lay32f, teacher=tf_)
+    p, plain32f_ms = host_ms(lambda: plain(cf_, nf_, teacher=tf_,
+                                           fused=FUSED))
+    e32f = err(k, p)
+    record(f"fp32_stream_fused{FUSED}_teacher_forced_{Tf}", e32f,
+           TOL_TEACHER)
+    k = gen(cf_, nf_, laybff)
+    require(bool(torch.isfinite(k).all()), "finite deep bf16 fused output")
+    fb = own_feedback(k)
+    chain, plainbff_ms = host_ms(lambda: plain(
+        cf_, nf_, "bfloat16", teacher=fb, fused=FUSED, chain=True))
+    ebff = err(k, chain)
+    ctl = err(k, plain(cf_, nf_, teacher=fb, fused=FUSED))
+    checks.append({"check": f"bf16_stream_fused{FUSED}_vs_chain_{Tf}",
+                   "max_abs_err": ebff, "limit": TOL_CHAIN,
+                   "control_fp32": ctl, "control_min": CONTROL_MIN,
+                   "ok": ebff <= TOL_CHAIN and ctl > CONTROL_MIN})
     times = {}
     errs = {"fp32": next(c["max_abs_err"] for c in checks if c["check"]
                          == "fp32_stream_teacher_forced"),
             "bf16": e0}
-    for name, layout, plain_ms, wb in (
-            ("fp32", lay32, plain32_ms, 4), ("bf16", laybf, plainbf_ms, 2)):
-        ms = cuda_ms(lambda: gen(c_up, noise, layout), 2)
-        bound_ms, bound_by = bound(mc, B, T, pp, wb)
-        times[name] = {"layout": layout, "ms": ms,
-                       "us_per_step": 1e3 * ms / T, "plain_ms": plain_ms,
+    for name, layout, plain_ms, wb, cn, e in (
+            ("fp32", lay32, plain32_ms, 4, (c_up, noise), errs["fp32"]),
+            ("bf16", laybf, plainbf_ms, 2, (c_up, noise), e0),
+            ("fp32_fused", lay32f, plain32f_ms, 4, (cf_, nf_), e32f),
+            ("bf16_fused", laybff, plainbff_ms, 2, (cf_, nf_), ebff)):
+        wl = ar_kernel.kernel_weights(pp, mc, layout["dtype"],
+                                      layout["fused"], "cuda")
+        ms = cuda_ms(lambda: ar_kernel.generate(wl, mc, cn[0], noise=cn[1],
+                                                **layout), 2)
+        Tn = cn[0].shape[1]
+        bound_ms, bound_by = bound(mc, B, Tn, pp, wb, layout["fused"])
+        times[name] = {"layout": layout, "T": Tn, "ms": ms,
+                       "us_per_step": 1e3 * ms / Tn, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
-                       "max_abs_err": errs[name]}
+                       "max_abs_err": e}
     launched = dict(ar_kernel.launches)
-    for name, layout in (("fp32", lay32), ("bf16", laybf)):
+    for name in times:
+        layout = times[name]["layout"]
         times[name]["name"] = layout_variant(mc, layout)
         times[name]["launches"] = launched[times[name]["name"]]
     smem = {f"{dt}_{'stream' if st else 'resident'}{ch}"
@@ -698,9 +760,9 @@ def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
 
 def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
                          kernel_dtype: str, fused: int = 0) -> dict:
-    """The deep main path (`deep_main_path`, on the cluster kernel), or
-    with the fused window (`deep_fused`, on ar_generate with streamed
-    rings: fp32 held over the first steps only, as bf16 is)."""
+    """The deep main path (`deep_main_path`), or with the fused window
+    (`deep_fused`: fp32 held over the first steps only, as bf16 is), both
+    on the cluster kernel."""
     phase = "deep_fused" if fused else "deep_main_path"
     mc, hop = cfg.model, cfg.data.hop_length
     frames, utts = utterances(mc, seed + 8, 40, 80)
@@ -717,8 +779,7 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
         require(layout == decode.kernel_layout(mc, kernel_dtype, fused=fused)
                 and layout["dtype"] == kernel_dtype
                 and layout["fused"] == fused
-                and (layout["stream"] and layout["cluster"] == 0 if fused
-                     else not layout["stream"] and layout["cluster"] > 1),
+                and not layout["stream"] and layout["cluster"] > 1,
                 f"deep layout {layout}")
         require(launched.get(name, 0) >= 1 and set(launched) == {name},
                 f"the deep main path launched {name}: {launched}")
@@ -739,8 +800,11 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
         c_up = model.upsample_cond(torch.from_numpy(cond).cuda())
     noise = ar_kernel.uniform_noise(
         c_up.shape[:2], torch.Generator(device="cuda").manual_seed(seed))
+    # the kernel's weights made once, so that a timed call is its launch
+    w = ar_kernel.kernel_weights(pp, mc, layout["dtype"], fused, "cuda",
+                                 layout["cluster"])
     out, full_ms = host_ms(lambda: ar_kernel.generate(
-        pp, mc, c_up, noise=noise, **layout))
+        w, mc, c_up, noise=noise, **layout))
     require(bool(torch.isfinite(out).all()), "deep main-path output finite")
     wav = out.cpu().numpy()
     for i, n in enumerate(n_samples):
@@ -749,16 +813,16 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
                 f"deep utterance {i}: wav equals the kernel's samples")
     # the plain version teacher-forced with the kernel's own samples:
     # unfused fp32 over PLAIN_T steps; bf16 in the kernel's summation
-    # order (chain=True; the cluster kernel's split=N), and fused fp32,
-    # over twice the largest dilation, so every ring is written and read
-    # (see TOL_CHAIN above)
+    # order (chain=True, split=N, fused or not), and fused fp32, over twice
+    # the largest dilation, so every ring is written and read (see
+    # TOL_CHAIN above)
     bf16 = layout["dtype"] == "bfloat16"
     split = layout["cluster"] if bf16 else 0
     B = c_up.shape[0]
     Tp = 2 * max(mc.dilations) if bf16 or fused else PLAIN_T
     cp, npl = c_up[:, :Tp].contiguous(), noise[:, :Tp].contiguous()
     teacher = own_feedback(out)[:, :Tp]
-    ms = cuda_ms(lambda: ar_kernel.generate(pp, mc, cp, noise=npl,
+    ms = cuda_ms(lambda: ar_kernel.generate(w, mc, cp, noise=npl,
                                             **layout), 2)
     plain, plain_ms = host_ms(lambda: ar_kernel.generate_plain(
         pp, mc, cp, noise=npl, teacher=teacher, dtype=layout["dtype"],
@@ -797,7 +861,12 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
 
 
 def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
+    """The fused window at config 2 on both kernels against one set of
+    plain outputs: ar_generate (cluster 0, the fallback) and the cluster
+    kernel at the size the decode picks for fused=4."""
     B, T = B_CHECK, T_CHECK
+    N = decode.kernel_layout(mc, "float32", fused=FUSED)["cluster"]
+    require(N > 1, f"a cluster size for fused={FUSED}")
     c_up = random_cond(mc, model, B, T, seed)
     g = torch.Generator(device="cuda").manual_seed(seed)
     noise = ar_kernel.uniform_noise((B, T), g)
@@ -815,43 +884,67 @@ def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
         return ar_kernel.generate_plain(pp, mc, c, noise=n,
                                         **{"fused": FUSED, **kw})
 
-    # Laplace, teacher-forced: against its plain version and the unfused
-    # kernel
-    k = gen(c_up, noise, teacher=teacher)
-    p, plain_ms = host_ms(lambda: plain(c_up, noise, teacher=teacher))
-    record("laplace_teacher_forced", err(k, p), TOL_TEACHER)
-    record("fused_vs_unfused_kernel_teacher_forced",
-           err(k, gen(c_up, noise, teacher=teacher, fused=0)), TOL_TEACHER)
-    kernel_ms = cuda_ms(lambda: gen(c_up, noise, teacher=teacher), 2)
-    # free-running, each sample against the plain version given the
-    # kernel's own history
-    for mode in ("sample", "greedy"):
-        k = gen(c_up, noise, mode=mode)
-        require(bool(torch.isfinite(k).all()), f"finite fused output {mode}")
-        record(f"laplace_free_{mode}",
-               err(k, plain(c_up, noise, mode=mode, teacher=own_feedback(k))),
-               TOL_FREE)
-    # softmax head at config-2 widths, teacher-forced: class ids
     mcs = get_config("shallow_laplace_single", ["model.head=softmax"]).model
     pps = extract_plain_params(random_model(mcs, seed + 1))
     q = mcs.quantize_channels
     ids = torch.randint(0, q, (B, T), generator=g, device="cuda").float()
-    kw = dict(noise=noise, teacher=ids, fused=FUSED)
-    d = (mulaw_quantize(ar_kernel.generate(pps, mcs, c_up, **kw), q).long()
-         - mulaw_quantize(ar_kernel.generate_plain(pps, mcs, c_up, **kw),
-                          q).long()).abs()
-    flips = float((d != 0).float().mean())
-    checks.append({"check": "softmax_teacher_forced_ids",
-                   "max_bin_diff": int(d.max()), "limit_bins": 1,
-                   "flip_share": flips, "limit_share": 0.01,
-                   "ok": int(d.max()) <= 1 and flips < 0.01})
-    # segmented against unsegmented, both fused
-    record(f"segmented_{SEGMENT}_vs_unsegmented",
-           err(generate_segmented(pp, mc, c_up, noise, SEGMENT, fused=FUSED),
-               gen(c_up, noise)), 0.0)
-    # streamed equal to resident where both fit (config-2 widths with
-    # stack_size=8), and the time of each: the streamed layers' slots are
-    # read from global memory in the base stage
+    cw, nw, tw = (x[:, :FUSED_W_T].contiguous()
+                  for x in (c_up, noise, teacher))
+    # the plain outputs, shared by both kernels
+    ar_kernel.launches.clear()
+    p, plain_ms = host_ms(lambda: plain(c_up, noise, teacher=teacher))
+    p_ids = mulaw_quantize(ar_kernel.generate_plain(
+        pps, mcs, c_up, noise=noise, teacher=ids, fused=FUSED), q)
+    p_w = {W: plain(cw, nw, teacher=tw, fused=W) for W in FUSED_WINDOWS}
+    kernel_ms = {}
+    for n in (0, N):
+        tag = "" if n == 0 else f"cluster{n}_"
+        # Laplace, teacher-forced: against its plain version and the same
+        # kernel unfused
+        k = gen(c_up, noise, teacher=teacher, cluster=n)
+        record(f"{tag}laplace_teacher_forced", err(k, p), TOL_TEACHER)
+        n0 = decode.kernel_layout(mc, "float32")["cluster"] if n else 0
+        record(f"{tag}fused_vs_unfused_kernel_teacher_forced",
+               err(k, gen(c_up, noise, teacher=teacher, fused=0, cluster=n0)),
+               TOL_TEACHER)
+        wk = ar_kernel.kernel_weights(pp, mc, "float32", FUSED, "cuda", n)
+        kernel_ms[n] = cuda_ms(lambda: ar_kernel.generate(
+            wk, mc, c_up, noise=noise, teacher=teacher, fused=FUSED,
+            cluster=n), 2)
+        # free-running, each sample against the plain version given the
+        # kernel's own history
+        for mode in ("sample", "greedy"):
+            k = gen(c_up, noise, mode=mode, cluster=n)
+            require(bool(torch.isfinite(k).all()),
+                    f"finite fused output {tag}{mode}")
+            record(f"{tag}laplace_free_{mode}",
+                   err(k, plain(c_up, noise, mode=mode,
+                                teacher=own_feedback(k))), TOL_FREE)
+        # softmax head at config-2 widths, teacher-forced: class ids
+        d = (mulaw_quantize(ar_kernel.generate(
+            pps, mcs, c_up, noise=noise, teacher=ids, fused=FUSED,
+            cluster=n), q).long() - p_ids.long()).abs()
+        flips = float((d != 0).float().mean())
+        checks.append({"check": f"{tag}softmax_teacher_forced_ids",
+                       "max_bin_diff": int(d.max()), "limit_bins": 1,
+                       "flip_share": flips, "limit_share": 0.01,
+                       "ok": int(d.max()) <= 1 and flips < 0.01})
+        # segmented against unsegmented, both fused
+        record(f"{tag}segmented_{SEGMENT}_vs_unsegmented",
+               err(generate_segmented(pp, mc, c_up, noise, SEGMENT,
+                                      fused=FUSED, cluster=n),
+                   gen(c_up, noise, cluster=n)), 0.0)
+        # the other windows, teacher-forced over the first steps, each on
+        # the cluster size the decode picks for it
+        for W in FUSED_WINDOWS:
+            nW = (decode.kernel_layout(mc, "float32", fused=W)["cluster"]
+                  if n else 0)
+            record(f"{tag}W{W}_teacher_forced_{FUSED_W_T}",
+                   err(gen(cw, nw, teacher=tw, fused=W, cluster=nW), p_w[W]),
+                   TOL_TEACHER)
+    # ar_generate: streamed equal to resident where both fit (config-2
+    # widths with stack_size=8), and the time of each: the streamed layers'
+    # slots are read from global memory in the base stage
     mc8 = get_config("shallow_laplace_single", ["model.stack_size=8"]).model
     m8 = random_model(mc8, seed + 2)
     pp8 = extract_plain_params(m8)
@@ -871,44 +964,52 @@ def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
                        err(out, res), 0.0)
             key = f"{dtype}_{'stream' if stream else 'resident'}{chunk}"
             stack8_ms[key] = cuda_ms(run8, 2)
-    # the other windows, teacher-forced over the first steps
-    cw, nw, tw = (x[:, :FUSED_W_T].contiguous()
-                  for x in (c_up, noise, teacher))
-    for W in FUSED_WINDOWS:
-        record(f"W{W}_teacher_forced_{FUSED_W_T}",
-               err(gen(cw, nw, teacher=tw, fused=W),
-                   plain(cw, nw, teacher=tw, fused=W)), TOL_TEACHER)
-    result = {"B": B, "T": T, "fused": FUSED, "checks": checks,
-              "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-              "stack8_ms": stack8_ms}
+    launched = dict(ar_kernel.launches)
+    result = {"B": B, "T": T, "fused": FUSED, "cluster": N,
+              "checks": checks, "kernel_ms": kernel_ms[0],
+              "cluster_kernel_ms": kernel_ms[N], "plain_ms": plain_ms,
+              "stack8_ms": stack8_ms, "launches": launched}
     emit("fused_kernel_vs_plain", **result)
     for c in checks:
         require(c["ok"], f"fused kernel vs plain: {c}")
-    return result
+    name = ar_kernel.variant("float32", False, FUSED)
+    bound_ms, bound_by = bound(mc, B, T, pp, 4, FUSED)
+    # ar_generate's fused row in the kernels line: launches counted here
+    return {**result, "name": name, "launches": launched[name],
+            "max_abs_err": next(c["max_abs_err"] for c in checks
+                                if c["check"] == "laplace_teacher_forced"),
+            "ms": kernel_ms[0], "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_deep_fused_times(mc, model, pp, seed: int) -> None:
-    """deep_baseline's fused and unfused variants on one batch, timed in
-    turns (unfused, fused, fused, unfused), on the fused layouts."""
+    """deep_baseline's fused and unfused variants on one batch, each on the
+    layout the decode picks for it, timed in turns (unfused, fused, fused,
+    unfused)."""
     B, T = 8, 1024
     c = random_cond(mc, model, B, T, seed + 5)
     n = ar_kernel.uniform_noise(
         (B, T), torch.Generator(device="cuda").manual_seed(seed + 5))
     times = {}
     for dtype in ("float32", "bfloat16"):
-        layout = decode.kernel_layout(mc, dtype, fused=FUSED)
+        layouts = {W: decode.kernel_layout(mc, dtype, fused=W)
+                   for W in (0, FUSED)}
+        w = {W: ar_kernel.kernel_weights(pp, mc, dtype, W, "cuda",
+                                         lay["cluster"])
+             for W, lay in layouts.items()}
         us = {0: [], FUSED: []}
         for W in (0, FUSED, FUSED, 0):
             us[W].append(1e3 * cuda_ms(lambda: ar_kernel.generate(
-                pp, mc, c, noise=n, **{**layout, "fused": W}), 2) / T)
-        times[dtype] = {"layout": layout, "unfused_us_per_step": us[0],
+                w[W], mc, c, noise=n, **layouts[W]), 2) / T)
+        times[dtype] = {"layout": layouts[FUSED],
+                        "unfused_layout": layouts[0],
+                        "unfused_us_per_step": us[0],
                         "fused_us_per_step": us[FUSED]}
     emit("deep_fused_times", B=B, T=T, times=times)
 
 
 def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
-    """The streaming session at config 2, B = 1, fused=4 (ar_generate) and
-    unfused (the cluster kernel, the session's default, as the decode)."""
+    """The streaming session at config 2, B = 1, fused=4 and unfused, both
+    on the cluster kernel at the decode's size (the session's default)."""
     mc, hop, sr = cfg.model, cfg.data.hop_length, cfg.data.sample_rate
     frames = np.random.default_rng(seed + 9).standard_normal(
         (1, STREAM_FRAMES, mc.aux_channels)).astype(np.float32)
@@ -1001,11 +1102,36 @@ def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
         require(c["ok"], f"streaming: {c}")
 
 
+def cluster_fits(mc, dtype: str, fused: int, limit: int):
+    """Occupancy and bytes of the cluster kernel for every size of
+    CLUSTER_N, weights resident and streamed ({N: {...}}), and the
+    (N, from L2) pairs whose block fits with a cluster resident."""
+    occ, fits = {}, []
+    for size in CLUSTER_N:
+        occ[size] = {}
+        for l2, key in ((False, "smem"), (True, "l2")):
+            try:
+                b = ar_kernel.cluster_smem_bytes(mc, dtype, size, not l2,
+                                                 fused)
+            except ValueError as e:
+                occ[size] = {"refused": str(e)}
+                break
+            occ[size][f"{key}_bytes"] = b
+            active = (ar_kernel.max_active_clusters(
+                mc, dtype, size, not l2, "cuda", fused) if b <= limit
+                else None)
+            occ[size][f"{key}_clusters"] = active
+            if active:
+                fits.append((size, l2))
+    return occ, fits
+
+
 def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
-    """The cluster kernel at config 2 and deep_baseline, fp32 and bf16 (see
-    phase 14 above). models: {preset: (model config, model, plain
-    params)}. Returns {variant: row} for the kernels line, one for each
-    variant held against its plain version here."""
+    """The cluster kernel at config 2 and deep_baseline, fp32 and bf16,
+    unfused and with the fused window (see phase 14 above). models:
+    {preset: (model config, model, plain params)}. Returns {variant: row}
+    for the kernels line, one for each variant held against its plain
+    version here."""
     limit = ar_kernel.smem_limit("cuda")
     g = torch.Generator(device="cuda").manual_seed(17)
     ar_kernel.launches.clear()
@@ -1019,120 +1145,140 @@ def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
         n1 = n_all[:1, :CLUSTER_CHECK_T].contiguous()
         for dtype in ar_kernel.DTYPES:
             tag = f"{preset}_{dtype}"
-            lay = decode.kernel_layout(mc, dtype)
-            old = decode.kernel_layout(mc, dtype, cluster=False)
-            n = lay["cluster"]
-            require(n > 1, f"{tag}: a cluster layout {lay}")
-            chosen = layout_variant(mc, lay)
-            occ, fits = {}, []
-            for size in CLUSTER_N:
-                occ[size] = {}
-                for l2, key in ((False, "smem"), (True, "l2")):
-                    try:
-                        b = ar_kernel.cluster_smem_bytes(mc, dtype, size,
-                                                         not l2)
-                    except ValueError as e:
-                        occ[size] = {"refused": str(e)}
-                        break
-                    occ[size][f"{key}_bytes"] = b
-                    active = (ar_kernel.max_active_clusters(
-                        mc, dtype, size, not l2) if b <= limit else None)
-                    occ[size][f"{key}_clusters"] = active
-                    if active:
-                        fits.append((size, l2))
-            w_old = ar_kernel.kernel_weights(pp, mc, dtype, 0, "cuda")
-            w_new = {size: ar_kernel.kernel_weights(pp, mc, dtype, 0, "cuda",
-                                                    size)
-                     for size in {size for size, _ in fits}}
-            # every size and placement that fits, by its `launches` name
-            fns = {"ar_generate": lambda c, u: ar_kernel.generate(
-                w_old, mc, c, noise=u, **old)}
-            for size, l2 in fits:
-                fns[ar_kernel.variant(dtype, False, 0, size, not l2)] = (
-                    lambda c, u, size=size, l2=l2: ar_kernel.generate(
-                        w_new[size], mc, c, noise=u, dtype=dtype,
-                        cluster=size, weights_l2=l2))
-            require(chosen in fns, f"{tag}: {chosen} fits")
+            fns, chosen, old, layouts, occs, fitted = {}, {}, {}, {}, {}, {}
+            for W in (0, FUSED):
+                lay = layouts[W] = decode.kernel_layout(mc, dtype, fused=W)
+                old[W] = decode.kernel_layout(mc, dtype, fused=W,
+                                              cluster=False)
+                require(lay["cluster"] > 1,
+                        f"{tag}: a cluster layout for fused={W}: {lay}")
+                chosen[W] = layout_variant(mc, lay)
+                occs[W], fits = cluster_fits(mc, dtype, W, limit)
+                fitted[W] = fits
+                w_old = ar_kernel.kernel_weights(pp, mc, dtype, W, "cuda")
+                w_new = {size: ar_kernel.kernel_weights(pp, mc, dtype, W,
+                                                        "cuda", size)
+                         for size in {size for size, _ in fits}}
+                # every size and placement that fits, by its `launches`
+                # name
+                fns[layout_variant(mc, old[W])] = (
+                    lambda c, u, w=w_old, lay=old[W]: ar_kernel.generate(
+                        w, mc, c, noise=u, **lay))
+                for size, l2 in fits:
+                    fns[ar_kernel.variant(dtype, False, W, size, not l2)] = (
+                        lambda c, u, W=W, size=size, l2=l2, w=w_new:
+                        ar_kernel.generate(w[size], mc, c, noise=u,
+                                           dtype=dtype, fused=W,
+                                           cluster=size, weights_l2=l2))
+                require(chosen[W] in fns, f"{tag}: {chosen[W]} fits")
+            gen0, gen4 = (layout_variant(mc, old[W]) for W in (0, FUSED))
+            unfused = [k for k in fns if k != gen4 and "fused" not in k]
             us, outs = {}, {}
             for b in CLUSTER_B:
                 cb, nb = c_all[:b].contiguous(), n_all[:b].contiguous()
-                names = (list(fns) if b in CLUSTER_SIZES_B
-                         else ["ar_generate", chosen])
+                # unfused: ar_generate and every size and placement at
+                # CLUSTER_SIZES_B, else the chosen; fused: ar_generate's
+                # and every size and placement at B = 1, ar_generate's and
+                # the chosen at B = 8, the chosen at B = 16
+                names = (list(unfused) if b in CLUSTER_SIZES_B
+                         else [gen0, chosen[0]])
+                names += ([gen4] + [k for k in fns if "fused" in k
+                                    and "ar_cluster" in k] if b == 1
+                          else [gen4, chosen[FUSED]] if b == 8
+                          else [chosen[FUSED]] if b == 16 else [])
                 out = {k: fns[k](cb, nb) for k in names}
-                outs[b] = out[chosen]
+                outs[b] = {W: out[chosen[W]] for W in (0, FUSED)
+                           if chosen[W] in out}
                 # one size, both placements: the same sums, to the bit
-                for size in {size for size, _ in fits}:
-                    smem, l2 = (ar_kernel.variant(dtype, False, 0, size, r)
-                                for r in (True, False))
-                    if smem in out and l2 in out:
-                        checks.append({
-                            "check": f"{tag}_N{size}_smem_equals_l2_B{b}",
-                            "ok": torch.equal(out[smem], out[l2])})
+                for W in (0, FUSED):
+                    for size in {size for size, _ in fitted[W]}:
+                        smem, l2 = (ar_kernel.variant(dtype, False, W, size,
+                                                      r)
+                                    for r in (True, False))
+                        if smem in out and l2 in out:
+                            checks.append({
+                                "check": f"{tag}_{smem}_equals_l2_B{b}",
+                                "ok": torch.equal(out[smem], out[l2])})
                 # in turns: each in order, then in the reverse order
                 t = {k: [] for k in names}
                 for k in names + names[::-1]:
                     t[k].append(1e3 * event_ms(lambda: fns[k](cb, nb))
                                 / CLUSTER_T)
                 us[b] = t
-            same = all(torch.equal(outs[b], outs[Bmax][:b]) for b in CLUSTER_B)
-            checks.append({"check": f"{tag}_row_equal_at_B_"
-                           + "_".join(map(str, CLUSTER_B)), "ok": same})
-            require(bool(torch.isfinite(outs[Bmax]).all()),
-                    f"{tag} cluster output finite")
+            for W in (0, FUSED):
+                bs = [b for b in CLUSTER_B if W in outs[b]]
+                same = all(torch.equal(outs[b][W], outs[bs[-1]][W][:b])
+                           for b in bs)
+                checks.append({"check": f"{tag}_fused{W}_row_equal_at_B_"
+                               + "_".join(map(str, bs)), "ok": same})
+                require(bool(torch.isfinite(outs[bs[-1]][W]).all()),
+                        f"{tag} fused={W} cluster output finite")
             # held against the plain version at B = 1 over the first steps:
             # the size the decode picks, and, where its weights stream from
             # L2, the smallest size whose weights fit in shared memory
-            held = [chosen]
-            res = [ar_kernel.variant(dtype, False, 0, size, True)
-                   for size, l2 in fits if not l2]
-            if res and res[0] != chosen and chosen.endswith(",l2]"):
-                held.append(res[0])
-            for name in held:
-                size = int(re.search(r"N(\d+)", name).group(1))
-                k = fns[name](c1, n1)
-                ms = event_ms(lambda: fns[name](c1, n1))
-                if name == chosen:
-                    checks.append({"check": f"{tag}_prefix_of_T{CLUSTER_T}",
-                                   "ok": torch.equal(
-                                       k, outs[1][:, :CLUSTER_CHECK_T])})
-                fb = own_feedback(k)
-                fp32, plain_ms = host_ms(lambda: ar_kernel.generate_plain(
-                    pp, mc, c1, noise=n1, teacher=fb))
-                if dtype == "float32":
-                    e = err(fp32, k)
-                    checks.append({"check": f"{name}_{tag}_free_one_step"
-                                   "_vs_plain", "max_abs_err": e,
-                                   "limit": TOL_FREE, "ok": e <= TOL_FREE})
-                else:
-                    chain, plain_ms = host_ms(
+            for W in (0, FUSED):
+                held = [chosen[W]]
+                res = [ar_kernel.variant(dtype, False, W, size, True)
+                       for size, l2 in fitted[W] if not l2]
+                if res and res[0] != chosen[W] and chosen[W].endswith(
+                        ",l2]"):
+                    held.append(res[0])
+                for name in held:
+                    size = int(re.search(r"N(\d+)", name).group(1))
+                    k = fns[name](c1, n1)
+                    ms = event_ms(lambda: fns[name](c1, n1))
+                    if name == chosen[W]:
+                        checks.append({
+                            "check": f"{tag}_{name}_prefix_of_T{CLUSTER_T}",
+                            "ok": torch.equal(
+                                k, outs[1][W][:, :CLUSTER_CHECK_T])})
+                    fb = own_feedback(k)
+                    fp32, plain_ms = host_ms(
                         lambda: ar_kernel.generate_plain(
-                            pp, mc, c1, noise=n1, teacher=fb, dtype=dtype,
-                            chain=True, split=size))
-                    e, ctl = err(chain, k), err(fp32, k)
-                    cmin = CONTROL_MIN if preset == "deep_baseline" \
-                        else KPROBE_CONTROL_MIN
-                    checks.append({"check": f"{name}_{tag}_vs_chain_split"
-                                   f"{size}", "max_abs_err": e,
-                                   "limit": TOL_CHAIN, "control_fp32": ctl,
-                                   "control_min": cmin,
-                                   "ok": e <= TOL_CHAIN and ctl > cmin})
-                bound_ms, bound_by = bound(mc, 1, CLUSTER_CHECK_T, pp,
-                                           2 if dtype == "bfloat16" else 4)
-                checked[name] = {
-                    "name": name, "preset": preset, "dtype": dtype,
-                    "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "B": 1, "T": CLUSTER_CHECK_T}
-            resident = not chosen.endswith(",l2]")
-            key = f"ar_cluster,{'bf16' if dtype == 'bfloat16' else 'fp32'}," \
-                + ("smem" if resident else "l2")
-            runs[tag] = {
-                "N": n, "weights": "shared memory" if resident else "L2",
-                "variant": chosen, "fallback": old,
-                "smem_bytes": ar_kernel.cluster_smem_bytes(mc, dtype, n,
-                                                           resident),
-                "registers": regs.get(key), "occupancy": occ,
-                "us_per_step": us}
+                            pp, mc, c1, noise=n1, teacher=fb, fused=W))
+                    if dtype == "float32":
+                        e = err(fp32, k)
+                        checks.append({"check": f"{name}_{tag}_free_one_step"
+                                       "_vs_plain", "max_abs_err": e,
+                                       "limit": TOL_FREE,
+                                       "ok": e <= TOL_FREE})
+                    else:
+                        chain, plain_ms = host_ms(
+                            lambda: ar_kernel.generate_plain(
+                                pp, mc, c1, noise=n1, teacher=fb,
+                                dtype=dtype, chain=True, split=size,
+                                fused=W))
+                        e, ctl = err(chain, k), err(fp32, k)
+                        cmin = CONTROL_MIN if preset == "deep_baseline" \
+                            else KPROBE_CONTROL_MIN
+                        checks.append({"check": f"{name}_{tag}_vs_chain_"
+                                       f"split{size}", "max_abs_err": e,
+                                       "limit": TOL_CHAIN,
+                                       "control_fp32": ctl,
+                                       "control_min": cmin,
+                                       "ok": e <= TOL_CHAIN and ctl > cmin})
+                    bound_ms, bound_by = bound(
+                        mc, 1, CLUSTER_CHECK_T, pp,
+                        2 if dtype == "bfloat16" else 4, W)
+                    checked[name] = {
+                        "name": name, "preset": preset, "dtype": dtype,
+                        "fused": W, "max_abs_err": e, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "B": 1, "T": CLUSTER_CHECK_T}
+            for W in (0, FUSED):
+                n = layouts[W]["cluster"]
+                resident = not chosen[W].endswith(",l2]")
+                key = ("ar_cluster,"
+                       + ("bf16," if dtype == "bfloat16" else "fp32,")
+                       + ("fused," if W else "")
+                       + ("smem" if resident else "l2"))
+                runs[f"{tag}_fused{W}"] = {
+                    "N": n, "weights": "shared memory" if resident else "L2",
+                    "variant": chosen[W], "fallback": old[W],
+                    "smem_bytes": ar_kernel.cluster_smem_bytes(
+                        mc, dtype, n, resident, W),
+                    "registers": regs.get(key), "occupancy": occs[W]}
+            runs[f"{tag}_us_per_step"] = us
     launches = dict(ar_kernel.launches)
     for d in checked.values():
         d["launches"] = launches.get(d["name"], 0)
@@ -1145,11 +1291,15 @@ def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
 
 
 def phase_kfuse(smi: str) -> None:
+    """The bin.kfuse sweep on the kernel the decode picks for each W (the
+    cluster kernel) and on ar_generate."""
     ar_kernel.launches.clear()
-    rows = kfuse.sweep("shallow_laplace_single", batches=KFUSE_B,
-                       steps=KFUSE_T)
+    rows = {k: kfuse.sweep("shallow_laplace_single", batches=KFUSE_B,
+                           steps=KFUSE_T, kernel=k) for k in kfuse.KERNELS}
     require(all(np.isfinite(r["us_per_step"]) and r["us_per_step"] > 0
-                for r in rows), "kfuse sweep times")
+                for rs in rows.values() for r in rs), "kfuse sweep times")
+    require(all(r["layout"]["cluster"] > 1 for r in rows["cluster"]),
+            "kfuse: every W on the cluster kernel")
     emit("kfuse_sweep", preset="shallow_laplace_single", T=KFUSE_T,
          rows=rows, launches=dict(ar_kernel.launches), card=smi)
 
@@ -1392,33 +1542,38 @@ def run(args, smi: str, builds: dict) -> int:
                 "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
                 "bound_by": d["bound_by"], "library_ms": None, **kw}
 
-    # the cluster kernel on the main paths (config 2, deep fp32, deep bf16)
+    # the cluster kernel on the main paths (config 2, deep fp32, deep
+    # bf16), unfused and with the fused window
     kernels = [row(main_path, "ar_cluster.cu", ":560",
                    check_ms=check["cluster_kernel_ms"])]
     kernels += [row(d, "ar_cluster.cu", r)
                 for d, r in zip(deep, (":560", ":616"))]
-    # its other template instances (weights in shared memory), on no main
-    # path on an H100: launches counted in the cluster phase
+    kernels.append(row(fused_main, "ar_cluster.cu", ":368",
+                       check_ms=fused_check["cluster_kernel_ms"],
+                       check_plain_ms=fused_check["plain_ms"]))
+    kernels += [row(d, "ar_cluster.cu", r)
+                for d, r in zip(deep_fused, (":368", ":742"))]
+    # its other template instances, on no main path on an H100: launches
+    # counted in the cluster phase
     kernels += [row(d, "ar_cluster.cu",
-                    ":616" if d["dtype"] == "bfloat16" else ":560",
+                    (":742" if d["fused"] else ":616")
+                    if d["dtype"] == "bfloat16"
+                    else ":368" if d["fused"] else ":560",
                     counted_in="cluster")
                 for d in held.values()
                 if d["name"] not in {k["name"] for k in kernels}]
-    # ar_generate, the fallback layouts: launches counted in the phases
-    # that hold them against their plain versions
+    # ar_generate, the fallback layouts, unfused and fused: launches
+    # counted in the phases that hold them against their plain versions
     kernels.append(row({**check, "name": "ar_generate",
                         "launches": check["launches"]["ar_generate"],
                         "ms": check["kernel_ms"]}, "ar_generate.cu", ":560",
                        counted_in="kernel_vs_plain"))
-    for key, r in (("fp32", ":297"), ("bf16", ":616")):
+    kernels.append(row(fused_check, "ar_generate.cu", ":368",
+                       counted_in="fused_kernel_vs_plain"))
+    for key, r in (("fp32", ":297"), ("bf16", ":616"),
+                   ("fp32_fused", ":378"), ("bf16_fused", ":742")):
         kernels.append(row(deep_check[key], "ar_generate.cu", r,
                            counted_in="deep_kernel_vs_plain"))
-    # ar_generate's fused window, on the --fused main paths
-    for d, r in ((fused_main, ":368"), (deep_fused[0], ":378"),
-                 (deep_fused[1], ":742")):
-        kernels.append(row(d, "ar_generate.cu", r))
-    kernels[-3].update(check_ms=fused_check["kernel_ms"],
-                       check_plain_ms=fused_check["plain_ms"])
     kernels.append({
         "name": "ar_probe", "route": "cuda",
         "source": "shallow_wavenet_tpu_torch/csrc/ar_probe.cu",

@@ -10,11 +10,10 @@ RTF and the kernel layout). There is no backend ladder: the layout is the
 first of KERNEL_LAYOUTS that fits the device, chosen from the kernels' own
 sizes and occupancy query before any launch; a failure raises. The cluster
 kernel (`csrc/ar_cluster.cu`, a cluster of N SMs per row, each reading
-1/N of the weights) comes first; the one-SM-per-row kernel
-(`csrc/ar_generate.cu`) is the fallback where no cluster fits, and runs
---fused W, the fused window, which the cluster kernel does not have;
-unlike the JAX ladder, a fused layout that fits nowhere raises instead of
-dropping --fused.
+1/N of the weights) comes first, unfused and with --fused W, the fused
+window; the one-SM-per-row kernel (`csrc/ar_generate.cu`) is the fallback
+where no cluster fits the model, dtype and window. Unlike the JAX ladder,
+a fused layout that fits nowhere raises instead of dropping --fused.
 
     python -m shallow_wavenet_tpu_torch.bin.decode --preset shallow_laplace_single \
         --eval-scp eval.scp --feats-dir feats --stats stats.h5 \
@@ -58,8 +57,9 @@ log = logging.getLogger("decode")
 # fp32 layout comes before any bf16 one, as in the JAX decode's tier order
 # (PALLAS_TIERS), so "auto" lowers the precision only where no fp32 layout
 # fits. Within a dtype, the cluster kernel first (cluster=True: its size N
-# is the model's and the card's, `ar_kernel.cluster_size`; its rings are
-# always resident), then the one-SM-per-row kernel, where streaming moves
+# is the model's, the fused window's and the card's,
+# `ar_kernel.cluster_size`; its rings are always resident), then the
+# one-SM-per-row kernel, where streaming moves
 # the rings of the layers whose dilation is a >1 multiple of the chunk from
 # shared to global memory. The fp32 layouts of one kernel give identical
 # samples.
@@ -79,15 +79,15 @@ def kernel_layout(model_cfg, kernel_dtype: str = "auto", device=None,
                   fused: int = 0, cluster: bool = True) -> dict:
     """The first of KERNEL_LAYOUTS of `kernel_dtype` ("auto": any) that
     fits the CUDA `device`: a cluster layout where the cluster kernel has a
-    size for this model, dtype and card (`ar_kernel.cluster_size`: its
-    block's shared memory and occupancy), an `ar_generate` layout where its
-    shared memory (`ar_smem_bytes`, for the fused window W when fused > 0)
-    fits a block. On the CPU, where the plain version has no such limits,
-    the first of that dtype. A streamed layout that streams no layer is the
-    resident one and is skipped; fused > 0, or cluster=False, skips the
-    cluster layouts. Returns the generate() keywords {"dtype", "stream",
-    "chunk", "fused", "cluster"} (cluster: N, or 0 for ar_generate).
-    Raises ValueError when none fits."""
+    size for this model, dtype, fused window W (fused > 0) and card
+    (`ar_kernel.cluster_size`: its block's shared memory and occupancy),
+    an `ar_generate` layout where its shared memory (`ar_smem_bytes`, for
+    the fused window when fused > 0) fits a block. On the CPU, where the
+    plain version has no such limits, the first of that dtype. A streamed
+    layout that streams no layer is the resident one and is skipped;
+    cluster=False skips the cluster layouts. Returns the generate()
+    keywords {"dtype", "stream", "chunk", "fused", "cluster"} (cluster: N,
+    or 0 for ar_generate). Raises ValueError when none fits."""
     dev = resolve_device(device)
     if kernel_dtype not in ("auto", *ar_kernel.DTYPES):
         raise ValueError(f"unknown kernel dtype {kernel_dtype!r}")
@@ -96,11 +96,11 @@ def kernel_layout(model_cfg, kernel_dtype: str = "auto", device=None,
         if kernel_dtype not in ("auto", dtype):
             continue
         if clustered:
-            n = (ar_kernel.cluster_size(model_cfg, dtype, dev)
-                 if cluster and not fused else 0)
+            n = (ar_kernel.cluster_size(model_cfg, dtype, dev, fused)
+                 if cluster else 0)
             if n:
                 return {"dtype": dtype, "stream": False, "chunk": chunk,
-                        "fused": 0, "cluster": n}
+                        "fused": fused, "cluster": n}
             continue
         if stream and not ar_kernel.stream_split(model_cfg.dilations, chunk,
                                                  True)[1]:
@@ -124,9 +124,11 @@ def warn_waves(model_cfg, layout: dict, batch_size: int, device=None
     n, dtype, dev = layout["cluster"], layout["dtype"], resolve_device(device)
     if not n or dev.type != "cuda":
         return 1
+    fused = layout["fused"]
     at_once = ar_kernel.max_active_clusters(
         model_cfg, dtype, n,
-        ar_kernel.cluster_resident(model_cfg, dtype, n, dev), dev)
+        ar_kernel.cluster_resident(model_cfg, dtype, n, dev, fused), dev,
+        fused)
     waves = -(-batch_size // at_once)
     if waves > 1:
         log.warning("--batch-size %d is more than the %d clusters of %d "

@@ -3,22 +3,23 @@ counterpart of the TPU timing prototype `tools/kfuse.py`.
 
     python3 -m shallow_wavenet_tpu_torch.bin.kfuse [--preset shallow_laplace_single] \\
         [--dtype float32] [--batches 1,8,32] [--windows 0,2,3,4,6] \\
-        [--steps 2048]
+        [--steps 2048] [--kernel cluster|ar_generate]
 
 The prototype's kernel computes the production kernel's function on a
 recipe of weights: every weight normal with std 0.05 from
 `np.random.default_rng(0)`, the input encoded as x * 1 + in_b (unit input
 weights), zero biases elsewhere, and the config's log-scale clip. Here the
-same recipe runs through the port's own CUDA kernel (`ops.ar_kernel`'s
-one-SM-per-row `ar_generate`, the kernel that has the fused window; one
+same recipe runs through the port's own CUDA kernels (`ops.ar_kernel`; one
 launch per call), unfused for W = 0 and the fused window otherwise, on
-random normal conditioning and uniforms, each W on the layout of that
-kernel the decode would pick for it (`bin.decode.kernel_layout(...,
-cluster=False)`, so a preset whose resident rings do not fit runs
-streamed). Prints one JSON line per (B, W): mean us
+random normal conditioning and uniforms, each W on the layout the decode
+would pick for it (`bin.decode.kernel_layout`): with --kernel cluster (the
+default) the cluster kernel at the size the decode picks for that W, or
+ar_generate where no cluster fits; with --kernel ar_generate the
+one-SM-per-row kernel alone (`cluster=False`; a preset whose resident
+rings do not fit runs streamed). Prints one JSON line per (B, W): mean us
 per sample step by CUDA events over --reps calls after one warm-up call,
 RTF at the preset's sample rate, the weights the kernel reads per step,
-and the layout. Needs CUDA.
+the layout and the kernel variant (`ar_kernel.variant`). Needs CUDA.
 """
 
 from __future__ import annotations
@@ -75,11 +76,16 @@ def weights_per_step(cfg, fused: int) -> int:
     return n
 
 
+KERNELS = ("cluster", "ar_generate")
+
+
 def sweep(preset: str = "shallow_laplace_single", dtype: str = "float32",
           batches=(1, 8, 32), windows=(0, 2, 3, 4, 6), steps: int = 2048,
-          reps: int = 3, device=None):
-    """Rows {"B", "W", "us_per_step", "rtf", "weights", "layout"} for every
-    (B, W)."""
+          reps: int = 3, device=None, kernel: str = "cluster"):
+    """Rows {"B", "W", "us_per_step", "rtf", "weights", "layout",
+    "variant"} for every (B, W), on `kernel` (one of KERNELS)."""
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
     if steps % PROTOTYPE_CHUNK != 0:
         raise ValueError(f"steps={steps} must be a multiple of "
                          f"{PROTOTYPE_CHUNK}")
@@ -90,10 +96,12 @@ def sweep(preset: str = "shallow_laplace_single", dtype: str = "float32",
     mc = dataclasses.replace(cfg.model, head="laplace")
     sr = cfg.data.sample_rate
     pp = recipe_params(mc, dev)
-    layouts = {W: kernel_layout(mc, dtype, dev, fused=W, cluster=False)
+    layouts = {W: kernel_layout(mc, dtype, dev, fused=W,
+                                cluster=kernel == "cluster")
                for W in windows}
     # made once per W, so that a timed call is the kernel's launch alone
-    weights = {W: ar_kernel.kernel_weights(pp, mc, dtype, W, dev)
+    weights = {W: ar_kernel.kernel_weights(pp, mc, dtype, W, dev,
+                                           layouts[W]["cluster"])
                for W in windows}
     rng = np.random.default_rng(0)
     rows = []
@@ -116,10 +124,16 @@ def sweep(preset: str = "shallow_laplace_single", dtype: str = "float32",
             end.record()
             torch.cuda.synchronize()
             us = 1e3 * start.elapsed_time(end) / reps / steps
+            lay = layouts[W]
+            n = lay["cluster"]
             rows.append({"B": B, "W": W, "us_per_step": us,
                          "rtf": us * 1e-6 * sr,
                          "weights": weights_per_step(mc, W),
-                         "layout": layouts[W]})
+                         "layout": lay,
+                         "variant": ar_kernel.variant(
+                             dtype, lay["stream"], W, n, bool(n) and
+                             ar_kernel.cluster_resident(mc, dtype, n, dev,
+                                                        W))})
     return rows
 
 
@@ -131,6 +145,7 @@ def main(argv=None) -> int:
     p.add_argument("--windows", default="0,2,3,4,6")
     p.add_argument("--steps", type=int, default=2048)
     p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--kernel", default="cluster", choices=KERNELS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("kfuse: CUDA is not available", file=sys.stderr)
@@ -138,8 +153,9 @@ def main(argv=None) -> int:
     for row in sweep(args.preset, args.dtype,
                      [int(b) for b in args.batches.split(",")],
                      [int(w) for w in args.windows.split(",")],
-                     args.steps, args.reps):
+                     args.steps, args.reps, kernel=args.kernel):
         print(json.dumps({"preset": args.preset, "dtype": args.dtype,
+                          "kernel": args.kernel,
                           "device": torch.cuda.get_device_name(0), **row}),
               flush=True)
     return 0

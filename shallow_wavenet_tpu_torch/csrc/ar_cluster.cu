@@ -1,15 +1,15 @@
 // Autoregressive WaveNet generation on Hopper (sm_90a), one thread-block
 // cluster of N SMs per batch row.
 //
-// Replaces, on the decode's unfused path, the Pallas TPU kernel built by
+// Replaces, on the decode's path, the Pallas TPU kernel built by
 // `_make_kernel` and launched by `generate_pallas` in
 // shallow_wavenet_tpu/ops/ar_kernel.py, as ar_generate.cu does, and
-// computes the same function as ar_generate.cu's unfused form: both heads
-// (Laplace, softmax), sample and greedy, teacher forcing for every step or
-// a warm-up prefix, silence seeding, out-of-range class ids (a zero
-// embedding), fp32 or bf16 weights and rings with bf16 rounded where
-// ar_generate.cu rounds (`rnd<W>`). Only the fused window stays on
-// ar_generate.cu.
+// computes the same function as ar_generate.cu, unfused and with the fused
+// window (kFused, below): both heads (Laplace, softmax), sample and
+// greedy, teacher forcing for every step or a warm-up prefix, silence
+// seeding, out-of-range class ids (a zero embedding), fp32 or bf16 weights
+// and rings with bf16 rounded where ar_generate.cu rounds (`rnd<W>`).
+// ar_generate.cu stays as the fallback where no cluster fits.
 //
 // What bounds ar_generate.cu: one SM per row reads every weight from L2 on
 // every step (1.8 MB fp32 at config 2, 16.0 MB at deep_baseline) in a
@@ -42,7 +42,9 @@
 //   softmax) are all-gathered, so that every rank sums them in rank order
 //   and draws the same sample from the same uniform (rank 0 writes it);
 //   no broadcast of the sample is needed.
-// That is 2L + 2 exchanges per step (26 at config 2, 62 at deep_baseline).
+// That is 2L + 2 exchanges per step unfused (26 at config 2, 62 at
+// deep_baseline); with the fused window, ceil(L/W) + L + 2 (17 and 40 at
+// W = 4).
 // An exchange is point to point: each sender stores its partials into the
 // owner's receive buffer with st.async, which counts the bytes on the
 // owner's mbarrier, and the owner waits on that mbarrier alone. A first
@@ -73,6 +75,41 @@
 // version's `split=N, chain=True` does this kernel's operations one for
 // one; with N = 1 that order is ar_generate.cu's (`chain=True`).
 //
+// The fused window (kFused; the TPU kernel's `fused_blocks` branch,
+// shallow_wavenet_tpu/ops/ar_kernel.py:368-419, its weights :697-737):
+// within each block of W layers the residual recurrence is expanded into
+// the gate inputs, so a layer's chain is one product and one exchange:
+// - block exchange: for every layer of the block, each rank sends the
+//   owners its partials of tap 0 on its ring slice, of the conditioning on
+//   its c slice (V rows) and of tap 1 on its slice of the block input h
+//   (`w1cat`), three values per gate column; the owner forms every layer's
+//   gate input, ((sum tap0 + b) + sum cond) + sum tap1, b the folded bias
+//   (conv_b plus res_b @ W1_m of the block's earlier layers), and gates
+//   the block's first layer;
+// - layer exchange: rank k multiplies its z slice by its rows of
+//   fm[l] = [skip_w | res_w | res_w @ W1_m for each later layer m of the
+//   block] (G/(2N), S + R + rem G) and sends skip partials to the skip
+//   owners, res partials to the h owners and each later layer's P partials
+//   to that layer's gate owners; the owner first gates the next layer (a
+//   lane per gate half, the pair's halves swapped by shuffle, in whole
+//   warps; the block exchange's sums likewise), then, on the other warps
+//   first, updates skip, h and the ring and adds the P sums into the
+//   later layers' gate inputs in layer order.
+// Summation order of a gate input with the fused window: each sum over
+// ranks as above (per-rank chains in k order, ranks in order),
+// u = ((tap0 + b) + cond) + tap1, then + P_j of each earlier layer j of
+// the block in layer order; with N = 1 that is ar_generate.cu's fused
+// order (`fused=W, chain=True`), and the plain version's `fused=W,
+// split=N, chain=True` does this kernel's operations one for one.
+// Stages, in the order a step reads them: per block, each layer's tap
+// stage [W0|W1 (R/N, G, 2) | V rows (C/N, G)], then each layer's fm rows;
+// then the head; each packed at its own offset (`fused_stages`), so the
+// resident form holds only what it reads (config 2 fp32 at N = 16, W = 4:
+// 151.6 KB), and the streamed one double-buffers the longest stage.
+// Exchanges use receive buffer e & 1 for the call's e-th exchange (a
+// step's count may be odd), with the bytes of each exchange of a step in
+// `xbytes`.
+//
 // The wrapper picks N from the model, the dtype and the card, never from
 // the batch (`ar_kernel.cluster_size`): with one block per SM, an H100's
 // GPCs hold only 7 clusters of 16 (112 of 132 SMs), 15 of 8. A batch
@@ -97,10 +134,17 @@ constexpr int kMaxCluster = 16;
 // passes of the block over a partial's outputs (2G tap lanes, S + R
 // projection outputs, S head outputs): at most 4 of 256 threads
 constexpr int kMaxPass = 4;
+// the fused window: W <= kMaxFused, and passes over the outputs of a fused
+// projection (S + R + (W - 1) G): at most 8 of 256 threads
+constexpr int kMaxFused = 16;
+constexpr int kMaxPassF = 8;
+constexpr int kMaxStages = 2 * kMaxLayers + 1;
+constexpr int kMaxExchanges = 2 * kMaxLayers + 2;
 constexpr unsigned kFull = 0xffffffffu;
 // The entry points' own refusals; cudaError_t codes are >= 0.
 constexpr int kErrLayers = -1, kErrClasses = -2, kErrSharedMemory = -3,
-              kErrSplit = -4, kErrOccupancy = -5, kErrWidth = -6;
+              kErrSplit = -4, kErrOccupancy = -5, kErrWidth = -6,
+              kErrFused = -7;
 
 struct Params {
   const float* c_up;     // (B, T, C)
@@ -114,12 +158,20 @@ struct Params {
   const void* skip_b;    // (L, S)
   const void* h1_b;      // (S,)
   const void* h2_b;      // (O,)
-  const void* stages;    // (N, L + 1, stride): each rank's weight slices
+  const void* stages;    // (N, total): each rank's weight slices
   int B, T, L, R, G, S, C, Q, O, N;
-  int softmax, greedy, n_forced, rows, stride;
+  int softmax, greedy, n_forced, rows;
+  int stride;            // elements of a stage buffer (the longest stage)
+  int total;             // elements of one rank's stages
+  int fused;             // the fused window W (<= L), or 0
+  int n_exch;            // exchanges per step
   float log_b_min, log_b_max;
   int dil[kMaxLayers];
   int off[kMaxLayers];   // ring row offset of each layer
+  // the fused window: each stage's offset and length in a rank's slices,
+  // and the bytes each owner receives in each exchange of a step
+  int soff[kMaxStages], slen[kMaxStages];
+  unsigned xbytes[kMaxExchanges];
 };
 
 // The widths of one rank's slices.
@@ -144,29 +196,75 @@ __host__ __device__ inline int stage_stride(int R, int G, int S, int C,
   return ((layer > head ? layer : head) + 7) / 8 * 8;
 }
 
+// The fused window's stages of one rank, in the order a step reads them:
+// per block of W layers, each layer's tap stage [W0|W1 (R/N, G, 2) | V
+// rows (C/N, G)], then each layer's rows of fm (G/(2N), S + R + rem G),
+// rem the later layers of its block; then the head [H1 rows | H2 rows].
+// Each stage is rounded up to 8 elements (16 bytes in bf16, for cp.async)
+// and packed after the last. Fills off/len (2L + 1 each) unless null.
+struct Stages {
+  int total, longest, count;
+
+  __host__ __device__ void put(int n, int* off, int* len) {
+    n = (n + 7) / 8 * 8;
+    if (off) {
+      off[count] = total;
+      len[count] = n;
+    }
+    ++count;
+    total += n;
+    if (n > longest) longest = n;
+  }
+};
+
+__host__ __device__ inline Stages fused_stages(int L, int R, int G, int S,
+                                               int C, int O, int N, int W,
+                                               int* off, int* len) {
+  const Split s = split_of(R, G, S, C, N);
+  Stages st = {0, 0, 0};
+  for (int b0 = 0; b0 < L; b0 += W) {
+    const int nb = W < L - b0 ? W : L - b0;
+    for (int q = 0; q < nb; ++q) st.put((2 * s.Rn + s.Cn) * G, off, len);
+    for (int q = 0; q < nb; ++q)
+      st.put(s.Hn * (S + R + (nb - 1 - q) * G), off, len);
+  }
+  st.put(s.Sn * (S + O), off, len);
+  return st;
+}
+
 // One block's dynamic shared memory: its ring slice (rows x R/N elements
 // of `elem` bytes), its weights (resident: every stage; streamed: two
-// stage buffers), then fp32 scratch at the float offsets below. The only statement of the layout, used by the kernel to carve it
-// and by the host to size it.
+// stage buffers), then fp32 scratch at the float offsets below. W is the
+// fused window (0: unfused). The only statement of the layout, used by
+// the kernel to carve it and by the host to size it.
 struct SmemLayout {
   size_t ring_bytes, weight_bytes;
   size_t recv_each;     // floats per parity of the receive buffer
-  size_t bar, recv, h, c, z, skip, a1, o, fb, cb, rsb, h1b, h2b, inw, inb;
+  size_t bar, recv, h, c, z, skip, a1, o, fb, cb, rsb, h1b, h2b, inw, inb,
+      u;
   size_t floats, bytes;
 };
 
 __host__ __device__ inline SmemLayout smem_layout(int rows, int L, int R,
                                                   int G, int S, int C,
                                                   int O, int N, int elem,
-                                                  bool resident) {
+                                                  bool resident, int W) {
   const Split s = split_of(R, G, S, C, N);
-  const int stride = stage_stride(R, G, S, C, O, N);
   SmemLayout m;
   m.ring_bytes = ((size_t)rows * s.Rn * elem + 15) / 16 * 16;
-  const size_t welems = (resident ? L + 1 : 2) * (size_t)stride;
+  size_t welems, r;
+  if (W) {
+    const Stages st = fused_stages(L, R, G, S, C, O, N, W, nullptr, nullptr);
+    welems = resident ? (size_t)st.total : 2 * (size_t)st.longest;
+    r = 3 * (size_t)W * G;                 // (N, W, G/N) float2, then float
+    if ((size_t)(S + R + (W - 1) * G) > r) r = S + R + (W - 1) * G;
+  } else {
+    const int stride = stage_stride(R, G, S, C, O, N);
+    welems = (resident ? L + 1 : 2) * (size_t)stride;
+    r = 2 * (size_t)G;                             // (N, G/N) float2
+    if ((size_t)(S + R) > r) r = S + R;            // (N, S/N + R/N)
+  }
   m.weight_bytes = (welems * elem + 15) / 16 * 16;
-  size_t r = 2 * (size_t)G;                        // (N, G/N) float2
-  if ((size_t)(S + R) > r) r = S + R;              // (N, S/N + R/N)
   if ((size_t)N * O > r) r = (size_t)N * O;        // (N, O); S/N * N = S
   m.recv_each = (r + 3) / 4 * 4;
   size_t n = 0;
@@ -174,7 +272,8 @@ __host__ __device__ inline SmemLayout smem_layout(int rows, int L, int R,
   m.recv = n;  n += 2 * m.recv_each;               // two parities
   m.h = n;     n += s.Rn;            // this rank's slice of h
   m.c = n;     n += s.Cn;            // its slice of c_t
-  m.z = n;     n += s.Hn;            // its gated activations
+  m.z = n;     n += (W ? 2 : 1) * s.Hn;  // its gated activations (fused:
+                                         // two, by layer parity)
   m.skip = n;  n += s.Sn;            // its skip sums
   m.a1 = n;    n += s.Sn;            // its head hidden values
   m.o = n;     n += O;               // the head output (every rank)
@@ -185,6 +284,7 @@ __host__ __device__ inline SmemLayout smem_layout(int rows, int L, int R,
   m.h2b = n;   n += O;
   m.inw = n;   n += s.Rn;            // Laplace input projection slice
   m.inb = n;   n += s.Rn;
+  m.u = n;     n += (size_t)W * 2 * s.Hn;  // fused: the block's gate inputs
   m.floats = n;
   m.bytes = m.ring_bytes + m.weight_bytes + n * sizeof(float);
   return m;
@@ -402,8 +502,15 @@ __device__ int sample_class(const float* o, int Q, float u, bool greedy,
   return min(max(n, 0), Q - 1);
 }
 
+// gate(u_a, u_b): tanh(u_a) sigmoid(u_b), in the storage type
+template <typename W>
+__device__ __forceinline__ float gate(float ua, float ub) {
+  return rnd<W>(tanhf(ua) * (1.f / (1.f + expf(-ub))));
+}
+
 // One block per SM (rows and ranks on their own SMs), as ar_generate.cu.
-template <typename W, bool kResident>
+// kFused: the fused window (p.fused = W), see the header.
+template <typename W, bool kResident, bool kFused>
 __global__ void __launch_bounds__(kThreads, 1)
 ar_cluster_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -417,9 +524,10 @@ ar_cluster_kernel(const Params p) {
   const Split sp = split_of(R, G, S, C, N);
   const int Rn = sp.Rn, Hn = sp.Hn, Cn = sp.Cn, Sn = sp.Sn;
   const int stride = p.stride;
+  const int Wf = kFused ? p.fused : 0;
 
   const SmemLayout m = smem_layout(p.rows, L, R, G, S, C, O, N, sizeof(W),
-                                   kResident);
+                                   kResident, Wf);
   W* ring = reinterpret_cast<W*>(smem);
   W* wsm = reinterpret_cast<W*>(smem + m.ring_bytes);
   float* f = reinterpret_cast<float*>(smem + m.ring_bytes + m.weight_bytes);
@@ -438,9 +546,9 @@ ar_cluster_kernel(const Params p) {
   float* h2b = f + m.h2b;
   float* inw = f + m.inw;
   float* inb = f + m.inb;
+  float* u = f + m.u;
 
-  const W* stages = static_cast<const W*>(p.stages)
-      + (size_t)rank * (L + 1) * stride;
+  const W* stages = static_cast<const W*>(p.stages) + (size_t)rank * p.total;
   const W* in_w = static_cast<const W*>(p.in_w);
 
   // -- this rank's biases and input projection, fp32; zero ring
@@ -485,16 +593,23 @@ ar_cluster_kernel(const Params p) {
   // (silence before the first)
   if (tid == 0)
     fb[0] = p.n_forced > 0 ? x_in : p.softmax ? (float)(p.Q / 2) : 0.f;
+  // stage s of a rank's slices: unfused, at s * stride; fused, packed
+  const int n_stages = kFused ? 2 * L + 1 : L + 1;
+  auto stage_at = [&](int s) -> size_t {
+    return kFused ? (size_t)p.soff[s] : (size_t)s * stride;
+  };
   if constexpr (kResident) {
     // every stage: copied once, never read from L2 again
-    const size_t n_st = (size_t)(L + 1) * stride;
+    const size_t n_st = (size_t)p.total;
     for (size_t i = tid; i < n_st; i += kThreads) wsm[i] = stages[i];
   } else {
-    copy_stage(wsm, stages, stride, tid);          // layer 0 into buffer 0
+    copy_stage(wsm, stages, kFused ? p.slen[0] : stride, tid);  // stage 0
   }
-  // The exchanges of a step, in order: per layer, reduce-scatter 1 on
-  // receive buffer 0 and 2 on buffer 1; then the head's reduce-scatter on
-  // buffer 0 and the gather on buffer 1. Each buffer has an mbarrier that
+  // The exchanges of a step, in order, unfused: per layer, reduce-scatter
+  // 1 on receive buffer 0 and 2 on buffer 1; then the head's
+  // reduce-scatter on buffer 0 and the gather on buffer 1. Fused: the
+  // call's e-th exchange on buffer e & 1, its bytes p.xbytes[e mod
+  // n_exch]. Each buffer has an mbarrier that
   // completes a phase when its one local arrival (which also states the
   // bytes to expect) and every sender's st.async bytes are in. The
   // receiver re-arms a buffer for its next exchange right after its wait,
@@ -506,8 +621,8 @@ ar_cluster_kernel(const Params p) {
     mbar_init(bar0, 1);
     mbar_init(bar0 + 8, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_arm(bar0, rs1_bytes);
-    mbar_arm(bar0 + 8, rs2_bytes);
+    mbar_arm(bar0, kFused ? p.xbytes[0] : rs1_bytes);
+    mbar_arm(bar0 + 8, kFused ? p.xbytes[1 % p.n_exch] : rs2_bytes);
   }
   // every block of the cluster runs, its mbarriers armed, before the first
   // DSMEM store
@@ -517,12 +632,20 @@ ar_cluster_kernel(const Params p) {
   // the cluster's address space), the same at every layer and step.
   unsigned tap_dst[kMaxPass], tap_bar[kMaxPass], rs_dst[kMaxPass],
       rs_bar[kMaxPass], head_dst[kMaxPass], head_bar[kMaxPass];
+  // fused: (owner << 16 | column) of each tap lane's gate column, and
+  // (owner << 16 | slot) of each fused projection output, the slot in one
+  // rank's part of the owner's receive buffer
+  int tap_to[kMaxPass], fm_to[kMaxPassF];
   #pragma unroll
   for (int ps = 0; ps < kMaxPass; ++ps) {
     const int i = tid + ps * kThreads;
     const int g = i >> 1, j = g < half ? g : g - half;
     const int owner = min(j / Hn, N - 1);
     const int col = (g < half ? 0 : Hn) + j % Hn;
+    if constexpr (kFused) {
+      tap_to[ps] = owner << 16 | col;
+      continue;
+    }
     tap_dst[ps] = mapa(smem_u32(recv + 2 * (rank * 2 * Hn + col)), owner);
     tap_bar[ps] = mapa(bar0, owner);
     const int n = i;                // a skip|res output
@@ -535,26 +658,57 @@ ar_cluster_kernel(const Params p) {
     head_dst[ps] = mapa(smem_u32(recv + rank * Sn + n % Sn), ho);
     head_bar[ps] = mapa(bar0, ho);
   }
+  if constexpr (kFused) {
+    #pragma unroll
+    for (int ps = 0; ps < kMaxPassF; ++ps) {
+      const int n = tid + ps * kThreads;
+      int owner, loc;
+      if (n < S) {
+        owner = n / Sn;
+        loc = n % Sn;
+      } else if (n < S + R) {
+        owner = (n - S) / Rn;
+        loc = Sn + (n - S) % Rn;
+      } else {   // P toward the (e / G + 1)-th later layer, gate column g
+        const int e = n - S - R, q = e / G, g = e % G;
+        const int j = g < half ? g : g - half;
+        owner = j / Hn;
+        loc = Sn + Rn + q * 2 * Hn + (g < half ? 0 : Hn) + j % Hn;
+      }
+      fm_to[ps] = min(owner, N - 1) << 16 | loc;
+    }
+  }
   // waits for buffer b's exchange, then arms it for `next_bytes`
   auto received = [&](int b, unsigned next_bytes) {
     mbar_wait(bar0 + 8 * b, (phase >> b) & 1u);
     phase ^= 1u << b;
     if (tid == 0) mbar_arm(bar0 + 8 * b, next_bytes);
   };
+  // fused: the call's exchanges so far (the current one's buffer is
+  // ex & 1) and the current one's index in the step
+  int ex = 0, xi = 0;
+  auto exchanged = [&]() {
+    int next = xi + 2;
+    if (next >= p.n_exch) next -= p.n_exch;
+    received(ex & 1, p.xbytes[next]);
+    ++ex;
+    xi = xi + 1 == p.n_exch ? 0 : xi + 1;
+  };
 
   int st = 0;   // stages so far (streamed weights): the stage buffer
-  // The weights of stage s (layers 0..L-1, then the head): resident, in
-  // place; streamed, the copy started one stage earlier, with the next
-  // stage's copy started into the other buffer first. The other buffer's
-  // last readers (the previous stage's) finished before a __syncthreads
-  // that every thread has passed.
+  // The weights of stage s (unfused: layers 0..L-1, then the head; fused:
+  // `fused_stages`' order): resident, in place; streamed, the copy started
+  // one stage earlier, with the next stage's copy started into the other
+  // buffer first. The other buffer's last readers (the previous stage's)
+  // finished before a __syncthreads that every thread has passed.
   auto stage_weights = [&](int s) -> const W* {
     if constexpr (kResident) {
-      return wsm + (size_t)s * stride;
+      return wsm + stage_at(s);
     } else {
-      const int next = s == L ? 0 : s + 1;
+      const int next = s + 1 == n_stages ? 0 : s + 1;
       copy_stage(wsm + (size_t)((st + 1) & 1) * stride,
-                 stages + (size_t)next * stride, stride, tid);
+                 stages + stage_at(next), kFused ? p.slen[next] : stride,
+                 tid);
       cp_async_wait1();
       __syncthreads();
       const W* w = wsm + (size_t)(st & 1) * stride;
@@ -583,6 +737,170 @@ ar_cluster_kernel(const Params p) {
     for (int s = tid; s < Sn; s += kThreads) skip[s] = 0.f;
     __syncthreads();
     // -- residual layers
+    if constexpr (kFused) {
+      int s = 0;   // the step's stages so far
+      for (int b0 = 0; b0 < L; b0 += Wf) {
+        const int nb = min(Wf, L - b0);
+        // block exchange: each layer's (tap 0, conditioning) and tap 1
+        // partials into the owner of each gate column; lane pair (g, tap)
+        // as unfused
+        const int xb = ex & 1;
+        const unsigned rbuf = smem_u32(recv + xb * m.recv_each);
+        const unsigned bar = bar0 + 8 * xb;
+        const int t1 = 2 * Wf * G;       // the tap 1 partials' offset
+        for (int k = 0; k < nb; ++k) {
+          const int l = b0 + k;
+          // streamed: the last tap stage's readers are done before its
+          // buffer is refilled
+          if (!kResident && k > 0) __syncthreads();
+          const W* w = stage_weights(s++);
+          const W* slot =
+              ring + ((size_t)p.off[l] + (t & (p.dil[l] - 1))) * Rn;
+          #pragma unroll
+          for (int ps = 0; ps < kMaxPass; ++ps) {
+            const int i = tid + ps * kThreads;
+            if (i >= 2 * G) break;
+            const int g = i >> 1, tap = i & 1;
+            const W* wt = w + (size_t)g * 2 + tap;
+            float acc = 0.f;
+            #pragma unroll 8
+            for (int r = 0; r < Rn; ++r) {
+              const float x = tap ? h[r] : to_f(slot[r]);
+              acc = fmaf(x, to_f(wt[(size_t)r * 2 * G]), acc);
+            }
+            const int owner = tap_to[ps] >> 16;
+            const int at = (rank * Wf + k) * 2 * Hn + (tap_to[ps] & 0xffff);
+            const unsigned ob = mapa(bar, owner);
+            if (!tap) {
+              const W* v = w + (size_t)2 * Rn * G + g;
+              float cond = 0.f;
+              #pragma unroll 8
+              for (int q = 0; q < Cn; ++q)
+                cond = fmaf(c[q], to_f(v[(size_t)q * G]), cond);
+              st_async(mapa(rbuf + 8 * at, owner), acc, cond, ob);
+            } else {
+              st_async(mapa(rbuf + 4 * (t1 + at), owner), acc, ob);
+            }
+          }
+        }
+        exchanged();
+        // owner: every layer's gate input, ((tap 0 + b) + cond) + tap 1,
+        // each summed over ranks in rank order, one lane per gate half
+        // (whole warps run each pass: the pair swaps halves); the first
+        // layer gated by the pair's even lane
+        {
+          const float2* r2 =
+              reinterpret_cast<const float2*>(recv + xb * m.recv_each);
+          const float* r1 = recv + xb * m.recv_each + t1;
+          const int ld = Wf * 2 * Hn;   // one rank's part
+          const int n2 = nb * 2 * Hn;
+          for (int i = tid; i < (n2 + 31) / 32 * 32; i += kThreads) {
+            const int side = i & 1, kj = i >> 1;
+            const int k = kj / Hn, j = kj - k * Hn;
+            float v = 0.f;
+            if (i < n2) {
+              const int at = k * 2 * Hn + side * Hn + j;
+              float2 a = r2[at];
+              float b = r1[at];
+              for (int k0 = 1; k0 < N; k0 += kChunk) {
+                float2 av[kChunk];
+                float bv[kChunk];
+                #pragma unroll
+                for (int q = 0; q < kChunk; ++q) {
+                  const int r = k0 + q;
+                  av[q] = r < N ? r2[r * ld + at] : make_float2(0.f, 0.f);
+                  bv[q] = r < N ? r1[r * ld + at] : 0.f;
+                }
+                #pragma unroll
+                for (int q = 0; q < kChunk; ++q) {
+                  a.x += av[q].x; a.y += av[q].y; b += bv[q];
+                }
+              }
+              v = ((a.x + cb[(size_t)(b0 + k) * 2 * Hn + side * Hn + j])
+                   + a.y) + b;
+            }
+            const float other = __shfl_xor_sync(kFull, v, 1);
+            if (i < n2 && !side) {
+              if (k == 0) {
+                z[j] = gate<W>(v, other);
+              } else {
+                u[k * 2 * Hn + j] = v;
+                u[k * 2 * Hn + Hn + j] = other;
+              }
+            }
+          }
+          __syncthreads();
+        }
+        for (int k = 0; k < nb; ++k) {
+          const int l = b0 + k, rem = nb - 1 - k;
+          const W* w = stage_weights(s++);
+          // z @ fm[l] over this rank's rows of z, into the owners
+          const float* zk = z + (k & 1) * Hn;
+          const int nout = S + R + rem * G, per = Sn + Rn + rem * 2 * Hn;
+          const int lb = ex & 1;
+          const unsigned lbuf =
+              smem_u32(recv + lb * m.recv_each) + 4 * rank * per;
+          const unsigned lbar = bar0 + 8 * lb;
+          #pragma unroll
+          for (int ps = 0; ps < kMaxPassF; ++ps) {
+            const int n = tid + ps * kThreads;
+            if (n >= nout) break;
+            float acc = 0.f;
+            #pragma unroll 8
+            for (int j = 0; j < Hn; ++j)
+              acc = fmaf(zk[j], to_f(w[(size_t)j * nout + n]), acc);
+            const int owner = fm_to[ps] >> 16;
+            st_async(mapa(lbuf + 4 * (fm_to[ps] & 0xffff), owner), acc,
+                     mapa(lbar, owner));
+          }
+          exchanged();
+          // owner: skip sums, the ring keeps the layer's INPUT h; the P
+          // sums into the later layers' gate inputs, in layer order; the
+          // next layer gated
+          const float* rq = recv + lb * m.recv_each;
+          const int nsr = Sn + Rn;
+          // the next layer's gate inputs first, lane 2j + side for half
+          // `side` of column j, in the first gw whole warps
+          const int gw = rem > 0 ? (2 * Hn + 31) / 32 : 0;
+          if (tid < 32 * gw) {
+            const int side = tid & 1, j = tid >> 1;
+            float v = 0.f;
+            if (j < Hn)
+              v = u[(k + 1) * 2 * Hn + side * Hn + j]
+                  + rank_sum(rq + nsr + side * Hn + j, N, per);
+            const float other = __shfl_xor_sync(kFull, v, 1);
+            if (j < Hn && !side)
+              z[((k + 1) & 1) * Hn + j] = gate<W>(v, other);
+          }
+          // then skip sums, the ring keeps the layer's INPUT h, and the P
+          // sums into the later layers' gate inputs (layer k + 1 + q,
+          // q >= 1), in layer order; the threads past the gating warps
+          // first
+          const int todo = nsr + (rem > 1 ? (rem - 1) * 2 * Hn : 0);
+          W* slot = ring + ((size_t)p.off[l] + (t & (p.dil[l] - 1))) * Rn;
+          for (int i = (tid - 32 * gw + kThreads) % kThreads; i < todo;
+               i += kThreads) {
+            if (i < nsr) {
+              const float q = rank_sum(rq + i, N, per);
+              const float b = rsb[(size_t)l * nsr + i];
+              if (i < Sn) {
+                skip[i] += q + b;
+              } else {
+                const int r = i - Sn;
+                slot[r] = from_f<W>(h[r]);
+                h[r] = rnd<W>(h[r] + (q + b));
+              }
+            } else {
+              const int e = i - nsr;
+              const int q = e / (2 * Hn) + 1, col = e % (2 * Hn);
+              u[(k + 1 + q) * 2 * Hn + col] +=
+                  rank_sum(rq + nsr + q * 2 * Hn + col, N, per);
+            }
+          }
+          __syncthreads();
+        }
+      }
+    } else {
     for (int l = 0; l < L; ++l) {
       const W* w = stage_weights(l);
       W* slot = ring + ((size_t)p.off[l] + (t & (p.dil[l] - 1))) * Rn;
@@ -664,33 +982,41 @@ ar_cluster_kernel(const Params p) {
       }
       __syncthreads();
     }
+    }
     // -- head: relu -> dense -> relu -> dense, split on skip, then a1
     {
-      const W* w = stage_weights(L);
-      float* rq = recv;
+      const W* w = stage_weights(n_stages - 1);
+      const int hb = kFused ? ex & 1 : 0;   // the reduce-scatter's buffer
+      float* rq = recv + hb * m.recv_each;
       #pragma unroll
       for (int ps = 0; ps < kMaxPass; ++ps) {
         const int n = tid + ps * kThreads;
         if (n >= S) break;
-        st_async(head_dst[ps], dot_chain(skip, w + n, Sn, S, ReluRound<W>()),
-                 head_bar[ps]);
+        const float v = dot_chain(skip, w + n, Sn, S, ReluRound<W>());
+        if constexpr (kFused) {
+          const int ho = n / Sn;
+          st_async(mapa(smem_u32(rq + rank * Sn + n % Sn), ho), v,
+                   mapa(bar0 + 8 * hb, ho));
+        } else {
+          st_async(head_dst[ps], v, head_bar[ps]);
+        }
       }
-      received(0, rs1_bytes);
+      if constexpr (kFused) exchanged(); else received(0, rs1_bytes);
       for (int n = tid; n < Sn; n += kThreads) {
         const float acc = rank_sum(rq + n, N, Sn) + h1b[n];
         a1[n] = rnd<W>(acc > 0.f ? acc : 0.f);
       }
       __syncthreads();
       // a1 @ H2 partials, gathered by every rank
-      float* ro = recv + m.recv_each;
+      float* ro = recv + (hb ^ 1) * m.recv_each;
       const W* w2 = w + (size_t)Sn * S;
       for (int n = tid; n < O; n += kThreads) {
         const float acc = dot_chain(a1, w2 + n, Sn, O);
         const unsigned at = smem_u32(ro + rank * O + n);
         for (int d = 0; d < N; ++d)
-          st_async(mapa(at, d), acc, mapa(bar0 + 8, d));
+          st_async(mapa(at, d), acc, mapa(bar0 + 8 * (hb ^ 1), d));
       }
-      received(1, rs2_bytes);
+      if constexpr (kFused) exchanged(); else received(1, rs2_bytes);
       for (int n = tid; n < O; n += kThreads) {
         o[n] = rank_sum(ro + n, N, O) + h2b[n];
       }
@@ -726,9 +1052,9 @@ ar_cluster_kernel(const Params p) {
   cluster.sync();
 }
 
-template <typename W, bool kResident>
+template <typename W, bool kResident, bool kFused>
 cudaError_t prepare(size_t smem_bytes) {
-  const auto kernel = ar_cluster_kernel<W, kResident>;
+  const auto kernel = ar_cluster_kernel<W, kResident, kFused>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (e != cudaSuccess) return e;
@@ -753,41 +1079,60 @@ cudaLaunchConfig_t launch_config(int blocks, int N, size_t smem_bytes,
   return cfg;
 }
 
-template <typename W, bool kResident>
+template <typename W, bool kResident, bool kFused>
 cudaError_t max_active(int N, size_t smem_bytes, int* clusters) {
-  cudaError_t e = prepare<W, kResident>(smem_bytes);
+  cudaError_t e = prepare<W, kResident, kFused>(smem_bytes);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = launch_config(N, N, smem_bytes, 0, attr);
   return cudaOccupancyMaxActiveClusters(
-      clusters, (const void*)ar_cluster_kernel<W, kResident>, &cfg);
+      clusters, (const void*)ar_cluster_kernel<W, kResident, kFused>, &cfg);
 }
 
-cudaError_t max_active_any(int bf16, int resident, int N, size_t smem_bytes,
-                           int* clusters) {
+template <bool kFused>
+cudaError_t max_active_of(int bf16, int resident, int N, size_t smem_bytes,
+                          int* clusters) {
   if (bf16)
-    return resident ? max_active<__nv_bfloat16, true>(N, smem_bytes, clusters)
-                    : max_active<__nv_bfloat16, false>(N, smem_bytes,
-                                                       clusters);
-  return resident ? max_active<float, true>(N, smem_bytes, clusters)
-                  : max_active<float, false>(N, smem_bytes, clusters);
+    return resident
+        ? max_active<__nv_bfloat16, true, kFused>(N, smem_bytes, clusters)
+        : max_active<__nv_bfloat16, false, kFused>(N, smem_bytes, clusters);
+  return resident ? max_active<float, true, kFused>(N, smem_bytes, clusters)
+                  : max_active<float, false, kFused>(N, smem_bytes, clusters);
 }
 
-template <typename W, bool kResident>
+cudaError_t max_active_any(int bf16, int resident, int fused, int N,
+                           size_t smem_bytes, int* clusters) {
+  return fused ? max_active_of<true>(bf16, resident, N, smem_bytes, clusters)
+               : max_active_of<false>(bf16, resident, N, smem_bytes,
+                                      clusters);
+}
+
+template <typename W, bool kResident, bool kFused>
 cudaError_t start(const Params& p, size_t smem_bytes, cudaStream_t stream) {
-  cudaError_t e = prepare<W, kResident>(smem_bytes);
+  cudaError_t e = prepare<W, kResident, kFused>(smem_bytes);
   if (e != cudaSuccess) return e;
   if (p.B == 0 || p.T == 0) return cudaSuccess;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
       launch_config(p.B * p.N, p.N, smem_bytes, stream, attr);
-  e = cudaLaunchKernelEx(&cfg, ar_cluster_kernel<W, kResident>, p);
+  e = cudaLaunchKernelEx(&cfg, ar_cluster_kernel<W, kResident, kFused>, p);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// The shape refusals shared by every entry point.
-int check_shape(int L, int R, int G, int S, int C, int N) {
+template <bool kFused>
+cudaError_t start_of(int bf16, int resident, const Params& p,
+                     size_t smem_bytes, cudaStream_t s) {
+  if (bf16)
+    return resident ? start<__nv_bfloat16, true, kFused>(p, smem_bytes, s)
+                    : start<__nv_bfloat16, false, kFused>(p, smem_bytes, s);
+  return resident ? start<float, true, kFused>(p, smem_bytes, s)
+                  : start<float, false, kFused>(p, smem_bytes, s);
+}
+
+// The shape refusals shared by every entry point; W, the fused window (0:
+// unfused), is clamped to L by the caller.
+int check_shape(int L, int R, int G, int S, int C, int N, int W) {
   if (L < 1 || L > kMaxLayers) return kErrLayers;
   if (2 * G > kMaxPass * kThreads || S + R > kMaxPass * kThreads
       || C > N * kThreads)
@@ -795,31 +1140,53 @@ int check_shape(int L, int R, int G, int S, int C, int N) {
   if (N < 2 || N > kMaxCluster || (N & (N - 1)) != 0 || G % 16 != 0
       || R % N != 0 || (G / 2) % N != 0 || C % N != 0 || S % N != 0)
     return kErrSplit;
+  if (W < 0 || W > kMaxFused
+      || (W && S + R + (W - 1) * G > kMaxPassF * kThreads))
+    return kErrFused;
   return 0;
 }
+
+int window(int fused, int L) { return fused < L ? fused : L; }
 
 }  // namespace
 
 // Bytes of shared memory one block needs for this layout: weights resident
 // (resident != 0) or streamed from L2; bf16 != 0 stores weights and rings
-// in bf16. Returns a kErr* refusal on a shape the kernel cannot take.
+// in bf16; fused = W > 0 the fused window. Returns a kErr* refusal on a
+// shape the kernel cannot take.
 extern "C" long long ar_cluster_smem_bytes(const int* dilations, int L,
                                            int R, int G, int S, int C, int O,
-                                           int N, int bf16, int resident) {
-  const int e = check_shape(L, R, G, S, C, N);
+                                           int N, int bf16, int resident,
+                                           int fused) {
+  const int W = window(fused, L);
+  const int e = check_shape(L, R, G, S, C, N, W);
   if (e != 0) return e;
   int off[kMaxLayers], rows;
   pack_rings(dilations, L, off, &rows);
   return (long long)smem_layout(rows, L, R, G, S, C, O, N, bf16 ? 2 : 4,
-                                resident != 0)
+                                resident != 0, W)
       .bytes;
 }
 
-// Elements of one stage of a rank's packed weights (the wrapper packs
-// them at this stride).
+// Elements of one stage of a rank's packed weights, unfused (the wrapper
+// packs them at this stride).
 extern "C" int ar_cluster_stage_stride(int R, int G, int S, int C, int O,
                                        int N) {
   return stage_stride(R, G, S, C, O, N);
+}
+
+// The fused window's stages of one rank (`fused_stages`): fills off and
+// len (2L + 1 each: per block each layer's tap stage, then each layer's
+// fm rows; then the head) and returns the elements of one rank's stages,
+// or a kErr* refusal.
+extern "C" int ar_cluster_fused_stages(int L, int R, int G, int S, int C,
+                                       int O, int N, int fused, int* off,
+                                       int* len) {
+  const int W = window(fused, L);
+  const int e = check_shape(L, R, G, S, C, N, W);
+  if (e != 0) return e;
+  if (W < 1) return kErrFused;
+  return fused_stages(L, R, G, S, C, O, N, W, off, len).total;
 }
 
 // cudaOccupancyMaxActiveClusters for clusters of N blocks of this layout
@@ -827,32 +1194,39 @@ extern "C" int ar_cluster_stage_stride(int R, int G, int S, int C, int O,
 // cudaError_t.
 extern "C" int ar_cluster_max_active(const int* dilations, int L, int R,
                                      int G, int S, int C, int O, int N,
-                                     int bf16, int resident, int* clusters) {
-  const long long bytes =
-      ar_cluster_smem_bytes(dilations, L, R, G, S, C, O, N, bf16, resident);
+                                     int bf16, int resident, int fused,
+                                     int* clusters) {
+  const long long bytes = ar_cluster_smem_bytes(dilations, L, R, G, S, C, O,
+                                                N, bf16, resident, fused);
   if (bytes < 0) return (int)bytes;
   *clusters = 0;
-  return (int)max_active_any(bf16, resident, N, (size_t)bytes, clusters);
+  return (int)max_active_any(bf16, resident, fused, N, (size_t)bytes,
+                             clusters);
 }
 
 // Launch on `stream` on the current device: clusters of N blocks, one
-// cluster per batch row. `stages` (N, L + 1, stride) holds every rank's
-// packed weight slices (`stage_stride`), of the storage type
-// (fp32, or bf16 when bf16 != 0), as are the biases and in_w/in_b;
-// resident != 0 keeps the weights in shared memory for the whole call.
+// cluster per batch row. `stages` holds every rank's packed weight slices,
+// (N, L + 1, stride) unfused (`stage_stride`), (N, total) with the fused
+// window fused = W > 0 (`ar_cluster_fused_stages`), of the storage type
+// (fp32, or bf16 when bf16 != 0), as are the biases and in_w/in_b (conv_b
+// the fused window's folded bias when fused > 0); resident != 0 keeps the
+// weights in shared memory for the whole call.
 // Returns 0, one of the kErr* refusals (checked before anything runs: too
 // many layers, a class count the sampler cannot split over a warp, a
-// width N does not divide or an N the kernel does not take, a block's
-// shared memory, or no cluster of N such blocks fitting the card), or the
-// cudaError_t of the attribute calls or the launch.
+// width N does not divide or an N the kernel does not take, a fused window
+// it cannot hold, a block's shared memory, or no cluster of N such blocks
+// fitting the card), or the cudaError_t of the attribute calls or the
+// launch.
 extern "C" int ar_cluster_generate(
     const float* c_up, const float* noise, const float* teacher, float* out,
     const void* in_w, const void* in_b, const void* conv_b,
     const void* res_b, const void* skip_b, const void* h1_b,
     const void* h2_b, const void* stages, const int* dilations, int B,
-    int T, int L, int R, int G, int S, int C, int Q, int O, int N, int softmax, int greedy, int n_forced, int bf16,
-    int resident, float log_b_min, float log_b_max, void* stream) {
-  int e = check_shape(L, R, G, S, C, N);
+    int T, int L, int R, int G, int S, int C, int Q, int O, int N,
+    int softmax, int greedy, int n_forced, int bf16, int resident,
+    int fused, float log_b_min, float log_b_max, void* stream) {
+  const int W = window(fused, L);
+  int e = check_shape(L, R, G, S, C, N, W);
   if (e != 0) return e;
   if (softmax && (Q % 32 != 0 || Q > 32 * kMaxPerLane)) return kErrClasses;
   Params p;
@@ -863,12 +1237,34 @@ extern "C" int ar_cluster_generate(
   p.B = B; p.T = T; p.L = L; p.R = R; p.G = G; p.S = S; p.C = C;
   p.Q = Q; p.O = O; p.N = N;
   p.softmax = softmax; p.greedy = greedy; p.n_forced = n_forced;
-  p.stride = stage_stride(R, G, S, C, O, N);
+  p.fused = W;
+  if (W) {
+    const Stages st = fused_stages(L, R, G, S, C, O, N, W, p.soff, p.slen);
+    p.stride = st.longest;
+    p.total = st.total;
+    // the exchanges of a step: per block, its block exchange and one per
+    // layer; then the head's two; bytes each owner receives
+    const Split s = split_of(R, G, S, C, N);
+    int x = 0;
+    for (int b0 = 0; b0 < L; b0 += W) {
+      const int nb = W < L - b0 ? W : L - b0;
+      p.xbytes[x++] = N * nb * 2 * s.Hn * 12;
+      for (int k = 0; k < nb; ++k)
+        p.xbytes[x++] = N * (s.Sn + s.Rn + (nb - 1 - k) * 2 * s.Hn) * 4;
+    }
+    p.xbytes[x++] = N * s.Sn * 4;
+    p.xbytes[x++] = N * O * 4;
+    p.n_exch = x;
+  } else {
+    p.stride = stage_stride(R, G, S, C, O, N);
+    p.total = (L + 1) * p.stride;
+    p.n_exch = 2 * L + 2;
+  }
   p.log_b_min = log_b_min; p.log_b_max = log_b_max;
   for (int l = 0; l < L; ++l) p.dil[l] = dilations[l];
   pack_rings(dilations, L, p.off, &p.rows);
   const size_t smem_bytes = smem_layout(p.rows, L, R, G, S, C, O, N,
-                                        bf16 ? 2 : 4, resident != 0)
+                                        bf16 ? 2 : 4, resident != 0, W)
                                 .bytes;
   int device = 0, smem_max = 0;
   e = (int)cudaGetDevice(&device);
@@ -878,15 +1274,12 @@ extern "C" int ar_cluster_generate(
   if (e != 0) return e;
   if (smem_bytes > (size_t)smem_max) return kErrSharedMemory;
   int clusters = 0;
-  e = (int)max_active_any(bf16, resident, N, smem_bytes, &clusters);
+  e = (int)max_active_any(bf16, resident, W, N, smem_bytes, &clusters);
   if (e != 0) return e;
   if (clusters < 1) return kErrOccupancy;
   const cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return (int)(resident ? start<__nv_bfloat16, true>(p, smem_bytes, s)
-                          : start<__nv_bfloat16, false>(p, smem_bytes, s));
-  return (int)(resident ? start<float, true>(p, smem_bytes, s)
-                        : start<float, false>(p, smem_bytes, s));
+  return (int)(W ? start_of<true>(bf16, resident, p, smem_bytes, s)
+                 : start_of<false>(bf16, resident, p, smem_bytes, s));
 }
 
 extern "C" const char* ar_cluster_error_string(int e) {
@@ -910,6 +1303,9 @@ extern "C" const char* ar_cluster_error_string(int e) {
     case kErrOccupancy:
       return "occupancy: no cluster of this many blocks with this shared "
              "memory fits the card";
+    case kErrFused:
+      return "fused window: W must be <= 16 and skip_channels + "
+             "residual_channels + (W - 1) x gate_channels <= 2048";
   }
   return cudaGetErrorString((cudaError_t)e);
 }

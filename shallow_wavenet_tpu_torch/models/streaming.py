@@ -78,13 +78,13 @@ class StreamingSynthesizer:
     blocks amortize the M warm-up steps per call, smaller ones cut latency.
     chunk, dtype, stream and fused pass to every kernel call (fused = W:
     the fused window; not bit-exact against fused=0, but the stream still
-    equals one fused call). Unfused, the session runs the kernel the
-    decode picks first: the cluster kernel at the model's and card's size
-    (`ar_kernel.cluster_size`, `self.cluster`; 0 where it has none, and
-    for the fused window, which only the one-SM-per-row kernel has). record_noise: keep every block's uniforms and
-    conditioning rows, for `noise_so_far` and `cond_so_far` (they grow
-    with the session). device: None means CUDA; "cpu" runs the plain
-    version.
+    equals one fused call). The session runs the kernel the decode picks
+    first: the cluster kernel at the model's, fused window's and card's
+    size (`ar_kernel.cluster_size`, `self.cluster`), unfused or fused; 0,
+    the one-SM-per-row kernel, where no cluster fits. record_noise: keep
+    every block's uniforms and conditioning rows, for `noise_so_far` and
+    `cond_so_far` (they grow with the session). device: None means CUDA;
+    "cpu" runs the plain version.
     """
 
     def __init__(self, pp: dict, model, cfg: ModelConfig, hop_length: int,
@@ -112,8 +112,8 @@ class StreamingSynthesizer:
                 f"block_frames ({self.block_frames}) must be >= the "
                 f"upsampler halo ({self.halo})")
         self.dev = resolve_device(device)
-        self.cluster = (0 if fused
-                        else ar_kernel.cluster_size(cfg, dtype, self.dev))
+        self.cluster = ar_kernel.cluster_size(cfg, dtype, self.dev,
+                                              int(fused))
         # the kernel's weights, made once for every block's call
         self.weights = ar_kernel.kernel_weights(pp, cfg, dtype, int(fused),
                                                 self.dev, self.cluster)

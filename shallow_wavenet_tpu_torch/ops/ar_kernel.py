@@ -10,9 +10,9 @@ t < warmup only (the warm-start of segmented generation); `dtype`
 sampling); `stream` keeps the rings of the layers `stream_split` picks for
 `chunk` in global memory instead of shared memory; `fused` = W expands the
 residual recurrence into the gate inputs within blocks of W layers (the
-fused window, `fused_weights`); `cluster` = N runs the unfused function on
-`ar_cluster.cu` instead, one thread-block cluster of N SMs per batch row,
-every product split along its input dimension over the N ranks
+fused window, `fused_weights`); `cluster` = N runs the function, unfused or
+fused, on `ar_cluster.cu` instead, one thread-block cluster of N SMs per
+batch row, every product split along its input dimension over the N ranks
 (`cluster_partition`). Softmax class ids are dequantized here, outside the
 kernel, with the same op on both versions.
 
@@ -32,7 +32,8 @@ call given plain params does this once per call (at deep_baseline, 16 MB
 of fp32 read once on the card, against thousands of sample steps); a
 caller that makes many calls passes the `KernelWeights` it made once. For
 a cluster of N they also hold each rank's weight slices packed as the
-cluster kernel reads them (`pack_cluster`).
+cluster kernel reads them (`pack_cluster`, or `pack_cluster_fused` with the
+fused window).
 
 Not carried over from the TPU kernel: the chunk grid, lane padding and the
 VMEM estimate/probe are Mosaic artifacts (zero pads add exact zeros, so
@@ -96,9 +97,11 @@ def variant(dtype: str, streamed: bool, fused: int = 0, cluster: int = 0,
             resident: bool = True) -> str:
     """The kernel variant's name, as `launches` counts it: `ar_generate[...]`,
     or with cluster = N `ar_cluster[...,N<N>]`, tagged `l2` where the
-    cluster kernel streams its weights from L2."""
+    cluster kernel streams its weights from L2 (`ar_cluster[fused4,N8,l2]`:
+    the fused window W = 4 on clusters of 8)."""
     if cluster:
         tags = [t for t, on in (("bf16", dtype == "bfloat16"),
+                                (f"fused{fused}", fused > 0),
                                 (f"N{cluster}", True),
                                 ("l2", not resident)) if on]
         return f"ar_cluster[{','.join(tags)}]"
@@ -199,6 +202,67 @@ def pack_cluster(w: dict, cfg: ModelConfig, n: int) -> dict:
     return {"cluster_stages": stages}
 
 
+def cluster_fused_stages(cfg: ModelConfig, n: int, fused: int):
+    """The fused window's stages of one rank, as `ar_cluster.cu`'s
+    fused_stages: [(offset, length)] in the order a step reads them (per
+    block of `fused_blocks`, each layer's tap stage of
+    (2 R/n + C/n) G elements, then each layer's fm rows, (G/2n) (S + R +
+    rem G), rem the later layers of its block; then the head's (S/n)
+    (S + O)), each length rounded up to 8 and packed after the last."""
+    R, G, S, C = (cfg.residual_channels, cfg.gate_channels,
+                  cfg.skip_channels, cfg.cond_channels)
+    lens = []
+    for blk in fused_blocks(len(cfg.dilations), fused):
+        lens += [(2 * (R // n) + C // n) * G] * len(blk)
+        lens += [(G // 2 // n) * (S + R + (len(blk) - 1 - k) * G)
+                 for k in range(len(blk))]
+    lens.append((S // n) * (S + _head_width(cfg)))
+    out, at = [], 0
+    for length in lens:
+        length = -(-length // 8) * 8
+        out.append((at, length))
+        at += length
+    return out
+
+
+def pack_cluster_fused(w: dict, cfg: ModelConfig, n: int, fused: int
+                       ) -> dict:
+    """Each rank's weight slices for the fused window, packed as the cluster
+    kernel reads them, from the kernel's fp32 fused weights
+    (`kernel_weights`' dict, `fused_weights`' fm):
+
+      cluster_stages: (n, total): rank k's stages at the offsets of
+          `cluster_fused_stages`: a tap stage is [W0|W1 rows of its h,
+          (R/n, G, 2) with the taps interleaved | cond_w rows of its slice
+          of c, (C/n, G)], as `pack_cluster`'s; an fm stage is layer l's
+          fm rows of its z, (G/2n, S + R + rem G); the head as
+          `pack_cluster`'s; zero-padded to each stage's length.
+    """
+    part = cluster_partition(cfg, n)
+    L = len(cfg.dilations)
+    layout = cluster_fused_stages(cfg, n, fused)
+    fm = fm_layers(w["fm"], cfg, fused)
+    order = [(kind, l) for blk in fused_blocks(L, fused)
+             for kind in ("tap", "fm") for l in blk] + [("head", L)]
+    total = layout[-1][0] + layout[-1][1]
+    stages = torch.zeros((n, total), device=w["conv_w"].device)
+    for k in range(n):
+        hr, zr, sr, cr = (list(part[key][k])
+                          for key in ("h", "z", "skip", "cond"))
+        for (kind, l), (at, _) in zip(order, layout):
+            if kind == "tap":
+                x = torch.cat([
+                    w["conv_w"][l][:, hr].permute(1, 2, 0).reshape(-1),
+                    w["cond_w"][l, cr].reshape(-1)])
+            elif kind == "fm":
+                x = fm[l][zr].reshape(-1)
+            else:
+                x = torch.cat([w["head1_w"][sr].reshape(-1),
+                               w["head2_w"][sr].reshape(-1)])
+            stages[k, at:at + x.numel()] = x
+    return {"cluster_stages": stages}
+
+
 def fused_blocks(n_layers: int, fused: int):
     """Contiguous layer windows of the fused form (a copy of the JAX
     package's `_fused_blocks`)."""
@@ -249,9 +313,8 @@ def fm_layers(fm, cfg: ModelConfig, fused: int):
 def _check_kind(dtype: str, fused: int, cluster: int = 0) -> None:
     if fused < 0:
         raise ValueError("fused must be >= 0 (0 disables the fused window)")
-    if cluster < 0 or (cluster and fused):
-        raise ValueError("cluster must be >= 0, and the cluster kernel has "
-                         "no fused window (fused=0)")
+    if cluster < 0:
+        raise ValueError("cluster must be >= 0 (0 runs ar_generate)")
     if dtype not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
                          f"{dtype!r}")
@@ -277,7 +340,8 @@ def kernel_weights(pp, cfg: ModelConfig, dtype: str = "float32",
     the input projection (or the softmax embedding) as in_w/in_b, with
     fused = W the fused window's `fm` and folded conv_b in place of res_w,
     skip_w and conv_b, with cluster = N also every rank's packed slices
-    (`pack_cluster`), every tensor cast to `dtype`. Given KernelWeights,
+    (`pack_cluster`; `pack_cluster_fused` with the fused window), every
+    tensor cast to `dtype`. Given KernelWeights,
     returns them."""
     if isinstance(pp, KernelWeights):
         return pp
@@ -293,7 +357,9 @@ def kernel_weights(pp, cfg: ModelConfig, dtype: str = "float32",
     if fused:
         w.update(fused_weights(w, cfg, fused))
         del w["res_w"], w["skip_w"]
-    if cluster:
+    if cluster and fused:
+        w.update(pack_cluster_fused(w, cfg, cluster, fused))
+    elif cluster:
         w.update(pack_cluster(w, cfg, cluster))
     return KernelWeights({k: v.to(DTYPES[dtype]).contiguous()
                           for k, v in w.items()}, dtype, fused, cluster)
@@ -407,10 +473,11 @@ def generate(pp, cfg: ModelConfig, c_up, noise=None,
     fused=0 in exact arithmetic, not to the bit (its sums run in another
     order); 0 is the unfused form.
     cluster: N > 0 launches `ar_cluster.cu` (clusters of N blocks, one per
-    row; `stream` and `chunk` do not apply: its rings are resident), equal
-    to cluster=0 in exact arithmetic, not to the bit; on the CPU, the plain
-    version with split=N. 0 launches `ar_generate.cu`. A launch the cluster
-    kernel refuses (cluster size, shared memory, occupancy) raises.
+    row, unfused or with the fused window; `stream` and `chunk` do not
+    apply: its rings are resident), equal to cluster=0 in exact arithmetic,
+    not to the bit; on the CPU, the plain version with split=N. 0 launches
+    `ar_generate.cu`. A launch the cluster kernel refuses (cluster size,
+    fused window, shared memory, occupancy) raises.
     weights_l2: with cluster = N, stream the weights from L2 even where
     they fit in shared memory (`cluster_resident`), to time the two
     placements; the samples do not change.
@@ -420,7 +487,7 @@ def generate(pp, cfg: ModelConfig, c_up, noise=None,
                     unroll, dev, chunk, fused, dtype, cluster)
     if args[0].is_cuda and cluster:
         raw = _launch_cluster(cfg, mode == "greedy", *args, dtype=dtype,
-                              n=cluster, weights_l2=weights_l2)
+                              n=cluster, weights_l2=weights_l2, fused=fused)
     elif args[0].is_cuda:
         raw = _launch(cfg, mode == "greedy", *args, dtype=dtype,
                       streamed=_streamed_mask(cfg, chunk, stream),
@@ -456,16 +523,16 @@ def generate_plain(pp, cfg: ModelConfig, c_up, noise=None,
     `chain`: every dot as N chains, one over each rank's contiguous slice
     of k (`cluster_partition`), then the N partials in rank order; a gate
     input is ((sum over ranks of (tap0 + tap1) + b) + sum over ranks of
-    the conditioning), so split=1 is the order of chain=True alone.
-    Without `chain`, matmuls sum in their own order and split changes
-    nothing. Unfused only.
+    the conditioning); with `fused` = W, ((sum over ranks of tap0 + b) +
+    sum over ranks of the conditioning) + sum over ranks of the block
+    input's tap 1, then + the sum over ranks of each earlier layer's P
+    term of the block, in layer order (`ar_cluster.cu`'s fused order). So
+    split=1 is the order of chain=True alone, fused or not. Without
+    `chain`, matmuls sum in their own order and split changes nothing.
     """
     dev = resolve_device(device)
     args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
                     unroll, dev, chunk, fused, dtype)
-    if split and fused:
-        raise ValueError("split is the cluster kernel's order, which has no "
-                         "fused window")
     return _finish(cfg, _plain(cfg, mode == "greedy", *args, fused=fused,
                                chain=chain, split=split))
 
@@ -561,18 +628,20 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
         if fused:
             # every layer's base, then per block: the block input, then
             # each layer's z @ [skip | res | P toward the later layers]
-            taps = dots(*((rings[slots[l]], w["conv_w"][l, 0])
-                          for l in range(L)))
+            taps = ([dot_sum((rings[slots[l]], w["conv_w"][l, 0]))
+                     for l in range(L)] if split else
+                    dots(*((rings[slots[l]], w["conv_w"][l, 0])
+                           for l in range(L))))
             base = [(taps[l] + w["conv_b"][l]) + cc[:, l * G:(l + 1) * G]
                     for l in range(L)]
             for bi, blk in enumerate(blocks):
-                (a,) = dots((h, w1cat[bi]))
+                a = dot_sum((h, w1cat[bi]))
                 us = [base[l] + a[:, k * G:(k + 1) * G]
                       for k, l in enumerate(blk)]
                 for k, l in enumerate(blk):
                     z = rnd(torch.tanh(us[k][:, :half])
                             * sigmoid(us[k][:, half:]))
-                    (o,) = dots((z, fm[l]))
+                    o = dot_sum((z, fm[l]))
                     for q in range(k + 1, len(blk)):
                         p0 = S + R + (q - k - 1) * G
                         us[q] = us[q] + o[:, p0:p0 + G]
@@ -700,15 +769,17 @@ def _cluster_lib() -> ctypes.CDLL:
     lib = _build.load("ar_cluster")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ints = ctypes.POINTER(i32)
-    lib.ar_cluster_generate.argtypes = ([ptr] * 12 + [ints] + [i32] * 15
+    lib.ar_cluster_generate.argtypes = ([ptr] * 12 + [ints] + [i32] * 16
                                         + [f32, f32, ptr])
     lib.ar_cluster_generate.restype = i32
-    lib.ar_cluster_smem_bytes.argtypes = [ints] + [i32] * 9
+    lib.ar_cluster_smem_bytes.argtypes = [ints] + [i32] * 10
     lib.ar_cluster_smem_bytes.restype = ctypes.c_longlong
-    lib.ar_cluster_max_active.argtypes = [ints] + [i32] * 9 + [ints]
+    lib.ar_cluster_max_active.argtypes = [ints] + [i32] * 10 + [ints]
     lib.ar_cluster_max_active.restype = i32
     lib.ar_cluster_stage_stride.argtypes = [i32] * 6
     lib.ar_cluster_stage_stride.restype = i32
+    lib.ar_cluster_fused_stages.argtypes = [i32] * 8 + [ints] * 2
+    lib.ar_cluster_fused_stages.restype = i32
     lib.ar_cluster_error_string.argtypes = [i32]
     lib.ar_cluster_error_string.restype = ctypes.c_char_p
     return lib
@@ -719,35 +790,40 @@ def _cluster_refusal(lib, err: int) -> ValueError:
                       + lib.ar_cluster_error_string(err).decode())
 
 
-def _cluster_shape(cfg: ModelConfig, n: int, dtype: str, resident: bool):
+def _cluster_shape(cfg: ModelConfig, n: int, dtype: str, resident: bool,
+                   fused: int):
     L = len(cfg.dilations)
     return ((ctypes.c_int * L)(*cfg.dilations), L, cfg.residual_channels,
             cfg.gate_channels, cfg.skip_channels, cfg.cond_channels,
-            _head_width(cfg), n, int(dtype == "bfloat16"), int(resident))
+            _head_width(cfg), n, int(dtype == "bfloat16"), int(resident),
+            fused)
 
 
 def cluster_smem_bytes(cfg: ModelConfig, dtype: str, n: int,
-                       resident: bool) -> int:
+                       resident: bool, fused: int = 0) -> int:
     """Shared memory one block of the cluster kernel needs, with its weights
-    resident in shared memory or streamed from L2, from the kernel's own
-    layout function (builds the kernel's library). Raises ValueError on a
-    shape the kernel refuses."""
+    resident in shared memory or streamed from L2, unfused or with the
+    fused window W = fused, from the kernel's own layout function (builds
+    the kernel's library). Raises ValueError on a shape the kernel
+    refuses."""
     lib = _cluster_lib()
-    b = lib.ar_cluster_smem_bytes(*_cluster_shape(cfg, n, dtype, resident))
+    b = lib.ar_cluster_smem_bytes(*_cluster_shape(cfg, n, dtype, resident,
+                                                  fused))
     if b < 0:
         raise _cluster_refusal(lib, b)
     return b
 
 
 def max_active_clusters(cfg: ModelConfig, dtype: str, n: int,
-                        resident: bool, device=None) -> int:
+                        resident: bool, device=None, fused: int = 0) -> int:
     """cudaOccupancyMaxActiveClusters for clusters of n blocks of this
     layout on the CUDA `device`: the rows the card runs at once."""
     lib = _cluster_lib()
     count = ctypes.c_int(0)
     with torch.cuda.device(resolve_device(device)):
         err = lib.ar_cluster_max_active(
-            *_cluster_shape(cfg, n, dtype, resident), ctypes.byref(count))
+            *_cluster_shape(cfg, n, dtype, resident, fused),
+            ctypes.byref(count))
     if err < 0:
         raise _cluster_refusal(lib, err)
     if err:
@@ -756,11 +832,13 @@ def max_active_clusters(cfg: ModelConfig, dtype: str, n: int,
     return count.value
 
 
-def cluster_resident(cfg: ModelConfig, dtype: str, n: int, device) -> bool:
+def cluster_resident(cfg: ModelConfig, dtype: str, n: int, device,
+                     fused: int = 0) -> bool:
     """Whether the cluster kernel keeps its weights in shared memory (they
     fit a block beside the ring slice and scratch) or streams them from
     L2, on the CUDA `device`."""
-    return cluster_smem_bytes(cfg, dtype, n, True) <= smem_limit(device)
+    return cluster_smem_bytes(cfg, dtype, n, True, fused) <= smem_limit(
+        device)
 
 
 # A cluster size fills the card when its clusters, all resident at once,
@@ -774,15 +852,17 @@ def cluster_resident(cfg: ModelConfig, dtype: str, n: int, device) -> bool:
 FILL_SHARE = 0.9
 
 
-def cluster_size(cfg: ModelConfig, dtype: str, device=None) -> int:
-    """The cluster size for this model and dtype on `device`, never from
-    the batch. Of `cluster_sizes(cfg)` whose block fits the card's shared
-    memory (weights resident, else streamed from L2) with at least one
-    cluster resident (the kernel's own byte counts and occupancy query):
-    the largest that fills the card (N x max active clusters >= FILL_SHARE
-    x SMs), so that a batch as large as the card's clusters leaves no SM
-    idle; else the largest that fits. On the CPU, the largest that divides
-    the widths. 0 when none does."""
+def cluster_size(cfg: ModelConfig, dtype: str, device=None,
+                 fused: int = 0) -> int:
+    """The cluster size for this model, dtype and fused window (0:
+    unfused) on `device`, never from the batch. Of `cluster_sizes(cfg)`
+    whose block fits the card's shared memory (weights resident, else
+    streamed from L2) with at least one cluster resident (the kernel's own
+    byte counts and occupancy query, for this window): the largest that
+    fills the card (N x max active clusters >= FILL_SHARE x SMs), so that a
+    batch as large as the card's clusters leaves no SM idle; else the
+    largest that fits. On the CPU, the largest that divides the widths. 0
+    when none does."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         sizes = cluster_sizes(cfg)
@@ -790,10 +870,14 @@ def cluster_size(cfg: ModelConfig, dtype: str, device=None) -> int:
     limit, fits = smem_limit(dev), []
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n in cluster_sizes(cfg):
-        resident = cluster_smem_bytes(cfg, dtype, n, True) <= limit
-        if not resident and cluster_smem_bytes(cfg, dtype, n, False) > limit:
+        try:
+            resident = cluster_smem_bytes(cfg, dtype, n, True, fused) <= limit
+            if not resident and cluster_smem_bytes(cfg, dtype, n, False,
+                                                   fused) > limit:
+                continue
+        except ValueError:   # a fused window the kernel cannot hold
             continue
-        active = max_active_clusters(cfg, dtype, n, resident, dev)
+        active = max_active_clusters(cfg, dtype, n, resident, dev, fused)
         if active >= 1:
             fits.append(n)
             if n * active >= FILL_SHARE * sms:
@@ -802,19 +886,31 @@ def cluster_size(cfg: ModelConfig, dtype: str, device=None) -> int:
 
 
 def _launch_cluster(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
-                    n, weights_l2):
+                    n, weights_l2, fused):
     lib = _cluster_lib()
     B, T, C = c_up.shape
     L = len(cfg.dilations)
     resident = (not weights_l2
-                and cluster_resident(cfg, dtype, n, c_up.device))
-    stride = w["cluster_stages"].shape[-1]
+                and cluster_resident(cfg, dtype, n, c_up.device, fused))
     O = _head_width(cfg)
-    if stride != lib.ar_cluster_stage_stride(
+    if fused:
+        ours = cluster_fused_stages(cfg, n, fused)
+        off, lens = ((ctypes.c_int * len(ours))() for _ in range(2))
+        want = lib.ar_cluster_fused_stages(
+            L, cfg.residual_channels, cfg.gate_channels, cfg.skip_channels,
+            C, O, n, fused, off, lens)
+        if want < 0:
+            raise _cluster_refusal(lib, want)
+        if list(zip(off, lens)) != ours:
+            raise ValueError("packed fused stages are not the kernel's")
+    else:
+        want = lib.ar_cluster_stage_stride(
             cfg.residual_channels, cfg.gate_channels, cfg.skip_channels, C,
-            O, n):
-        raise ValueError(f"packed stage stride {stride} is not the "
-                         f"kernel's")
+            O, n)
+    if w["cluster_stages"].shape[-1] != want:
+        raise ValueError(f"packed stage length "
+                         f"{w['cluster_stages'].shape[-1]} is not the "
+                         f"kernel's {want}")
     out = torch.empty((B, T), dtype=torch.float32, device=c_up.device)
     softmax = cfg.head == "softmax"
     with torch.cuda.device(c_up.device):
@@ -827,7 +923,7 @@ def _launch_cluster(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
             (ctypes.c_int * L)(*cfg.dilations), B, T, L,
             cfg.residual_channels, cfg.gate_channels, cfg.skip_channels, C,
             cfg.quantize_channels, O, n, int(softmax), int(greedy),
-            n_forced, int(dtype == "bfloat16"), int(resident),
+            n_forced, int(dtype == "bfloat16"), int(resident), fused,
             cfg.log_b_min, cfg.log_b_max,
             torch.cuda.current_stream().cuda_stream)
     if err < 0:
@@ -835,5 +931,5 @@ def _launch_cluster(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
     if err != 0:
         raise RuntimeError("ar_cluster launch failed: "
                            + lib.ar_cluster_error_string(err).decode())
-    launches[variant(dtype, False, 0, n, resident)] += 1
+    launches[variant(dtype, False, fused, n, resident)] += 1
     return out

@@ -139,9 +139,10 @@ def test_generate_cluster_on_cpu_is_the_plain_version():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError, match="cluster=8"):
         ar_kernel.generate(w, pcfg, c, noise=noise, device="cpu", cluster=4)
-    with pytest.raises(ValueError, match="fused"):
-        ar_kernel.generate(ppp, pcfg, c, noise=noise, device="cpu",
-                           cluster=4, fused=2)
+    # weights made unfused do not run the fused window
+    with pytest.raises(ValueError, match="fused=0"):
+        ar_kernel.generate(w, pcfg, c, noise=noise, device="cpu",
+                           cluster=8, fused=2)
 
 
 @pytest.mark.parametrize("n", [1, 2, 4, 8, 16])
@@ -221,10 +222,10 @@ def test_ladder_puts_the_cluster_layouts_first(monkeypatch):
     kernel's three, in their order; every fp32 layout comes before any
     bf16 one, so "auto" never lowers the precision while an fp32 layout
     fits. On the CPU the first layout is the fp32 cluster layout, at the
-    largest size that divides the widths, and --fused keeps cluster 0. On a
-    card (sizes stand in for the kernels' own), a model with no fp32
-    cluster size takes the old kernel's fp32 layout, and bf16 only where
-    no fp32 layout fits."""
+    largest size that divides the widths, --fused too (cluster=False keeps
+    cluster 0). On a card (sizes stand in for the kernels' own), a model
+    with no fp32 cluster size takes the old kernel's fp32 layout, and bf16
+    only where no fp32 layout fits."""
     c2 = get_config("shallow_laplace_single").model
     deep = get_config("deep_baseline").model
     clustered = [lay[3] for lay in decode.KERNEL_LAYOUTS]
@@ -238,7 +239,7 @@ def test_ladder_puts_the_cluster_layouts_first(monkeypatch):
         assert decode.kernel_layout(mc, "bfloat16", "cpu")["cluster"] == 16
     assert decode.kernel_layout(c2, "auto", "cpu", fused=4) == {
         "dtype": "float32", "stream": False, "chunk": 64, "fused": 4,
-        "cluster": 0}
+        "cluster": 16}
     assert decode.kernel_layout(c2, "auto", "cpu", cluster=False)[
         "cluster"] == 0
 
@@ -250,7 +251,7 @@ def test_ladder_puts_the_cluster_layouts_first(monkeypatch):
         ar_kernel, "smem_bytes", lambda cfg, dtype, stream, chunk, fused:
         fp32_bytes[0] if dtype == "float32" else 1000)
 
-    def size(cfg, dtype, dev):
+    def size(cfg, dtype, dev, fused=0):
         asked.append(dtype)
         return 8 if dtype == "bfloat16" else 0
 
@@ -284,10 +285,11 @@ def test_cluster_size_fills_the_card(monkeypatch):
     streamed = {16: 25700, 8: 43188, 4: 78164, 2: 148116}
     monkeypatch.setattr(
         ar_kernel, "cluster_smem_bytes",
-        lambda cfg, dtype, n, res: (resident if res else streamed)[n])
+        lambda cfg, dtype, n, res, fused=0:
+        (resident if res else streamed)[n])
     asked = []
 
-    def active(cfg, dtype, n, res, dev):
+    def active(cfg, dtype, n, res, dev, fused=0):
         asked.append((n, res))
         return {16: 7, 8: 30, 4: 62, 2: 66}[n]
 
@@ -297,7 +299,7 @@ def test_cluster_size_fills_the_card(monkeypatch):
     assert asked == [(16, True), (8, False)]
     # no size fills the card: the largest that fits
     monkeypatch.setattr(ar_kernel, "max_active_clusters",
-                        lambda cfg, dtype, n, res, dev: 1)
+                        lambda cfg, dtype, n, res, dev, fused=0: 1)
     assert ar_kernel.cluster_size(c2, "float32") == 16
 
 
@@ -311,9 +313,9 @@ def test_decode_warns_when_a_batch_runs_in_waves(monkeypatch, caplog):
     assert decode.warn_waves(c2, lay, 64, "cpu") == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(ar_kernel, "cluster_resident",
-                        lambda cfg, dtype, n, dev: False)
+                        lambda cfg, dtype, n, dev, fused=0: False)
     monkeypatch.setattr(ar_kernel, "max_active_clusters",
-                        lambda cfg, dtype, n, res, dev: 15)
+                        lambda cfg, dtype, n, res, dev, fused=0: 15)
     with caplog.at_level("WARNING", logger="decode"):
         assert decode.warn_waves(c2, lay, 15) == 1
         assert not caplog.records

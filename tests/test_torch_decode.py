@@ -162,7 +162,7 @@ def test_decode_cli_fused(tmp_path):
         summary = json.loads((out / "decode_summary.json").read_text())
         assert summary["kernel"] == {"dtype": "float32", "stream": False,
                                      "chunk": 64, "fused": fused,
-                                     "cluster": 0 if fused else 4}
+                                     "cluster": 4}
         with wave.open(str(out / "spk0_utt0.wav")) as w:
             wavs[fused] = np.frombuffer(w.readframes(w.getnframes()), "<i2")
     assert len(wavs[3]) == 7 * cfg.data.hop_length

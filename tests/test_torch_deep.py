@@ -124,7 +124,8 @@ def test_kernel_layout_order_and_refusal(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(ar_kernel, "smem_limit", lambda dev: 2000)
     monkeypatch.setattr(ar_kernel, "smem_bytes", fake_bytes)
-    monkeypatch.setattr(ar_kernel, "cluster_size", lambda cfg, dtype, dev: 0)
+    monkeypatch.setattr(ar_kernel, "cluster_size",
+                        lambda cfg, dtype, dev, fused=0: 0)
     assert decode.kernel_layout(deep) == {"dtype": "float32", "stream": True,
                                           "chunk": 32, "fused": 0,
                                           "cluster": 0}
