@@ -130,7 +130,29 @@ Phases, each printing one JSON line; any failure exits nonzero:
      kernel that fits at B = 1, and ar_generate's and the chosen N's at
      B = 8 (beside the unfused rows); the same row equal at B = 1, 8 and
      16; each fused template instance held at B = 1 as above (bf16 against
-     `chain=True, split=N, fused=4`).
+     `chain=True, split=N, fused=4`);
+  15. cluster_probe: the ablation probe on the cluster kernel (the probe
+     instances of csrc/ar_cluster.cu, library ar_cluster_probe) at config
+     2 on the probe's recipe of weights, at the decode's N and weight
+     placement (fp32 N = 8 from L2, bf16 N = 8 in shared memory): split2
+     and no_resskip refused before launch; the bin.kprobe --kernel
+     cluster sweep (every other ablation at B = 1 and 8, T = 2048, launches
+     by variant), each timed call checked on its own inputs: full equal
+     to the production ar_cluster launch and unroll2, unroll4 (and
+     gate_bf16 in fp32) equal to full, to the bit; every fp32 ablation
+     within TOL_TEACHER of its plain version (`split=N`) fed the kernel's
+     own samples, every bf16 one 0.0 against `chain=True, split=N`, the
+     fp32 control above KPROBE_CONTROL_MIN (local_exchange's at N = 2,
+     where each rank runs half the model; at N = 8 its output is rank 0's
+     eighth, and the control is printed); full and the production kernel
+     timed in turns at B = 8. Then the per-stage timer at the
+     decode's layouts, config 2 (T = 2048) and deep_baseline (T = 1024),
+     fp32 and bf16, unfused and fused 4, B = 8, on the main paths' random
+     weights: the timed samples equal to the production launch's, the
+     timed/untimed step ratio in turns (untimed, timed, timed, untimed;
+     both launched on the same prepared arguments) at most
+     TIMER_RATIO_MAX (config 2 fp32 unfused: TIMER_RATIO_MAX_C2_FP32),
+     and the stage table (us per step and share of each stage kind).
 Every phase line carries `t`, the script's seconds so far. Then the
 card's nvidia-smi line, the kernels' JSON line and, last,
 {"ok": true, "device": {...}}. Without CUDA, or outside the repo, it exits
@@ -238,6 +260,22 @@ KFUSE_B, KFUSE_T = (1, 8, 32), 2048
 # tests' config: 5.4e-4).
 KPROBE_B, KPROBE_T = (1, 8, 32), 2048
 KPROBE_CONTROL_MIN = 1e-4
+# the ablation probe on the cluster kernel: the sweep at CPROBE_B rows over
+# CPROBE_T steps, checked as the kprobe phase checks its own; the timer at
+# TIMER_B rows over TIMER_T steps (config 2) and TIMER_DEEP_T
+# (deep_baseline), the timed instance at most TIMER_RATIO_MAX times the
+# untimed one's step, and its plain version timed over its first
+# TIMER_PLAIN_T steps
+CPROBE_B, CPROBE_T = (1, 8), 2048
+TIMER_B, TIMER_T, TIMER_DEEP_T, TIMER_PLAIN_T = 8, 2048, 1024, 128
+TIMER_RATIO_MAX = 1.05
+# ... except config 2 fp32 unfused (N = 8, weights from L2), held at
+# TIMER_RATIO_MAX_C2_FP32: any change to the kernel's code, even a timed
+# instance with no clock read in its loop, makes ptxas schedule the whole
+# kernel anew, and there every form of the timer tried on an H100 came
+# out slower than TIMER_RATIO_MAX allows, while a copy of the production
+# instance built the same way times as the production one (PERF.md §6)
+TIMER_RATIO_MAX_C2_FP32 = 1.08
 # the cluster phase: every cluster size and weight placement that fits is
 # timed at CLUSTER_SIZES_B rows, the size the decode picks and ar_generate
 # at every CLUSTER_B, over CLUSTER_T steps; the checks against the plain
@@ -270,8 +308,10 @@ def registers(ptxas_log: str) -> dict:
     {"ar_cluster,fp32|bf16[,fused],smem|l2": registers} of the cluster
     kernel (unfused or with the fused window, weights resident or streamed
     from L2) and
-    {"ar_probe,fp32|bf16,<ablation>": registers} of the probe kernel, from
-    `ptxas -v` output (other kernels' entries are skipped)."""
+    {"ar_probe,fp32|bf16,<ablation>": registers} of the probe kernel, and
+    {"ar_cluster_probe,fp32|bf16[,fused],smem|l2,<ablation>|timed":
+    registers} of the cluster kernel's probe instances, from `ptxas -v`
+    output (other kernels' entries are skipped)."""
     regs, entry = {}, None
     for line in ptxas_log.splitlines():
         if "Compiling entry function" in line:
@@ -285,11 +325,15 @@ def registers(ptxas_log: str) -> dict:
                 key = (f"ar_probe,{dtype},"
                        f"{ar_probe.ABLATIONS[int(probe.group(1))]}")
             elif "ar_cluster_kernel" in entry:
-                res, fused = re.search(r"Lb([01])ELb([01])E",
-                                       entry).groups()
+                res, fused, abl, timed = re.search(
+                    r"Lb([01])ELb([01])ELi(\d+)ELb([01])E", entry).groups()
                 key = (f"ar_cluster,{dtype},"
                        + ("fused," if fused == "1" else "")
                        + ("smem" if res == "1" else "l2"))
+                if abl != "0" or timed == "1":
+                    key = ("ar_cluster_probe" + key[len("ar_cluster"):]
+                           + "," + ("timed" if timed == "1" else
+                                    ar_probe.ALL_ABLATIONS[int(abl)]))
             else:
                 key = dtype + "," + ("fused" if "Lb1E" in entry
                                      else "unfused")
@@ -1458,6 +1502,220 @@ def phase_dma_probe(smi: str) -> dict:
     return out
 
 
+def phase_cluster_probe(smi: str, regs: dict, models: dict) -> list:
+    """The ablation probe on the cluster kernel and its per-stage timer
+    (phase 15 above). models: {preset: (model config, model, plain
+    params)}. Returns the kernels line's rows: the sweep's, one per dtype,
+    and the timed instances', one per layout."""
+    mc = get_config("shallow_laplace_single").model
+    w = {dt: {k: v.cuda() for k, v in ar_probe.probe_weights(mc, dt).items()}
+         for dt in ar_kernel.DTYPES}
+    layouts = {dt: ar_probe.cluster_layout(mc, dt, "cuda")
+               for dt in ar_kernel.DTYPES}
+    checks = []
+
+    def record(name, e, limit, **kw):
+        checks.append({"check": name, "max_abs_err": e, "limit": limit,
+                       "ok": e <= limit, **kw})
+
+    # refused before launch: split2 (two rows per cluster) and no_resskip
+    # (S = 128 > G/2 = 64 at config 2)
+    ar_probe.launches.clear()
+    for ab in ("split2", "no_resskip"):
+        try:
+            ar_probe.probe(w["float32"], mc,
+                           torch.zeros(128, 2, mc.cond_channels,
+                                       device="cuda"),
+                           torch.full((128, 2), 0.5, device="cuda"), ab,
+                           kernel="cluster")
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        checks.append({"check": f"{ab}_refused_on_the_cluster",
+                       "error": refused,
+                       "ok": ab in refused and not ar_probe.launches})
+    # the sweep, its launches counted by variant
+    ar_probe.launches.clear()
+    outs = {dt: {} for dt in ar_kernel.DTYPES}
+    sweep = {dt: kprobe.sweep("shallow_laplace_single", dt, CPROBE_B,
+                              CPROBE_T, outputs=outs[dt], kernel="cluster")
+             for dt in ar_kernel.DTYPES}
+    launched = dict(ar_probe.launches)
+    defined = [ab for ab in ar_probe.CLUSTER_ABLATIONS if ab != "no_resskip"]
+    want = {ar_probe.variant(dt, ab, "cluster", *layouts[dt])
+            for dt in ar_kernel.DTYPES for ab in defined}
+    require(set(launched) == want, f"the cluster probe sweep launched every "
+            f"defined variant: {launched}")
+    for dt, rows in sweep.items():
+        require(all(r["us_per_step"] > 0 for r in rows if "error" not in r)
+                and {(r["B"], r["ablate"]) for r in rows if "error" in r}
+                == {(b, "no_resskip") for b in CPROBE_B},
+                f"cluster probe sweep {dt}: refused only no_resskip")
+    errs = {dt: [] for dt in ar_kernel.DTYPES}
+    for dt, by_b in outs.items():
+        wd, (n, resident) = w[dt], layouts[dt]
+        for B, o in by_b.items():
+            c, nz, full = o["cond"], o["noise"], o["full"]
+            gen = ar_kernel.generate(ar_probe.plain_params(wd), mc,
+                                     c.transpose(0, 1).contiguous(),
+                                     noise=nz.t().contiguous(), dtype=dt,
+                                     cluster=n, weights_l2=not resident)
+            record(f"{dt}_B{B}_full_vs_ar_cluster", err(full.t(), gen), 0.0,
+                   equal=torch.equal(full.t(), gen))
+            for ab in defined:
+                k = o[ab]
+                require(bool(torch.isfinite(k).all()),
+                        f"cluster probe {dt} {ab} B = {B} finite")
+                if ab in ("unroll2", "unroll4") or (ab, dt) == (
+                        "gate_bf16", "float32"):
+                    record(f"{dt}_B{B}_{ab}_vs_full", err(k, full), 0.0,
+                           equal=torch.equal(k, full))
+                fb = own_feedback(k.t())
+                if dt == "float32":
+                    e = err(k, ar_probe.probe_plain(wd, mc, c, nz, ab,
+                                                    feedback=fb, split=n))
+                    record(f"float32_B{B}_{ab}_vs_plain_split{n}", e,
+                           TOL_TEACHER)
+                    errs[dt].append(e)
+                    continue
+                e = err(k, ar_probe.probe_plain(wd, mc, c, nz, ab,
+                                                feedback=fb, chain=True,
+                                                split=n))
+                ctl = err(k, ar_probe.probe_plain(w["float32"], mc, c, nz,
+                                                  ab, feedback=fb, split=n))
+                errs[dt].append(e)
+                # local_exchange's output at N = 8 is rank 0's eighth of
+                # the model, whose fp32 control misses by less than
+                # KPROBE_CONTROL_MIN (2.4e-5 to 3.7e-5 on an H100): its
+                # control is held at N = 2 below
+                local = ab == "local_exchange"
+                checks.append({
+                    "check": f"bfloat16_B{B}_{ab}_vs_chain_split{n}",
+                    "max_abs_err": e, "limit": TOL_CHAIN,
+                    "control_fp32": ctl,
+                    "control_min": None if local else KPROBE_CONTROL_MIN,
+                    "ok": e <= TOL_CHAIN and (local
+                                              or ctl > KPROBE_CONTROL_MIN)})
+    # local_exchange at N = 2, where each rank runs half the model: 0.0
+    # against `chain=True, split=2`, its fp32 control above
+    # KPROBE_CONTROL_MIN (a check launch, not counted in the sweep)
+    B8 = max(CPROBE_B)
+    o = outs["bfloat16"][B8]
+    k2 = ar_probe.probe(w["bfloat16"], mc, o["cond"], o["noise"],
+                        "local_exchange", kernel="cluster", split=2)
+    fb = own_feedback(k2.t())
+    e = err(k2, ar_probe.probe_plain(w["bfloat16"], mc, o["cond"],
+                                     o["noise"], "local_exchange",
+                                     feedback=fb, chain=True, split=2))
+    ctl = err(k2, ar_probe.probe_plain(w["float32"], mc, o["cond"],
+                                       o["noise"], "local_exchange",
+                                       feedback=fb, split=2))
+    checks.append({"check": f"bfloat16_B{B8}_local_exchange_N2_vs_chain_"
+                   "split2", "max_abs_err": e, "limit": TOL_CHAIN,
+                   "control_fp32": ctl, "control_min": KPROBE_CONTROL_MIN,
+                   "ok": e <= TOL_CHAIN and ctl > KPROBE_CONTROL_MIN})
+    # full against the production kernel on the same call, in turns
+    turns = {}
+    for dt, wd in w.items():
+        o, (n, resident) = outs[dt][B8], layouts[dt]
+        c, nz = o["cond"], o["noise"]
+        pk = ar_probe.cluster_weights(wd, mc, n, "cuda")
+        kw = ar_kernel.kernel_weights(ar_probe.plain_params(wd), mc, dt, 0,
+                                      "cuda", n)
+        cb, nb = c.transpose(0, 1).contiguous(), nz.t().contiguous()
+        us = {"full": [], "ar_cluster": []}
+        for name in ("full", "ar_cluster", "ar_cluster", "full"):
+            fn = ((lambda: ar_probe.probe(
+                wd, mc, c, nz, "full", kernel="cluster", split=n,
+                weights_l2=not resident, packed=pk)) if name == "full" else
+                (lambda: ar_kernel.generate(kw, mc, cb, noise=nb, dtype=dt,
+                                            cluster=n,
+                                            weights_l2=not resident)))
+            us[name].append(1e3 * cuda_ms(fn, 2) / CPROBE_T)
+        turns[dt] = us
+    # the plain version's time, full free running at B = 8; fp32 held at
+    # TOL_FREE (config 2 does not amplify fp32 rounding under its own
+    # feedback), bf16 (matmul order, which drifts from the kernel's) timed
+    plain_ms = {}
+    for dt, (n, _) in layouts.items():
+        o = outs[dt][B8]
+        free, plain_ms[dt] = host_ms(lambda: ar_probe.probe_plain(
+            w[dt], mc, o["cond"], o["noise"], "full", split=n))
+        if dt == "float32":
+            record(f"float32_B{B8}_full_free_running_vs_plain_split{n}",
+                   err(o["full"], free), TOL_FREE)
+    emit("cluster_probe", config="shallow_laplace_single", T=CPROBE_T,
+         layouts={dt: {"N": n, "weights": "shared memory" if r else "L2"}
+                  for dt, (n, r) in layouts.items()},
+         checks=checks, sweep=sweep, launches=launched,
+         full_vs_ar_cluster_us_B8=turns,
+         registers={k: v for k, v in regs.items()
+                    if k.startswith("ar_cluster_probe")}, card=smi)
+    for ck in checks:
+        require(ck["ok"], f"cluster_probe: {ck}")
+    rows = []
+    for dt, (n, resident) in layouts.items():
+        mine = {k: v for k, v in launched.items()
+                if k.startswith("ar_cluster_probe[bf16,")
+                == (dt == "bfloat16")}
+        full_row = next(r for r in sweep[dt]
+                        if (r["B"], r["ablate"]) == (B8, "full"))
+        bound_ms, bound_by = bound(mc, B8, CPROBE_T, w[dt],
+                                   2 if dt == "bfloat16" else 4)
+        rows.append({
+            "name": ar_probe.variant(dt, "full", "cluster", n,
+                                     resident)[:-len(",full]")] + "]",
+            "launches": sum(mine.values()), "launches_by_variant": mine,
+            "max_abs_err": max(errs[dt]),
+            "ms": full_row["us_per_step"] * CPROBE_T / 1e3,
+            "plain_ms": plain_ms[dt],
+            "bound_ms": bound_ms, "bound_by": bound_by})
+    # the timer at the decode's layouts
+    g = torch.Generator(device="cuda").manual_seed(29)
+    ar_probe.launches.clear()
+    timed = []
+    for preset, (pmc, model, pp) in models.items():
+        T = TIMER_T if preset == "shallow_laplace_single" else TIMER_DEEP_T
+        c_up = random_cond(pmc, model, TIMER_B, T, 31)
+        nz = ar_kernel.uniform_noise((TIMER_B, T), g)
+        for dt in ar_kernel.DTYPES:
+            for W in (0, FUSED):
+                r = kprobe.time_stages(pp, pmc, c_up, nz, dt, W)
+                _, pms = host_ms(lambda: ar_kernel.generate_plain(
+                    pp, pmc, c_up[:, :TIMER_PLAIN_T], noise=nz[:, :TIMER_PLAIN_T],
+                    dtype=dt, fused=W))
+                c2_fp32 = (preset, dt, W) == ("shallow_laplace_single",
+                                              "float32", 0)
+                timed.append({"preset": preset, **r,
+                              "ratio_max": TIMER_RATIO_MAX_C2_FP32 if c2_fp32
+                              else TIMER_RATIO_MAX,
+                              "plain_ms": pms, "plain_T": TIMER_PLAIN_T})
+    timer_launches = dict(ar_probe.launches)
+    emit("cluster_timer", B=TIMER_B, runs=timed,
+         launches=timer_launches, card=smi)
+    for r in timed:
+        require(r["equal"], f"timer {r['preset']} {r['variant']}: timed "
+                f"samples equal the production launch's")
+        require(r["ratio"] <= r["ratio_max"], f"timer {r['preset']} "
+                f"{r['variant']}: timed/untimed {r['ratio']}")
+    for r in timed:
+        pmc, _, pp = models[r["preset"]]
+        bound_ms, bound_by = bound(pmc, r["B"], r["T"], pp,
+                                   2 if r["dtype"] == "bfloat16" else 4,
+                                   r["fused"])
+        rows.append({
+            "name": r["variant"], "preset": r["preset"],
+            "launches": timer_launches.get(r["variant"], 0),
+            "max_abs_err": 0.0 if r["equal"] else None,
+            "ms": 1e-3 * r["T"] * sum(r["us_timed"]) / len(r["us_timed"]),
+            "untimed_ms": 1e-3 * r["T"] * sum(r["us_untimed"])
+            / len(r["us_untimed"]),
+            "overhead": r["ratio"], "plain_ms": r["plain_ms"],
+            "plain_T": r["plain_T"], "bound_ms": bound_ms,
+            "bound_by": bound_by})
+    return rows
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1524,12 +1782,16 @@ def run(args, smi: str, builds: dict) -> int:
     held = phase_cluster(smi, regs, {cfg.name: (cfg.model, model, pp),
                                      dcfg.name: (dcfg.model, dmodel, dpp)})
     phase_kfuse(smi)
-    libs, regs = finish_builds(builds, ("ar_probe", "ring_probe"))
+    libs, regs = finish_builds(builds, ("ar_probe", "ring_probe",
+                                        "ar_cluster_probe"))
     emit("probe_build", seconds=time.perf_counter() - builds["t0"],
          libs=sorted(str(v.relative_to(Path(__file__).resolve().parent))
                      for v in libs.values()),
          registers=regs)
     probe = phase_kprobe(smi)
+    cluster_probe = phase_cluster_probe(
+        smi, regs, {cfg.name: (cfg.model, model, pp),
+                    dcfg.name: (dcfg.model, dmodel, dpp)})
     rings = phase_dma_probe(smi)
 
     tpu = "shallow_wavenet_tpu/ops/ar_kernel.py"
@@ -1582,6 +1844,18 @@ def run(args, smi: str, builds: dict) -> int:
         "max_abs_err": probe["max_abs_err"], "ms": probe["ms"],
         "plain_ms": probe["plain_ms"], "bound_ms": probe["bound_ms"],
         "bound_by": probe["bound_by"], "library_ms": None})
+    # the probe on the cluster kernel (its sweep's launches, one row per
+    # dtype) and the timed production instances (launches counted in the
+    # timer's run)
+    for r in cluster_probe:
+        timed = r["name"].endswith(",timed]")
+        kernels.append({
+            "route": "cuda", "source": csrc + "ar_cluster.cu",
+            "replaces": (tpu + (":368" if "fused" in r["name"] else ":560"))
+            if timed else "tools/kprobe.py:46",
+            "library_ms": None,
+            "counted_in": "cluster_timer" if timed else "cluster_probe",
+            **r})
     for r in rings.values():
         kernels.append({
             "name": r["name"], "route": "cuda",

@@ -116,12 +116,60 @@
 // larger than the clusters the card holds at once runs in waves.
 // No library kernel stands in for any part of the recurrence; fp32 FMA,
 // no tensor cores.
+//
+// The probe (built only with -DAR_CLUSTER_PROBE, into its own library,
+// `ar_cluster_probe`): the kernel's last two template parameters. The
+// production instances take A = kAblFull, kTimed = false, and every use of
+// either is an `if constexpr`, so they compile to the same code as before.
+// - A, an ablation of the unfused step (the port of tools/kprobe.py, whose
+//   ablations csrc/ar_probe.cu defines on ar_generate.cu's body), on the
+//   probe's model (Laplace head, unit input weights, zero biases), summed
+//   in this kernel's order (the plain version's `split=N, chain=True`):
+//     no_cond       each rank's conditioning partials computed at the first
+//                   step of each chunk, kept in shared memory (`ccs`)
+//     no_prev       no tap-0 product
+//     no_buf        tap 0 reads h; no ring write
+//     no_resskip    h += z, skip += z on each rank's own slice, no skip|res
+//                   product (needs R = S = G/2, so that rank k's z slice
+//                   is its h and skip slice)
+//     no_head       mu = log_b = skip[0] + skip[1], unclipped, from rank 0
+//   (no_resskip and no_head keep the exchanges of what they strip, one
+//   float from each rank to every rank: each exchange's buffer is safe to
+//   refill only once the next exchange is in, see below)
+//     no_sample     x = clip(mu)
+//     matmuls_only  no_cond + no_buf + no_sample
+//     cheap_gate    z = rnd(u_a u_b);  no_gate  z = rnd(u_a)
+//     gate_bf16     tanh and the sigmoid on inputs rounded to W, every op
+//                   rounded to W (in fp32, full's function)
+//     unroll2/4     the time loop unrolled by 2 / 4 (full's function)
+//     local_exchange  every st.async goes to the sender's own receive
+//                   buffer (in the row of the owner it was meant for), each
+//                   mbarrier counts the sender's own bytes, and each owner's
+//                   rank sum keeps its own row only (the others' terms
+//                   selected to 0): the same instruction stream without
+//                   cross-SM traffic. Its function: each owned column sums
+//                   only the owner's own partial, so each rank runs alone
+//                   on its slices, fed back its own draw; rank 0 writes.
+//   split2 (two rows per block) is refused: two rows per cluster change
+//   the production layout.
+// - kTimed, a per-stage timer: thread 0 of every rank reads clock64() at
+//   boundaries the kernel already has and adds the cycles since its last
+//   read to one 32-bit register per stage kind (`StageKind`); once per
+//   call it stores them and the time loop's cycles (from step 0's first
+//   read to the last draw) into p.timer, (B, N, kTimerSlots). The step's
+//   prologue (the input encoding) is in no kind: the rest.
+//   No barrier, fence or other memory operation is added. A product
+//   stage's count is thread 0's own pass (a slower warp shows in the next
+//   wait); a wait's is the cross-SM latency plus the slowest sender's
+//   lateness.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include <utility>
 
 namespace cg = cooperative_groups;
 
@@ -144,7 +192,40 @@ constexpr unsigned kFull = 0xffffffffu;
 // The entry points' own refusals; cudaError_t codes are >= 0.
 constexpr int kErrLayers = -1, kErrClasses = -2, kErrSharedMemory = -3,
               kErrSplit = -4, kErrOccupancy = -5, kErrWidth = -6,
-              kErrFused = -7;
+              kErrFused = -7, kErrAblation = -8, kErrSplit2 = -9,
+              kErrResSkip = -10, kErrHead = -11, kErrChunk = -12,
+              kErrProbeForm = -13;
+
+// The probe's ablations: tools/kprobe.py's ABLATIONS in its order (as
+// csrc/ar_probe.cu numbers them), then the cluster's own.
+enum Ablation : int {
+  kAblFull, kNoCond, kNoPrev, kNoBuf, kNoResSkip, kNoHead, kNoSample,
+  kMatmulsOnly, kCheapGate, kNoGate, kUnroll2, kUnroll4, kSplit2, kGateBf16,
+  kLocalExchange, kNumAblations
+};
+
+template <int A>
+struct Flags {
+  static constexpr bool no_cond = A == kNoCond || A == kMatmulsOnly;
+  static constexpr bool no_prev = A == kNoPrev;
+  static constexpr bool no_buf = A == kNoBuf || A == kMatmulsOnly;
+  static constexpr bool no_resskip = A == kNoResSkip;
+  static constexpr bool no_head = A == kNoHead;
+  static constexpr bool no_sample = A == kNoSample || A == kMatmulsOnly;
+  static constexpr bool local = A == kLocalExchange;
+  static constexpr int unroll = A == kUnroll2 ? 2 : A == kUnroll4 ? 4 : 1;
+};
+
+// The timer's stage kinds. Unfused: kWeights .. kDraw; fused: kBlockProducts
+// .. kOwnerPhase, then the head's and the draw's kinds as unfused (the
+// head's weight wait counts in its products). Slot kTimerSlots - 1 holds
+// the time loop's cycles.
+enum StageKind : int {
+  kWeights, kTapProducts, kRs1Wait, kSumGate, kRsProducts, kRs2Wait,
+  kOwnerUpdate, kHeadProducts, kHeadWaits, kHeadSums, kDraw,
+  kBlockProducts = 0, kBlockWait, kBlockGate, kFmProducts, kFmWait,
+  kOwnerPhase, kTimerSlots = 12
+};
 
 struct Params {
   const float* c_up;     // (B, T, C)
@@ -172,6 +253,10 @@ struct Params {
   // and the bytes each owner receives in each exchange of a step
   int soff[kMaxStages], slen[kMaxStages];
   unsigned xbytes[kMaxExchanges];
+  // the probe's: no_cond's chunk, and the timer's (B, N, kTimerSlots)
+  // cycles
+  int chunk;
+  long long* timer;
 };
 
 // The widths of one rank's slices.
@@ -235,20 +320,22 @@ __host__ __device__ inline Stages fused_stages(int L, int R, int G, int S,
 // One block's dynamic shared memory: its ring slice (rows x R/N elements
 // of `elem` bytes), its weights (resident: every stage; streamed: two
 // stage buffers), then fp32 scratch at the float offsets below. W is the
-// fused window (0: unfused). The only statement of the layout, used by
-// the kernel to carve it and by the host to size it.
+// fused window (0: unfused); `extra`, the probe's own floats (no_cond's
+// conditioning partials). The only statement of the layout, used by the
+// kernel to carve it and by the host to size it.
 struct SmemLayout {
   size_t ring_bytes, weight_bytes;
   size_t recv_each;     // floats per parity of the receive buffer
   size_t bar, recv, h, c, z, skip, a1, o, fb, cb, rsb, h1b, h2b, inw, inb,
-      u;
+      u, ccs;
   size_t floats, bytes;
 };
 
 __host__ __device__ inline SmemLayout smem_layout(int rows, int L, int R,
                                                   int G, int S, int C,
                                                   int O, int N, int elem,
-                                                  bool resident, int W) {
+                                                  bool resident, int W,
+                                                  int extra = 0) {
   const Split s = split_of(R, G, S, C, N);
   SmemLayout m;
   m.ring_bytes = ((size_t)rows * s.Rn * elem + 15) / 16 * 16;
@@ -285,6 +372,7 @@ __host__ __device__ inline SmemLayout smem_layout(int rows, int L, int R,
   m.inw = n;   n += s.Rn;            // Laplace input projection slice
   m.inb = n;   n += s.Rn;
   m.u = n;     n += (size_t)W * 2 * s.Hn;  // fused: the block's gate inputs
+  m.ccs = n;   n += extra;           // the probe's no_cond: (L, G) partials
   m.floats = n;
   m.bytes = m.ring_bytes + m.weight_bytes + n * sizeof(float);
   return m;
@@ -508,11 +596,47 @@ __device__ __forceinline__ float gate(float ua, float ub) {
   return rnd<W>(tanhf(ua) * (1.f / (1.f + expf(-ub))));
 }
 
+// z from the gate inputs under ablation A (the probe's; kAblFull: gate)
+template <typename W, int A>
+__device__ __forceinline__ float gate_of(float ua, float ub) {
+  if constexpr (A == kNoGate) {
+    return rnd<W>(ua);
+  } else if constexpr (A == kCheapGate) {
+    return rnd<W>(ua * ub);
+  } else if constexpr (A == kGateBf16) {
+    const float th = rnd<W>(tanhf(rnd<W>(ua)));
+    const float sg = rnd<W>(1.f / rnd<W>(1.f + rnd<W>(expf(-rnd<W>(ub)))));
+    return rnd<W>(th * sg);
+  } else {
+    return rnd<W>(tanhf(ua) * (1.f / (1.f + expf(-ub))));
+  }
+}
+
+// local_exchange's rank sum: x[0] + x[ld] + ... + x[(n - 1) ld] in rank
+// order with every row but `own` selected to 0, so the owner's own partial
+// only, at rank_sum's loads and adds.
+__device__ __forceinline__ float own_sum(const float* x, int n, int ld,
+                                         int own) {
+  float acc = own == 0 ? x[0] : 0.f;
+  for (int k0 = 1; k0 < n; k0 += kChunk) {
+    float v[kChunk];
+    #pragma unroll
+    for (int q = 0; q < kChunk; ++q)
+      v[q] = k0 + q < n ? x[(k0 + q) * ld] : 0.f;
+    #pragma unroll
+    for (int q = 0; q < kChunk; ++q) acc += k0 + q == own ? v[q] : 0.f;
+  }
+  return acc;
+}
+
 // One block per SM (rows and ranks on their own SMs), as ar_generate.cu.
-// kFused: the fused window (p.fused = W), see the header.
-template <typename W, bool kResident, bool kFused>
+// kFused: the fused window (p.fused = W); A, kTimed: the probe's ablation
+// and timer; see the header.
+template <typename W, bool kResident, bool kFused, int A = kAblFull,
+          bool kTimed = false>
 __global__ void __launch_bounds__(kThreads, 1)
 ar_cluster_kernel(const Params p) {
+  using F = Flags<A>;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int N = p.N;
@@ -527,7 +651,7 @@ ar_cluster_kernel(const Params p) {
   const int Wf = kFused ? p.fused : 0;
 
   const SmemLayout m = smem_layout(p.rows, L, R, G, S, C, O, N, sizeof(W),
-                                   kResident, Wf);
+                                   kResident, Wf, F::no_cond ? L * G : 0);
   W* ring = reinterpret_cast<W*>(smem);
   W* wsm = reinterpret_cast<W*>(smem + m.ring_bytes);
   float* f = reinterpret_cast<float*>(smem + m.ring_bytes + m.weight_bytes);
@@ -547,6 +671,26 @@ ar_cluster_kernel(const Params p) {
   float* inw = f + m.inw;
   float* inb = f + m.inb;
   float* u = f + m.u;
+  float* ccs = f + m.ccs;
+  // the timer: thread 0's cycles per stage kind since its last read, and
+  // its first read of the time loop, in 32 bits (the counts of one call
+  // stay below 2^32 cycles, about 2 s)
+  unsigned tk[kTimerSlots] = {}, last = 0, first = 0;
+  auto mark = [&](int kind) {
+    if constexpr (kTimed) {
+      if (tid == 0) {
+        const unsigned now = (unsigned)clock64();
+        tk[kind] += now - last;
+        last = now;
+      }
+    }
+  };
+  auto restart = [&](int t) {
+    if constexpr (kTimed) {
+      last = (unsigned)clock64();
+      if (t == 0) first = last;
+    }
+  };
 
   const W* stages = static_cast<const W*>(p.stages) + (size_t)rank * p.total;
   const W* in_w = static_cast<const W*>(p.in_w);
@@ -615,8 +759,13 @@ ar_cluster_kernel(const Params p) {
   // receiver re-arms a buffer for its next exchange right after its wait,
   // before this block sends anything more, so no byte of the next exchange
   // (whose senders need this block's next send first) can come before.
-  const unsigned rs1_bytes = N * 2 * Hn * 8, rs2_bytes = N * (Sn + Rn) * 4,
-                 head_bytes = N * Sn * 4, gather_bytes = N * O * 4;
+  // (the probe's no_resskip and no_head keep these exchanges, one float
+  // from each rank in place of the products they strip: every exchange
+  // stays ordered by the next one, as above)
+  const unsigned rs1_bytes = N * 2 * Hn * 8,
+                 rs2_bytes = F::no_resskip ? N * 4 : N * (Sn + Rn) * 4,
+                 head_bytes = F::no_head ? N * 4 : N * Sn * 4,
+                 gather_bytes = F::no_head ? N * 4 : N * O * 4;
   if (tid == 0) {
     mbar_init(bar0, 1);
     mbar_init(bar0 + 8, 1);
@@ -646,17 +795,23 @@ ar_cluster_kernel(const Params p) {
       tap_to[ps] = owner << 16 | col;
       continue;
     }
-    tap_dst[ps] = mapa(smem_u32(recv + 2 * (rank * 2 * Hn + col)), owner);
-    tap_bar[ps] = mapa(bar0, owner);
+    // (local_exchange: into this rank's own buffer, in the owner's row)
+    tap_dst[ps] = mapa(smem_u32(recv + 2 * ((F::local ? owner : rank) * 2
+                                            * Hn + col)),
+                       F::local ? rank : owner);
+    tap_bar[ps] = mapa(bar0, F::local ? rank : owner);
     const int n = i;                // a skip|res output
     const int ro = min(n < S ? n / Sn : (n - S) / Rn, N - 1);
     const int loc = n < S ? n % Sn : Sn + (n - S) % Rn;
-    rs_dst[ps] = mapa(smem_u32(recv + m.recv_each + rank * (Sn + Rn) + loc),
-                      ro);
-    rs_bar[ps] = mapa(bar0 + 8, ro);
+    rs_dst[ps] = mapa(smem_u32(recv + m.recv_each
+                               + (F::local ? ro : rank) * (Sn + Rn) + loc),
+                      F::local ? rank : ro);
+    rs_bar[ps] = mapa(bar0 + 8, F::local ? rank : ro);
     const int ho = min(n / Sn, N - 1);   // a head output
-    head_dst[ps] = mapa(smem_u32(recv + rank * Sn + n % Sn), ho);
-    head_bar[ps] = mapa(bar0, ho);
+    head_dst[ps] = mapa(smem_u32(recv + (F::local ? ho : rank) * Sn
+                                 + n % Sn),
+                        F::local ? rank : ho);
+    head_bar[ps] = mapa(bar0, F::local ? rank : ho);
   }
   if constexpr (kFused) {
     #pragma unroll
@@ -717,6 +872,12 @@ ar_cluster_kernel(const Params p) {
     }
   };
 
+  // local_exchange's rank sums keep the owner's own row only
+  auto rsum = [&](const float* x, int ld) {
+    if constexpr (F::local) return own_sum(x, N, ld, rank);
+    else return rank_sum(x, N, ld);
+  };
+  #pragma unroll (Flags<A>::unroll)
   for (int t = 0; t < p.T; ++t) {
     const size_t bt = (size_t)row * p.T + t;
     const float c_t = c_in, u_t = u_in;
@@ -736,6 +897,7 @@ ar_cluster_kernel(const Params p) {
     if (tid < Cn) c[tid] = rnd<W>(c_t);
     for (int s = tid; s < Sn; s += kThreads) skip[s] = 0.f;
     __syncthreads();
+    restart(t);
     // -- residual layers
     if constexpr (kFused) {
       int s = 0;   // the step's stages so far
@@ -782,8 +944,10 @@ ar_cluster_kernel(const Params p) {
               st_async(mapa(rbuf + 4 * (t1 + at), owner), acc, ob);
             }
           }
+          mark(kBlockProducts);
         }
         exchanged();
+        mark(kBlockWait);
         // owner: every layer's gate input, ((tap 0 + b) + cond) + tap 1,
         // each summed over ranks in rank order, one lane per gate half
         // (whole warps run each pass: the pair swaps halves); the first
@@ -830,6 +994,7 @@ ar_cluster_kernel(const Params p) {
             }
           }
           __syncthreads();
+          mark(kBlockGate);
         }
         for (int k = 0; k < nb; ++k) {
           const int l = b0 + k, rem = nb - 1 - k;
@@ -853,7 +1018,9 @@ ar_cluster_kernel(const Params p) {
             st_async(mapa(lbuf + 4 * (fm_to[ps] & 0xffff), owner), acc,
                      mapa(lbar, owner));
           }
+          mark(kFmProducts);
           exchanged();
+          mark(kFmWait);
           // owner: skip sums, the ring keeps the layer's INPUT h; the P
           // sums into the later layers' gate inputs, in layer order; the
           // next layer gated
@@ -898,11 +1065,13 @@ ar_cluster_kernel(const Params p) {
             }
           }
           __syncthreads();
+          mark(kOwnerPhase);
         }
       }
     } else {
     for (int l = 0; l < L; ++l) {
       const W* w = stage_weights(l);
+      mark(kWeights);
       W* slot = ring + ((size_t)p.off[l] + (t & (p.dil[l] - 1))) * Rn;
       // tap partials: lane pair (g, tap) runs tap's chain over this rank's
       // rows (tap 0 on x[t - d], tap 1 on h), the even lane also the
@@ -917,24 +1086,41 @@ ar_cluster_kernel(const Params p) {
         const int g = i >> 1, tap = i & 1;
         const W* wt = w + (size_t)g * 2 + tap;
         float acc = 0.f, cond = 0.f;
-        #pragma unroll 8
-        for (int r = 0; r < Rn; ++r) {
-          const float x = tap ? h[r] : to_f(slot[r]);
-          acc = fmaf(x, to_f(wt[(size_t)r * 2 * G]), acc);
+        if (!F::no_prev || tap) {
+          #pragma unroll 8
+          for (int r = 0; r < Rn; ++r) {
+            const float x = tap || F::no_buf ? h[r] : to_f(slot[r]);
+            acc = fmaf(x, to_f(wt[(size_t)r * 2 * G]), acc);
+          }
         }
         if (!tap) {
           const W* v = w + (size_t)2 * Rn * G + g;
-          #pragma unroll 8
-          for (int k = 0; k < Cn; ++k)
-            cond = fmaf(c[k], to_f(v[(size_t)k * G]), cond);
+          if constexpr (F::no_cond) {
+            // the chunk's first step's partials, kept
+            if (t % p.chunk == 0) {
+              #pragma unroll 8
+              for (int k = 0; k < Cn; ++k)
+                cond = fmaf(c[k], to_f(v[(size_t)k * G]), cond);
+              ccs[l * G + g] = cond;
+            } else {
+              cond = ccs[l * G + g];
+            }
+          } else {
+            #pragma unroll 8
+            for (int k = 0; k < Cn; ++k)
+              cond = fmaf(c[k], to_f(v[(size_t)k * G]), cond);
+          }
         }
         const float other = __shfl_xor_sync(kFull, acc, 1);
         if (!tap) st_async(tap_dst[ps], acc + other, cond, tap_bar[ps]);
       }
+      mark(kTapProducts);
       received(0, l + 1 < L ? rs1_bytes : head_bytes);
+      mark(kRs1Wait);
       // owner: sum the N partials in rank order, bias, gate
       for (int j = tid; j < Hn; j += kThreads) {
         float2 a = rb[j], b = rb[Hn + j];
+        if (F::local && rank != 0) a = b = make_float2(0.f, 0.f);
         for (int k0 = 1; k0 < N; k0 += kChunk) {
           float2 av[kChunk], bv[kChunk];
           #pragma unroll
@@ -942,6 +1128,7 @@ ar_cluster_kernel(const Params p) {
             const int k = k0 + q;
             av[q] = k < N ? rb[k * 2 * Hn + j] : make_float2(0.f, 0.f);
             bv[q] = k < N ? rb[k * 2 * Hn + Hn + j] : make_float2(0.f, 0.f);
+            if (F::local && k != rank) av[q] = bv[q] = make_float2(0.f, 0.f);
           }
           #pragma unroll
           for (int q = 0; q < kChunk; ++q) {
@@ -951,9 +1138,29 @@ ar_cluster_kernel(const Params p) {
         const float* bias = cb + (size_t)l * 2 * Hn;
         const float ua = (a.x + bias[j]) + a.y;
         const float ub = (b.x + bias[Hn + j]) + b.y;
-        z[j] = rnd<W>(tanhf(ua) * (1.f / (1.f + expf(-ub))));
+        z[j] = gate_of<W, A>(ua, ub);
       }
       __syncthreads();
+      mark(kSumGate);
+      if constexpr (F::no_resskip) {
+        // no product: one float to every rank keeps reduce-scatter 2's
+        // place; then h += z and skip += z on this rank's own slice (R/N =
+        // S/N = G/2N), the ring keeping the layer's INPUT h
+        if (tid < N)
+          st_async(mapa(smem_u32(recv + m.recv_each + rank), tid), 0.f,
+                   mapa(bar0 + 8, tid));
+        mark(kRsProducts);
+        received(1, l + 1 < L ? rs2_bytes : gather_bytes);
+        mark(kRs2Wait);
+        for (int n = tid; n < Hn; n += kThreads) {
+          skip[n] += z[n];
+          slot[n] = from_f<W>(h[n]);
+          h[n] = rnd<W>(h[n] + z[n]);
+        }
+        __syncthreads();
+        mark(kOwnerUpdate);
+        continue;
+      }
       // skip|res partials over this rank's rows of z, into their owners
       float* rq = recv + m.recv_each;
       const W* wsr = w + (size_t)(2 * Rn + Cn) * G;
@@ -967,25 +1174,43 @@ ar_cluster_kernel(const Params p) {
           acc = fmaf(z[j], to_f(wsr[(size_t)j * (S + R) + n]), acc);
         st_async(rs_dst[ps], acc, rs_bar[ps]);
       }
+      mark(kRsProducts);
       received(1, l + 1 < L ? rs2_bytes : gather_bytes);
+      mark(kRs2Wait);
       // owner: skip sums; the ring keeps the layer's INPUT h
       for (int n = tid; n < Sn + Rn; n += kThreads) {
-        const float q = rank_sum(rq + n, N, Sn + Rn);
+        const float q = rsum(rq + n, Sn + Rn);
         const float b = rsb[(size_t)l * (Sn + Rn) + n];
         if (n < Sn) {
           skip[n] += q + b;
         } else {
           const int r = n - Sn;
-          slot[r] = from_f<W>(h[r]);
+          if (!F::no_buf) slot[r] = from_f<W>(h[r]);
           h[r] = rnd<W>(h[r] + (q + b));
         }
       }
       __syncthreads();
+      mark(kOwnerUpdate);
     }
     }
     // -- head: relu -> dense -> relu -> dense, split on skip, then a1
-    {
+    if constexpr (F::no_head) {
+      // the probe's no_head: the head's two exchanges carry one float
+      // from each rank to every rank, rank 0's the value skip[0] + skip[1]
+      stage_weights(n_stages - 1);
+      if (tid < N)
+        st_async(mapa(smem_u32(recv + rank), tid),
+                 rank == 0 ? skip[0] + skip[1] : 0.f, mapa(bar0, tid));
+      received(0, rs1_bytes);
+      if (tid == 0) o[0] = o[1] = recv[0];
+      __syncthreads();
+      if (tid < N)
+        st_async(mapa(smem_u32(recv + m.recv_each + rank), tid), 0.f,
+                 mapa(bar0 + 8, tid));
+      received(1, rs2_bytes);
+    } else {
       const W* w = stage_weights(n_stages - 1);
+      if constexpr (!kFused) mark(kWeights);
       const int hb = kFused ? ex & 1 : 0;   // the reduce-scatter's buffer
       float* rq = recv + hb * m.recv_each;
       #pragma unroll
@@ -1001,28 +1226,41 @@ ar_cluster_kernel(const Params p) {
           st_async(head_dst[ps], v, head_bar[ps]);
         }
       }
+      mark(kHeadProducts);
       if constexpr (kFused) exchanged(); else received(0, rs1_bytes);
+      mark(kHeadWaits);
       for (int n = tid; n < Sn; n += kThreads) {
-        const float acc = rank_sum(rq + n, N, Sn) + h1b[n];
+        const float acc = rsum(rq + n, Sn) + h1b[n];
         a1[n] = rnd<W>(acc > 0.f ? acc : 0.f);
       }
       __syncthreads();
-      // a1 @ H2 partials, gathered by every rank
+      mark(kHeadSums);
+      // a1 @ H2 partials, gathered by every rank (local_exchange: into
+      // this rank's own buffer, in each receiver's row)
       float* ro = recv + (hb ^ 1) * m.recv_each;
       const W* w2 = w + (size_t)Sn * S;
       for (int n = tid; n < O; n += kThreads) {
         const float acc = dot_chain(a1, w2 + n, Sn, O);
         const unsigned at = smem_u32(ro + rank * O + n);
-        for (int d = 0; d < N; ++d)
-          st_async(mapa(at, d), acc, mapa(bar0 + 8 * (hb ^ 1), d));
+        for (int d = 0; d < N; ++d) {
+          if constexpr (F::local)
+            st_async(mapa(smem_u32(ro + d * O + n), rank), acc,
+                     mapa(bar0 + 8 * (hb ^ 1), rank));
+          else
+            st_async(mapa(at, d), acc, mapa(bar0 + 8 * (hb ^ 1), d));
+        }
       }
+      mark(kHeadProducts);
       if constexpr (kFused) exchanged(); else received(1, rs2_bytes);
+      mark(kHeadWaits);
       for (int n = tid; n < O; n += kThreads) {
-        o[n] = rank_sum(ro + n, N, O) + h2b[n];
+        o[n] = rsum(ro + n, O) + h2b[n];
       }
       __syncthreads();
+      mark(kHeadSums);
     }
-    // -- one draw per row, by warp 0 of every rank (the same draw)
+    // -- one draw per row, by warp 0 of every rank (the same draw; under
+    // local_exchange each rank's own)
     if (tid < 32) {
       const float u = u_t;
       float x = 0.f;
@@ -1030,9 +1268,10 @@ ar_cluster_kernel(const Params p) {
         x = (float)sample_class(o, p.Q, u, p.greedy != 0, tid);
       } else if (tid == 0) {
         const float mu = o[0];
-        const float lb = fminf(fmaxf(o[1], p.log_b_min), p.log_b_max);
+        const float lb = F::no_head
+            ? o[1] : fminf(fmaxf(o[1], p.log_b_min), p.log_b_max);
         x = mu;
-        if (!p.greedy) {
+        if (!F::no_sample && !p.greedy) {
           const float uu = u - 0.5f;
           const float sg = (float)((uu > 0.f) - (uu < 0.f));
           x = __fsub_rn(mu, __fmul_rn(__fmul_rn(expf(lb), sg),
@@ -1046,15 +1285,28 @@ ar_cluster_kernel(const Params p) {
       }
     }
     __syncthreads();
+    mark(kDraw);
   }
   if constexpr (!kResident) cp_async_wait0();
+  if constexpr (kTimed) {
+    // the stage counts and the loop's cycles, from step 0's first read to
+    // the last draw
+    if (tid == 0) {
+      long long* out = p.timer + ((size_t)row * N + rank) * kTimerSlots;
+      #pragma unroll
+      for (int k = 0; k < kTimerSlots - 1; ++k) out[k] = tk[k];
+      out[kTimerSlots - 1] = (unsigned)(last - first);
+    }
+  }
   // no block leaves while another may still store into its shared memory
   cluster.sync();
 }
 
-template <typename W, bool kResident, bool kFused>
+// One kernel instance: storage type, weight placement, form, and the
+// probe's ablation and timer (production: kAblFull, untimed).
+template <typename W, bool kResident, bool kFused, int A, bool kTimed>
 cudaError_t prepare(size_t smem_bytes) {
-  const auto kernel = ar_cluster_kernel<W, kResident, kFused>;
+  const auto kernel = ar_cluster_kernel<W, kResident, kFused, A, kTimed>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (e != cudaSuccess) return e;
@@ -1079,55 +1331,66 @@ cudaLaunchConfig_t launch_config(int blocks, int N, size_t smem_bytes,
   return cfg;
 }
 
-template <typename W, bool kResident, bool kFused>
-cudaError_t max_active(int N, size_t smem_bytes, int* clusters) {
-  cudaError_t e = prepare<W, kResident, kFused>(smem_bytes);
+// With p null, cudaOccupancyMaxActiveClusters for clusters of N blocks
+// into *clusters; else the launch of p on `stream`.
+template <typename W, bool kResident, bool kFused, int A, bool kTimed>
+cudaError_t run(const Params* p, int N, size_t smem_bytes,
+                cudaStream_t stream, int* clusters) {
+  const auto kernel = ar_cluster_kernel<W, kResident, kFused, A, kTimed>;
+  cudaError_t e = prepare<W, kResident, kFused, A, kTimed>(smem_bytes);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = launch_config(N, N, smem_bytes, 0, attr);
-  return cudaOccupancyMaxActiveClusters(
-      clusters, (const void*)ar_cluster_kernel<W, kResident, kFused>, &cfg);
-}
-
-template <bool kFused>
-cudaError_t max_active_of(int bf16, int resident, int N, size_t smem_bytes,
-                          int* clusters) {
-  if (bf16)
-    return resident
-        ? max_active<__nv_bfloat16, true, kFused>(N, smem_bytes, clusters)
-        : max_active<__nv_bfloat16, false, kFused>(N, smem_bytes, clusters);
-  return resident ? max_active<float, true, kFused>(N, smem_bytes, clusters)
-                  : max_active<float, false, kFused>(N, smem_bytes, clusters);
-}
-
-cudaError_t max_active_any(int bf16, int resident, int fused, int N,
-                           size_t smem_bytes, int* clusters) {
-  return fused ? max_active_of<true>(bf16, resident, N, smem_bytes, clusters)
-               : max_active_of<false>(bf16, resident, N, smem_bytes,
-                                      clusters);
-}
-
-template <typename W, bool kResident, bool kFused>
-cudaError_t start(const Params& p, size_t smem_bytes, cudaStream_t stream) {
-  cudaError_t e = prepare<W, kResident, kFused>(smem_bytes);
-  if (e != cudaSuccess) return e;
-  if (p.B == 0 || p.T == 0) return cudaSuccess;
-  cudaLaunchAttribute attr[1];
+  if (p == nullptr) {
+    const cudaLaunchConfig_t cfg = launch_config(N, N, smem_bytes, 0, attr);
+    return cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel,
+                                          &cfg);
+  }
+  if (p->B == 0 || p->T == 0) return cudaSuccess;
   const cudaLaunchConfig_t cfg =
-      launch_config(p.B * p.N, p.N, smem_bytes, stream, attr);
-  e = cudaLaunchKernelEx(&cfg, ar_cluster_kernel<W, kResident, kFused>, p);
+      launch_config(p->B * p->N, p->N, smem_bytes, stream, attr);
+  e = cudaLaunchKernelEx(&cfg, kernel, *p);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-template <bool kFused>
-cudaError_t start_of(int bf16, int resident, const Params& p,
-                     size_t smem_bytes, cudaStream_t s) {
+template <int A, bool kTimed, bool kFused>
+cudaError_t run_of(int bf16, int resident, const Params* p, int N,
+                   size_t smem_bytes, cudaStream_t s, int* clusters) {
   if (bf16)
-    return resident ? start<__nv_bfloat16, true, kFused>(p, smem_bytes, s)
-                    : start<__nv_bfloat16, false, kFused>(p, smem_bytes, s);
-  return resident ? start<float, true, kFused>(p, smem_bytes, s)
-                  : start<float, false, kFused>(p, smem_bytes, s);
+    return resident
+        ? run<__nv_bfloat16, true, kFused, A, kTimed>(p, N, smem_bytes, s,
+                                                      clusters)
+        : run<__nv_bfloat16, false, kFused, A, kTimed>(p, N, smem_bytes, s,
+                                                       clusters);
+  return resident
+      ? run<float, true, kFused, A, kTimed>(p, N, smem_bytes, s, clusters)
+      : run<float, false, kFused, A, kTimed>(p, N, smem_bytes, s, clusters);
+}
+
+// The instance of (bf16, resident, fused) under ablation A and timer
+// kTimed. The ablations are unfused only, the timer is on kAblFull only,
+// and split2 has no instance (the probe's entry refuses them first).
+template <int A, bool kTimed>
+cudaError_t run_any(int bf16, int resident, int fused, const Params* p,
+                    int N, size_t smem_bytes, cudaStream_t s,
+                    int* clusters) {
+  if constexpr (A == kSplit2 || (kTimed && A != kAblFull)) {
+    return cudaErrorInvalidValue;
+  } else if constexpr (A != kAblFull) {
+    return run_of<A, false, false>(bf16, resident, p, N, smem_bytes, s,
+                                   clusters);
+  } else {
+    return fused ? run_of<A, kTimed, true>(bf16, resident, p, N,
+                                           smem_bytes, s, clusters)
+                 : run_of<A, kTimed, false>(bf16, resident, p, N,
+                                            smem_bytes, s, clusters);
+  }
+}
+
+cudaError_t max_active_any(int bf16, int resident, int fused, int N,
+                           size_t smem_bytes, int* clusters) {
+  return run_any<kAblFull, false>(bf16, resident, fused, nullptr, N,
+                                  smem_bytes, 0, clusters);
 }
 
 // The shape refusals shared by every entry point; W, the fused window (0:
@@ -1204,20 +1467,15 @@ extern "C" int ar_cluster_max_active(const int* dilations, int L, int R,
                              clusters);
 }
 
-// Launch on `stream` on the current device: clusters of N blocks, one
-// cluster per batch row. `stages` holds every rank's packed weight slices,
-// (N, L + 1, stride) unfused (`stage_stride`), (N, total) with the fused
-// window fused = W > 0 (`ar_cluster_fused_stages`), of the storage type
-// (fp32, or bf16 when bf16 != 0), as are the biases and in_w/in_b (conv_b
-// the fused window's folded bias when fused > 0); resident != 0 keeps the
-// weights in shared memory for the whole call.
-// Returns 0, one of the kErr* refusals (checked before anything runs: too
-// many layers, a class count the sampler cannot split over a warp, a
-// width N does not divide or an N the kernel does not take, a fused window
-// it cannot hold, a block's shared memory, or no cluster of N such blocks
-// fitting the card), or the cudaError_t of the attribute calls or the
-// launch.
-extern "C" int ar_cluster_generate(
+namespace {
+
+// One call (see ar_cluster_generate): fills the Params, checks one block's
+// shared memory (with `extra`, the probe's own floats) and that a cluster
+// of N fits, then launches. dispatch(W, p, smem_bytes, stream, clusters)
+// picks the instance: with p null, its occupancy into *clusters; else
+// the launch of p.
+template <typename Dispatch>
+int launch(Dispatch dispatch, int extra, int chunk, long long* timer,
     const float* c_up, const float* noise, const float* teacher, float* out,
     const void* in_w, const void* in_b, const void* conv_b,
     const void* res_b, const void* skip_b, const void* h1_b,
@@ -1261,10 +1519,12 @@ extern "C" int ar_cluster_generate(
     p.n_exch = 2 * L + 2;
   }
   p.log_b_min = log_b_min; p.log_b_max = log_b_max;
+  p.chunk = chunk; p.timer = timer;
   for (int l = 0; l < L; ++l) p.dil[l] = dilations[l];
   pack_rings(dilations, L, p.off, &p.rows);
   const size_t smem_bytes = smem_layout(p.rows, L, R, G, S, C, O, N,
-                                        bf16 ? 2 : 4, resident != 0, W)
+                                        bf16 ? 2 : 4, resident != 0, W,
+                                        extra)
                                 .bytes;
   int device = 0, smem_max = 0;
   e = (int)cudaGetDevice(&device);
@@ -1274,13 +1534,106 @@ extern "C" int ar_cluster_generate(
   if (e != 0) return e;
   if (smem_bytes > (size_t)smem_max) return kErrSharedMemory;
   int clusters = 0;
-  e = (int)max_active_any(bf16, resident, W, N, smem_bytes, &clusters);
+  e = (int)dispatch(W, nullptr, smem_bytes, 0, &clusters);
   if (e != 0) return e;
   if (clusters < 1) return kErrOccupancy;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(W ? start_of<true>(bf16, resident, p, smem_bytes, s)
-                 : start_of<false>(bf16, resident, p, smem_bytes, s));
+  return (int)dispatch(W, &p, smem_bytes, (cudaStream_t)stream, nullptr);
 }
+
+}  // namespace
+
+// Launch on `stream` on the current device: clusters of N blocks, one
+// cluster per batch row. `stages` holds every rank's packed weight slices,
+// (N, L + 1, stride) unfused (`stage_stride`), (N, total) with the fused
+// window fused = W > 0 (`ar_cluster_fused_stages`), of the storage type
+// (fp32, or bf16 when bf16 != 0), as are the biases and in_w/in_b (conv_b
+// the fused window's folded bias when fused > 0); resident != 0 keeps the
+// weights in shared memory for the whole call.
+// Returns 0, one of the kErr* refusals (checked before anything runs: too
+// many layers, a class count the sampler cannot split over a warp, a
+// width N does not divide or an N the kernel does not take, a fused window
+// it cannot hold, a block's shared memory, or no cluster of N such blocks
+// fitting the card), or the cudaError_t of the attribute calls or the
+// launch.
+extern "C" int ar_cluster_generate(
+    const float* c_up, const float* noise, const float* teacher, float* out,
+    const void* in_w, const void* in_b, const void* conv_b,
+    const void* res_b, const void* skip_b, const void* h1_b,
+    const void* h2_b, const void* stages, const int* dilations, int B,
+    int T, int L, int R, int G, int S, int C, int Q, int O, int N,
+    int softmax, int greedy, int n_forced, int bf16, int resident,
+    int fused, float log_b_min, float log_b_max, void* stream) {
+  return launch(
+      [&](int W, const Params* p, size_t smem_bytes, cudaStream_t s,
+          int* clusters) {
+        return run_any<kAblFull, false>(bf16, resident, W, p, N, smem_bytes,
+                                        s, clusters);
+      },
+      0, 0, nullptr, c_up, noise, teacher, out, in_w, in_b, conv_b, res_b,
+                skip_b, h1_b, h2_b, stages, dilations, B, T, L, R, G, S,
+                C, Q, O, N, softmax, greedy, n_forced, bf16, resident,
+                fused, log_b_min, log_b_max, stream);
+}
+
+#ifdef AR_CLUSTER_PROBE
+namespace {
+
+template <int... A>
+cudaError_t run_ablation(int ablate, int bf16, int resident, const Params* p,
+                         int N, size_t smem_bytes, cudaStream_t s,
+                         int* clusters, std::integer_sequence<int, A...>) {
+  cudaError_t e = cudaErrorInvalidValue;
+  ((ablate == A ? (e = run_any<A, false>(bf16, resident, 0, p, N, smem_bytes,
+                                         s, clusters),
+                   0)
+                : 0),
+   ...);
+  return e;
+}
+
+}  // namespace
+
+// The probe (ablate: the index of the ablation, kAblFull .. kLocalExchange;
+// chunk: where no_cond refreshes its conditioning partials; timer: null,
+// or (B, N, kTimerSlots) int64 for the timed instance), on the arguments
+// of ar_cluster_generate. Refuses, before anything runs, what that entry
+// refuses and: an unknown ablation; split2; an ablation with the fused
+// window, the timer, the softmax head or a teacher; no_resskip unless
+// R = S = G/2; no_head with S/N < 2; an untimed call whose chunk is not a
+// multiple of 4 dividing T.
+extern "C" int ar_cluster_probe(
+    const float* c_up, const float* noise, const float* teacher, float* out,
+    const void* in_w, const void* in_b, const void* conv_b,
+    const void* res_b, const void* skip_b, const void* h1_b,
+    const void* h2_b, const void* stages, const int* dilations, int B,
+    int T, int L, int R, int G, int S, int C, int Q, int O, int N,
+    int softmax, int greedy, int n_forced, int bf16, int resident,
+    int fused, float log_b_min, float log_b_max, int ablate, int chunk, long long* timer, void* stream) {
+  if (ablate < 0 || ablate >= kNumAblations) return kErrAblation;
+  if (ablate == kSplit2) return kErrSplit2;
+  if (ablate != kAblFull && (fused || timer || softmax || n_forced))
+    return kErrProbeForm;
+  if (ablate == kNoResSkip && (R != G / 2 || S != G / 2)) return kErrResSkip;
+  if (ablate == kNoHead && (N < 1 || S / N < 2)) return kErrHead;
+  if (!timer && (chunk < 4 || chunk % 4 != 0 || T % chunk != 0))
+    return kErrChunk;
+  const int extra = ablate == kNoCond || ablate == kMatmulsOnly ? L * G : 0;
+  return launch(
+      [&](int W, const Params* p, size_t smem_bytes, cudaStream_t s,
+          int* clusters) {
+        if (timer)
+          return run_any<kAblFull, true>(bf16, resident, W, p, N, smem_bytes,
+                                         s, clusters);
+        return run_ablation(ablate, bf16, resident, p, N, smem_bytes, s,
+                            clusters,
+                            std::make_integer_sequence<int, kNumAblations>());
+      },
+      extra, chunk, timer, c_up, noise, teacher, out, in_w, in_b, conv_b, res_b,
+                skip_b, h1_b, h2_b, stages, dilations, B, T, L, R, G, S,
+                C, Q, O, N, softmax, greedy, n_forced, bf16, resident,
+                fused, log_b_min, log_b_max, stream);
+}
+#endif  // AR_CLUSTER_PROBE
 
 extern "C" const char* ar_cluster_error_string(int e) {
   switch (e) {
@@ -1306,6 +1659,23 @@ extern "C" const char* ar_cluster_error_string(int e) {
     case kErrFused:
       return "fused window: W must be <= 16 and skip_channels + "
              "residual_channels + (W - 1) x gate_channels <= 2048";
+    case kErrAblation:
+      return "unknown ablation";
+    case kErrSplit2:
+      return "split2 is refused on the cluster kernel: two rows per "
+             "cluster change the production layout (ROADMAP Queue B, "
+             "several rows per cluster)";
+    case kErrResSkip:
+      return "no_resskip on the cluster kernel adds each rank's own z slice "
+             "to its h and skip slices: it needs R = S = G/2";
+    case kErrHead:
+      return "no_head sums skip[0] + skip[1] on rank 0: it needs "
+             "skip_channels / N >= 2";
+    case kErrChunk:
+      return "chunk must be a positive multiple of 4 that divides T";
+    case kErrProbeForm:
+      return "the ablations run on the unfused form of the Laplace head, "
+             "untimed and without a teacher; the timer on full only";
   }
   return cudaGetErrorString((cudaError_t)e);
 }

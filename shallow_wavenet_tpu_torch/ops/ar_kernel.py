@@ -550,6 +550,45 @@ def _chain_sum(p, dim):
     return acc
 
 
+def _dots(chain: bool, *pairs):
+    """[x @ m for (x, m) in pairs], all of one k length; in `chain` mode
+    each output is one fp32 chain in k order, as the kernel's dot_col."""
+    if not chain:
+        return [x @ m for x, m in pairs]
+    p = torch.cat([x[:, :, None] * m[None] for x, m in pairs], dim=-1)
+    return _chain_sum(p, 1).split([m.shape[1] for _, m in pairs], dim=-1)
+
+
+def split_sum(pairs, split: int = 0, chain: bool = False, owners=None):
+    """The sum of the pairs' products, x0 @ m0 + x1 @ m1 + ..., all of one
+    k length. With `split` = N and `chain`, in the cluster kernel's order:
+    per rank, each pair's chain over the rank's contiguous slice of k
+    (`cluster_partition`), added in pair order, then the ranks' partials in
+    rank order. owners: (out,) rank ids, the cluster probe's
+    local_exchange: each output keeps its owner's partial alone, chained
+    or (without `chain`) a matmul over the owner's slice."""
+    if owners is None and not (split and chain):
+        out = _dots(chain, *pairs)
+        acc = out[0]
+        for o in out[1:]:
+            acc = acc + o
+        return acc
+    part = None
+    for x, m in pairs:
+        B, K = x.shape
+        if chain:
+            p = (x[:, :, None] * m[None]).reshape(B, split, K // split, -1)
+            c = _chain_sum(p, 2)                       # (B, split, out)
+        else:
+            c = torch.einsum("bsk,sko->bso", x.reshape(B, split, -1),
+                             m.reshape(split, K // split, -1))
+        part = c if part is None else part + c
+    if owners is None:
+        return _chain_sum(part, 1)
+    idx = owners.to(part.device).view(1, 1, -1).expand(part.shape[0], 1, -1)
+    return part.gather(1, idx).squeeze(1)
+
+
 @torch.no_grad()
 def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
            chain=False, split=0):
@@ -571,32 +610,10 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
         return x.bfloat16().float() if bf16 else x
 
     def dots(*pairs):
-        """[x @ m for (x, m) in pairs], all of one k length; in `chain` mode
-        each output is one fp32 chain in k order, as the kernel's dot_col."""
-        if not chain:
-            return [x @ m for x, m in pairs]
-        p = torch.cat([x[:, :, None] * m[None] for x, m in pairs], dim=-1)
-        return _chain_sum(p, 1).split([m.shape[1] for _, m in pairs],
-                                      dim=-1)
+        return _dots(chain, *pairs)
 
     def dot_sum(*pairs):
-        """The sum of the pairs' products, x0 @ m0 + x1 @ m1 + ...; with
-        `split` and `chain`, in the cluster kernel's order: per rank, each
-        pair's chain over the rank's slice of k, added in pair order, then
-        the ranks' partials in rank order."""
-        if not (split and chain):
-            out = dots(*pairs)
-            acc = out[0]
-            for o in out[1:]:
-                acc = acc + o
-            return acc
-        part = None
-        for x, m in pairs:
-            B, K = x.shape
-            p = (x[:, :, None] * m[None]).reshape(B, split, K // split, -1)
-            c = _chain_sum(p, 2)                       # (B, split, out)
-            part = c if part is None else part + c
-        return _chain_sum(part, 1)
+        return split_sum(pairs, split, chain)
 
     def sigmoid(x):
         return 1.0 / (1.0 + torch.exp(-x)) if chain else torch.sigmoid(x)
@@ -885,13 +902,16 @@ def cluster_size(cfg: ModelConfig, dtype: str, device=None,
     return fits[0] if fits else 0
 
 
-def _launch_cluster(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
-                    n, weights_l2, fused):
+def cluster_arguments(cfg, greedy, c_up, noise, teacher, n_forced, w,
+                      dtype, n, resident, fused, log_b=None):
+    """The cluster kernel's C arguments for one call, its stream aside (as
+    `ar_cluster_generate` takes them; the probe's entry takes the same),
+    and the (B, T) output they write into. `w`: the kernel's tensors for
+    (dtype, fused, n); log_b: the Laplace clip (default the config's).
+    Raises ValueError where the packed stages are not the kernel's."""
     lib = _cluster_lib()
     B, T, C = c_up.shape
     L = len(cfg.dilations)
-    resident = (not weights_l2
-                and cluster_resident(cfg, dtype, n, c_up.device, fused))
     O = _head_width(cfg)
     if fused:
         ours = cluster_fused_stages(cfg, n, fused)
@@ -913,9 +933,7 @@ def _launch_cluster(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
                          f"kernel's {want}")
     out = torch.empty((B, T), dtype=torch.float32, device=c_up.device)
     softmax = cfg.head == "softmax"
-    with torch.cuda.device(c_up.device):
-        err = lib.ar_cluster_generate(
-            c_up.data_ptr(), noise.data_ptr(),
+    args = (c_up.data_ptr(), noise.data_ptr(),
             None if teacher is None else teacher.data_ptr(), out.data_ptr(),
             *(w[k].data_ptr() for k in (
                 "in_w", "in_b", "conv_b", "res_b", "skip_b", "head1_b",
@@ -924,12 +942,32 @@ def _launch_cluster(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
             cfg.residual_channels, cfg.gate_channels, cfg.skip_channels, C,
             cfg.quantize_channels, O, n, int(softmax), int(greedy),
             n_forced, int(dtype == "bfloat16"), int(resident), fused,
-            cfg.log_b_min, cfg.log_b_max,
-            torch.cuda.current_stream().cuda_stream)
+            *(log_b or (cfg.log_b_min, cfg.log_b_max)))
+    return args, out
+
+
+def launch_cluster(args, device, dtype: str, n: int, resident: bool,
+                   fused: int) -> None:
+    """One launch of the cluster kernel on `cluster_arguments`' args (its
+    output is theirs), counted in `launches`; raises on a refusal or a
+    failed launch."""
+    lib = _cluster_lib()
+    with torch.cuda.device(device):
+        err = lib.ar_cluster_generate(
+            *args, torch.cuda.current_stream().cuda_stream)
     if err < 0:
         raise _cluster_refusal(lib, err)
     if err != 0:
         raise RuntimeError("ar_cluster launch failed: "
                            + lib.ar_cluster_error_string(err).decode())
     launches[variant(dtype, False, fused, n, resident)] += 1
+
+
+def _launch_cluster(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
+                    n, weights_l2, fused):
+    resident = (not weights_l2
+                and cluster_resident(cfg, dtype, n, c_up.device, fused))
+    args, out = cluster_arguments(cfg, greedy, c_up, noise, teacher,
+                                  n_forced, w, dtype, n, resident, fused)
+    launch_cluster(args, c_up.device, dtype, n, resident, fused)
     return out
