@@ -104,11 +104,23 @@ Phases, each printing one JSON line; any failure exits nonzero:
      version fed the kernel's own samples, every bf16 one to the bit
      against the plain version that sums in the kernel's order, with the
      fp32 control; full and ar_generate timed in turns at B = 8;
-  13. dma_probe: the ring-window copy probe (ops.ring_probe), bulk copy
-     (TMA) and cp.async, exactly equal to the plain version and the closed
-     form at the TPU probe's shape (B = 8, 8 chunks), at one block per SM
-     over 64 chunks, and at each batch with the other chunk count, with
-     their times and rates;
+  13. dma_probe: the ring-window copy probe (ops.ring_probe), its four
+     variants (tma and cp_async, one block per row with every step
+     serial; the redesign's tma_pipe and cp_async_pipe, each row's window
+     split over blocks and pipelined through shared-memory stages) through
+     bin.dma_probe.sweep: each exactly equal to the plain version and the
+     closed form at the five SHAPES (the TPU probe's, 132 rows over 64
+     chunks, each batch at the other chunk count, and B = 8 over 64 chunks
+     with per = 64, where no chunk reloads a slot: no chain) and the two
+     ORDER_SHAPES (per = 1 over 5 chunks; per = 3 over 7 chunks of a
+     chunk the split leaves ragged); then each timed at the launch alone
+     (ring.zero_() plus one launch, CUDA events over 20 reps after a
+     warm-up) in turns at every SHAPE (tma, cp_async, tma_pipe,
+     cp_async_pipe, then the reverse), with the wrapper-call time
+     beside it, the bound (the output and the zeroed ring over 3.35
+     TB/s), PyTorch's fills of the same bytes (`fill_ms`), the L2-side
+     rate, the plain version's time at the rate shape,
+     launches by variant and the registers from the build's log;
   14. cluster: the cluster kernel at config 2 and deep_baseline, fp32 and
      bf16: cudaOccupancyMaxActiveClusters for N = 2, 4, 8, 16 (weights
      resident and streamed, where a block fits), the N chosen, a block's
@@ -310,18 +322,24 @@ def registers(ptxas_log: str) -> dict:
     from L2) and
     {"ar_probe,fp32|bf16,<ablation>": registers} of the probe kernel, and
     {"ar_cluster_probe,fp32|bf16[,fused],smem|l2,<ablation>|timed":
-    registers} of the cluster kernel's probe instances, from `ptxas -v`
-    output (other kernels' entries are skipped)."""
+    registers} of the cluster kernel's probe instances, and
+    {"ring_probe,<variant>": registers} of the ring probe's kernels, from
+    `ptxas -v` output (other kernels' entries are skipped)."""
     regs, entry = {}, None
     for line in ptxas_log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-            if not re.search(r"ar_(generate|probe|cluster)_kernel", entry):
+            if not re.search(r"ar_(generate|probe|cluster)_kernel"
+                             r"|ring_(probe|pipe)_kernel", entry):
                 entry = None
         elif entry and "registers" in line:
             dtype = "bf16" if "bfloat16" in entry else "fp32"
             probe = re.search(r"ar_probe_kernel.*?Li(\d+)E", entry)
-            if probe:
+            ring = re.search(r"ring_(probe|pipe)_kernelILi(\d)E", entry)
+            if ring:
+                key = "ring_probe," + ring_probe.VARIANTS[
+                    int(ring.group(2)) + (2 if ring.group(1) == "pipe" else 0)]
+            elif probe:
                 key = (f"ar_probe,{dtype},"
                        f"{ar_probe.ABLATIONS[int(probe.group(1))]}")
             elif "ar_cluster_kernel" in entry:
@@ -1469,36 +1487,40 @@ def phase_kprobe(smi: str) -> dict:
             launched, "bound_ms": bound_ms, "bound_by": bound_by, **times}
 
 
-def phase_dma_probe(smi: str) -> dict:
-    """The ring-window copy probe, both variants, at the TPU probe's shape
-    and the rate shape: exact against the plain version and the closed
-    form (the check runs, counted, are the phase's main path), then timed;
-    the plain version timed at the rate shape."""
+def phase_dma_probe(smi: str, regs: dict) -> dict:
+    """The ring-window copy probe's four variants (phase 13 above): the
+    sweep's checks and launches (the phase's main path, counted) and its
+    launch-alone times in turns; the plain version timed at the rate
+    shape. Returns the kernels line's rows, one per variant."""
     ring_probe.launches.clear()
-    rows = [dma_probe.run(shape, variant) for shape in ring_probe.SHAPES
-            for variant in ring_probe.VARIANTS]
+    rows = dma_probe.sweep()
     launched = dict(ring_probe.launches)
     kw = ring_probe.SHAPES["rate"]
     _, plain_ms = host_ms(lambda: ring_probe.ring_probe_plain(
         **kw, device="cuda"))
-    nbytes = 4.0 * (kw["n_chunks"] + kw["per"]) * kw["chunk"] * \
-        kw["batch"] * kw["channels"]
     emit("dma_probe", rows=rows, plain_ms_rate=plain_ms, launches=launched,
          card=smi)
     for r in rows:
         require(r["exact"], f"ring probe {r['variant']} at {r['shape']}: "
                 f"max_abs_err {r['max_abs_err']}")
+    require({r["shape"] for r in rows} == set(dma_probe.SHAPES)
+            and all(r["timed"] == (r["shape"] in ring_probe.SHAPES)
+                    for r in rows), "ring probe: every shape checked, "
+            "every SHAPE timed")
     out = {}
     for v in ring_probe.VARIANTS:
         name = ring_probe.variant_name(v)
-        rate = next(r for r in rows if r["variant"] == v
-                    and r["shape"] == "rate")
+        at = {r["shape"]: r for r in rows if r["variant"] == v}
         require(launched.get(name, 0) >= 1, f"{name} launched")
         out[v] = {"name": name, "launches": launched[name],
-                  "max_abs_err": max(r["max_abs_err"] for r in rows
-                                     if r["variant"] == v),
-                  "ms": rate["ms"], "plain_ms": plain_ms,
-                  "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes"}
+                  "max_abs_err": max(r["max_abs_err"] for r in at.values()),
+                  "ms": at["rate"]["ms"], "ms_call": at["rate"]["ms_call"],
+                  "fill_ms": at["rate"]["fill_ms"],
+                  "us_per_chunk_b8": at["jax_64_chunks"]["us_per_chunk"],
+                  "plain_ms": plain_ms,
+                  "bound_ms": 1e3 * ring_probe.bound_bytes(**kw) / PEAK_BYTES,
+                  "bound_by": "bytes", "registers": regs.get(
+                      "ring_probe," + v)}
     return out
 
 
@@ -1792,7 +1814,7 @@ def run(args, smi: str, builds: dict) -> int:
     cluster_probe = phase_cluster_probe(
         smi, regs, {cfg.name: (cfg.model, model, pp),
                     dcfg.name: (dcfg.model, dmodel, dpp)})
-    rings = phase_dma_probe(smi)
+    rings = phase_dma_probe(smi, regs)
 
     tpu = "shallow_wavenet_tpu/ops/ar_kernel.py"
     csrc = "shallow_wavenet_tpu_torch/csrc/"
@@ -1858,12 +1880,9 @@ def run(args, smi: str, builds: dict) -> int:
             **r})
     for r in rings.values():
         kernels.append({
-            "name": r["name"], "route": "cuda",
+            "route": "cuda",
             "source": "shallow_wavenet_tpu_torch/csrc/ring_probe.cu",
-            "replaces": "tools/dma_probe.py:25", "launches": r["launches"],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "replaces": "tools/dma_probe.py:25", "library_ms": None, **r})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

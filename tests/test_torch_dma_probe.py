@@ -71,6 +71,24 @@ def test_plain_matches_jax_tool():
         np.arange(t.N_CHUNKS) // t.PER + 1.0)
 
 
+@pytest.mark.parametrize("variant", ring_probe.VARIANTS)
+def test_variants_match_jax_tool(variant):
+    """Every variant's call on the CPU (the plain path, through the wrapper
+    and through `ring_probe_into` on buffers made by the caller) against the
+    TPU probe in interpret mode at its shape."""
+    shape = ring_probe.SHAPES["jax"]
+    want = _jax_out()
+    got = ring_probe.ring_probe(**shape, variant=variant, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+    ring = torch.zeros((shape["batch"], shape["per"] * shape["chunk"],
+                        shape["channels"]))
+    out = torch.empty(want.shape)
+    assert ring_probe.ring_probe_into(ring, out, shape["chunk"],
+                                      shape["per"], variant) is out
+    np.testing.assert_array_equal(out.numpy(), want)
+    assert not ring_probe.launches
+
+
 @pytest.mark.parametrize("per, n_chunks", [(1, 3), (2, 8), (3, 7), (4, 9),
                                            (5, 2)])
 def test_plain_is_the_closed_form(per, n_chunks):
