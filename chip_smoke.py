@@ -91,6 +91,33 @@ Phases, each printing one JSON line; any failure exits nonzero:
      samples over its first 2048 steps, and the second block's warm-started push
      call (kernel and plain on the same arguments; the kernel's output
      equal to the stream's);
+  10a. train: config 2 training (training.Trainer) at full width, bf16
+     compute as configured, TF32 off: a corpus of 8 synthetic utterances
+     of 2 s (`synth_utterance`, seeds from --seed) with 80-bin log-mel
+     features at config 2's STFT settings, computed on the card and
+     normalized by the corpus's mean and std; SegmentSampler at config 2's
+     data config (B = 8, segment 8,000, x (8, 8,320)). The card's first
+     step against the same code on the CPU, one random flax-layout tree,
+     one batch of 2 rows: loss and every gradient leaf (relative to the
+     leaf's largest entry), bf16 at TOL_TRAIN_BF16 and the fp32-compute
+     control at TOL_TRAIN_FP32. Trainer.fit for 64 updates at
+     steps_per_call = 8 from the port's init (checkpoints at 32 and 64,
+     eval loss at 0, 32, 64 on two held-out batches, both losses must
+     fall); ms per update by CUDA events around multi_step over 4 groups
+     after a warm-up group, and over 8 single steps (K = 1), samples/s
+     (B x 8,320 per update), peak memory, kernels per update and their
+     device time over one group (torch.profiler), the bound from the
+     code's FLOPs (`train_flops`) at the fp32 and the dense bf16 peaks;
+     resume from the step-32 checkpoint in a workdir of its own: the next
+     group draws the straight run's batches 33..40 and ends on its
+     step-40 loss, to the bit; then the trained weights, restored by
+     bin.decode.load_model_state (`--workdir`'s loader), decode 2 corpus
+     utterances through decode_utterances on the layout the decode picks
+     (the cluster kernel, its launches counted), with the RTF, and the
+     kernel re-run on the same inputs is held against the plain version
+     teacher-forced with its own samples over its first 1,024 steps at
+     TOL_TEACHER. No kernel of this repo lies on the training path (the
+     JAX step has no Pallas call): the kernels line gains no row;
   11. kfuse sweep: bin.kfuse at config 2, B = 1, 8, 32, T = 2048,
      W = 0, 2, 3, 4, 6 (us per step), on the kernel the decode picks for
      each W (--kernel cluster) and on ar_generate;
@@ -174,8 +201,10 @@ nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -189,17 +218,22 @@ import torch
 from shallow_wavenet_tpu_torch.bin import decode, dma_probe, kfuse, kprobe
 from shallow_wavenet_tpu_torch.config import get_config
 from shallow_wavenet_tpu_torch.data.dataset import (
-    Utterance, pad_batch_for_decode,
+    SegmentSampler, Utterance, pad_batch_for_decode,
 )
+from shallow_wavenet_tpu_torch.data.prefetch import GroupSampler
+from shallow_wavenet_tpu_torch.data.synthetic import synth_utterance
 from shallow_wavenet_tpu_torch.models.generate import generate_segmented
 from shallow_wavenet_tpu_torch.models.streaming import StreamingSynthesizer
 from shallow_wavenet_tpu_torch.models.wavenet import (
-    WaveNet, extract_plain_params, init_params_tree, params_from_flax,
+    WaveNet, _flatten, extract_plain_params, init_params_tree,
+    params_from_flax,
 )
 from shallow_wavenet_tpu_torch.ops import (
     _build, ar_kernel, ar_probe, ring_probe,
 )
 from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_quantize
+from shallow_wavenet_tpu_torch.ops.stft import log_mel_spectrogram
+from shallow_wavenet_tpu_torch.training import Trainer
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
@@ -295,6 +329,27 @@ TIMER_RATIO_MAX_C2_FP32 = 1.08
 CLUSTER_B, CLUSTER_SIZES_B = (1, 8, 16, 32), (1, 8)
 CLUSTER_T, CLUSTER_CHECK_T = 2048, 1024
 CLUSTER_N = (2, 4, 8, 16)
+# training at config 2 (its data config: B = 8, segment 8,000 samples, 320
+# of left context): a corpus of TRAIN_UTTS synthetic utterances of
+# TRAIN_SECONDS s; the card's first step held against the same code on the
+# CPU at TRAIN_CHECK_B rows (loss and every gradient leaf, relative to the
+# leaf's largest entry). fp32 compute: the two sum in other orders, fp32
+# rounding only (TOL_TRAIN_FP32). bf16 compute (config 2's): both round to
+# bf16 at the same points, but a sum that lands on the other side of a
+# bf16 rounding edge moves that value one bf16 ulp (2^-8), and the backward
+# carries it on: the CPU tests measure 9.3e-3 between the port and JAX on
+# the CPU for the same reason, so the card is held at TOL_TRAIN_BF16 (the
+# loss, summed in fp32 after the fp32 head, at TOL_TRAIN_BF16_LOSS). Then
+# TRAIN_STEPS updates through Trainer.fit at steps_per_call = 8 (config
+# 2's preset), a checkpoint at TRAIN_RESUME_AT to resume from, the time per
+# update over TRAIN_TIME_GROUPS groups of 8 (after one warm-up group) and
+# over TRAIN_K1_STEPS single steps, and a decode of TRAIN_DECODE_UTTS
+# corpus utterances with the trained weights, held against the plain
+# version over its first TRAIN_DECODE_T steps
+TRAIN_UTTS, TRAIN_SECONDS, TRAIN_CHECK_B = 8, 2.0, 2
+TOL_TRAIN_FP32, TOL_TRAIN_BF16, TOL_TRAIN_BF16_LOSS = 1e-4, 2e-2, 1e-3
+TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_TIME_GROUPS, TRAIN_K1_STEPS = 64, 32, 4, 8
+TRAIN_DECODE_UTTS, TRAIN_DECODE_T = 2, 1024
 T0 = time.perf_counter()
 
 
@@ -399,12 +454,17 @@ def host_ms(fn):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
-def random_model(mc, seed: int):
+def random_tree(mc, seed: int) -> dict:
+    """The port's numpy init with a random head2 (zero in the flax init)."""
     tree = init_params_tree(mc, seed)
     rng = np.random.default_rng(seed + 1000)
     tree["head2"]["kernel"] = (0.05 * rng.standard_normal(
         tree["head2"]["kernel"].shape)).astype(np.float32)
-    return params_from_flax(WaveNet(mc), tree).cuda()
+    return tree
+
+
+def random_model(mc, seed: int):
+    return params_from_flax(WaveNet(mc), random_tree(mc, seed)).cuda()
 
 
 def random_cond(mc, model, B: int, T: int, seed: int):
@@ -1164,6 +1224,280 @@ def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
         require(c["ok"], f"streaming: {c}")
 
 
+def train_flops(mc, B: int, T: int) -> float:
+    """FLOPs of one update at B rows of T samples (x is (B, T)), counted
+    from the port's code: the stack over T - 1 positions (input
+    projection, per layer k taps R x G, cond C x G, res and skip (G/2) x
+    (R + S), head S x S + S x O), the upsampler over T / hop frames (the
+    1x1 projection, then each stage's phase matmul, 3C x fC per input
+    frame). Backward is twice the forward's products, less the input
+    gradients nobody needs (of x's projection and of cond's)."""
+    t, L = T - 1, len(mc.dilations)
+    R, G, S, C = (mc.residual_channels, mc.gate_channels, mc.skip_channels,
+                  mc.cond_channels)
+    O = mc.quantize_channels if mc.head == "softmax" else 2
+    inp = 0 if mc.head == "softmax" else R
+    stack = (inp + L * (mc.kernel_size * R * G + C * G + (G // 2) * (R + S))
+             + S * S + S * O)
+    frames = T // int(np.prod(mc.upsample_factors))
+    proj = frames * mc.aux_channels * C
+    ups, f_in = proj, frames
+    for f in mc.upsample_factors:
+        ups += f_in * 3 * C * f * C
+        f_in *= f
+    fwd = B * (t * stack + ups)
+    bwd = 2 * fwd - B * (t * inp + proj)
+    return 2.0 * (fwd + bwd)
+
+
+def corpus(cfg, seed: int) -> list:
+    """TRAIN_UTTS synthetic utterances (`synth_utterance`, seeds from
+    --seed) with 80-bin log-mel features at config 2's STFT settings,
+    computed on the card and normalized by the corpus's own mean and std."""
+    d = cfg.data
+    wavs = [synth_utterance(seed + 100 + i, d.sample_rate, TRAIN_SECONDS)
+            for i in range(TRAIN_UTTS)]
+    with torch.no_grad():
+        mel = log_mel_spectrogram(
+            torch.from_numpy(np.stack(wavs)).cuda(), d.sample_rate, d.n_fft,
+            d.hop_length, d.win_length, d.n_mels, d.fmin, d.fmax)
+    mel = mel[:, : len(wavs[0]) // d.hop_length].cpu().numpy()
+    mean, std = mel.mean(axis=(0, 1)), mel.std(axis=(0, 1))
+    feats = (mel - mean) / np.maximum(std, 1e-8)
+    require(bool(np.isfinite(feats).all()), "corpus features finite")
+    return [Utterance(w, f) for w, f in zip(wavs, feats)]
+
+
+def segment_sampler(cfg, utts, seed: int, batch: int | None = None):
+    d = cfg.data
+    return SegmentSampler(utts, batch_size=batch or d.batch_size,
+                          segment_length=d.segment_length,
+                          hop_length=d.hop_length,
+                          receptive_field=cfg.model.receptive_field,
+                          seed=seed, silence_boost=d.silence_boost)
+
+
+def leaf_errors(want: dict, got: dict) -> dict:
+    """{leaf: max |got - want| / max |want|} of two flat parameter trees;
+    a leaf whose reference is zero must be zero on both sides (0.0), or
+    reads inf."""
+    out = {}
+    for k, w in want.items():
+        scale = float(np.abs(w).max())
+        diff = float(np.abs(got[k] - w).max())
+        out[k] = diff / scale if scale else (0.0 if diff == 0 else np.inf)
+    return out
+
+
+def phase_train(cfg, seed: int, smi: str) -> None:
+    """Config 2 training at full width on the card (A7): the first step
+    against the CPU, fp32 and bf16 compute; Trainer.fit for TRAIN_STEPS
+    updates at steps_per_call = 8 with its checkpoints and eval loss; ms
+    per update at K = 8 and K = 1 and the device's busy share; resume from
+    the step-TRAIN_RESUME_AT checkpoint; the trained weights decoded
+    through `--workdir`'s loader on the cluster kernel."""
+    mc, d = cfg.model, cfg.data
+    utts = corpus(cfg, seed)
+    pad = -(-mc.receptive_field // d.hop_length) * d.hop_length
+    B, T = d.batch_size, pad + d.segment_length
+    checks, readings = [], {}
+
+    def record(name, err, limit):
+        checks.append({"check": name, "max_abs_err": err, "limit": limit,
+                       "ok": err <= limit})
+
+    # the card's first step against the CPU's, one tree, one batch
+    batch = next(segment_sampler(cfg, utts, seed + 1, TRAIN_CHECK_B))
+    tree = random_tree(mc, seed)
+    for dtype, tol, tol_loss in (
+            ("bfloat16", TOL_TRAIN_BF16, TOL_TRAIN_BF16_LOSS),
+            ("float32", TOL_TRAIN_FP32, TOL_TRAIN_FP32)):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            mc, compute_dtype=dtype))
+        sides = {}
+        for dev in ("cuda", "cpu"):
+            tr = Trainer(c, dev)
+            loss, grad = tr.value_and_grad(tr.init_state(tree=tree), batch)
+            sides[dev] = (float(loss), _flatten(tr.params_tree(grad)))
+        errs = leaf_errors(sides["cpu"][1], sides["cuda"][1])
+        worst = max(errs, key=errs.get)
+        rel = abs(sides["cuda"][0] - sides["cpu"][0]) / abs(sides["cpu"][0])
+        record(f"{dtype}_first_step_loss_rel", rel, tol_loss)
+        record(f"{dtype}_first_step_grad_rel", errs[worst], tol)
+        readings[f"{dtype}_worst_leaf"] = worst
+        readings[f"{dtype}_loss"] = sides["cuda"][0]
+
+    # Trainer.fit, config 2 as preset (steps_per_call = 8)
+    tcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, checkpoint_every=TRAIN_RESUME_AT, log_every=8))
+    K = tcfg.train.steps_per_call
+    trainer = Trainer(tcfg)
+    eval_batches = [next(segment_sampler(cfg, utts, 12345))
+                    for _ in range(2)]
+    state0 = trainer.init_state(seed)
+    eval0 = trainer.eval_loss(state0, eval_batches)
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = trainer.fit(state0, segment_sampler(cfg, utts, seed),
+                            workdir, steps=TRAIN_STEPS,
+                            eval_batches=eval_batches)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        recs = [json.loads(line) for line in
+                (workdir / "metrics.jsonl").read_text().splitlines()]
+        require(state.step == TRAIN_STEPS
+                and [r["step"] for r in recs]
+                == list(range(8, TRAIN_STEPS + 1, 8)),
+                f"fit's steps and records: {[r['step'] for r in recs]}")
+        require(all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+                    for r in recs), "fit's losses finite")
+        evals = [eval0] + [r["eval_loss"] for r in recs if "eval_loss" in r]
+        require(len(evals) == 3, f"eval at 0 and both checkpoints: {evals}")
+        checks.append({"check": "loss_falls", "eval_loss": evals,
+                        "loss": [recs[0]["loss"], recs[-1]["loss"]],
+                        "ok": evals[-1] < evals[0]
+                        and recs[-1]["loss"] < recs[0]["loss"]})
+        require(sorted(int(p.name) for p in
+                       (workdir / "checkpoints").iterdir())
+                == [TRAIN_RESUME_AT, TRAIN_STEPS],
+                "a checkpoint at each of the two")
+
+        # ms per update: K = 8 groups already on the card, CUDA events
+        # around multi_step after one warm-up group; then K = 1
+        src = segment_sampler(cfg, utts, seed + 2)
+        groups = [trainer.to_device(next(GroupSampler(src, K)))
+                  for _ in range(1 + TRAIN_TIME_GROUPS)]
+        singles = [trainer.to_device(next(src))
+                   for _ in range(1 + TRAIN_K1_STEPS)]
+        s, _ = trainer.multi_step(state, groups[0])
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        h0 = time.perf_counter()
+        start.record()
+        for g in groups[1:]:
+            s, _ = trainer.multi_step(s, g)
+        end.record()
+        torch.cuda.synchronize()
+        k8_host = 1e3 * (time.perf_counter() - h0) / (TRAIN_TIME_GROUPS * K)
+        k8 = start.elapsed_time(end) / (TRAIN_TIME_GROUPS * K)
+        s, _ = trainer.step(s, singles[0])
+        torch.cuda.synchronize()
+        start.record()
+        for b in singles[1:]:
+            s, _ = trainer.step(s, b)
+        end.record()
+        torch.cuda.synchronize()
+        k1 = start.elapsed_time(end) / TRAIN_K1_STEPS
+        # kernels per update and their summed device time over one group
+        # (torch.profiler), against the unprofiled group's time: the share
+        # of the update the device is busy
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            s, _ = trainer.multi_step(s, groups[1])
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / K
+        launches = sum(e.count for e in kern) / K
+        flops = train_flops(mc, B, T)
+        bound32, bound16 = 1e3 * flops / PEAK_FP32_FLOPS, \
+            1e3 * flops / PEAK_BF16_FLOPS
+
+        # resume from the step-32 checkpoint in a workdir of its own: the
+        # next group draws the straight run's batches 33..40
+        resume_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
+        try:
+            shutil.copytree(workdir / "checkpoints" / str(TRAIN_RESUME_AT),
+                            resume_dir / "checkpoints" / str(TRAIN_RESUME_AT))
+            tr2 = Trainer(tcfg)
+            st2, sampler_state, step = tr2.restore(resume_dir,
+                                                   tr2.init_state(seed + 9))
+        finally:
+            shutil.rmtree(resume_dir)
+        require(step == st2.step == TRAIN_RESUME_AT and sampler_state,
+                f"restored step {step}")
+        resumed = segment_sampler(cfg, utts, seed + 7)
+        resumed.set_state(sampler_state)
+        got = next(GroupSampler(resumed, K))
+        straight = segment_sampler(cfg, utts, seed)
+        want = [next(straight) for _ in range(TRAIN_RESUME_AT + K)]
+        same = all(np.array_equal(got[k][i], want[TRAIN_RESUME_AT + i][k])
+                   for k in ("x", "cond") for i in range(K))
+        checks.append({"check": "resume_draws_the_straight_batches",
+                        "steps": [TRAIN_RESUME_AT + 1, TRAIN_RESUME_AT + K],
+                        "ok": same})
+        # and trains on as the straight run did: the update is
+        # deterministic on the card, so the group's last loss is the
+        # straight run's record at that step, to the bit
+        st2, ms = tr2.multi_step(st2, got)
+        rec = next(r for r in recs if r["step"] == TRAIN_RESUME_AT + K)
+        record("resumed_loss_vs_straight",
+               abs(float(ms["loss"][-1]) - rec["loss"]), 0.0)
+
+        # the trained weights through --workdir's loader, decoded on the
+        # layout the decode picks (the cluster kernel)
+        model, mstep = decode.load_model_state(cfg, str(workdir))
+    finally:
+        shutil.rmtree(workdir)
+    require(mstep == TRAIN_STEPS, f"decode loaded step {mstep}")
+    layout = decode.kernel_layout(mc, "auto")
+    name = layout_variant(mc, layout)
+    dutts = [Utterance(np.zeros(0, np.float32), u.feats)
+             for u in utts[:TRAIN_DECODE_UTTS]]
+    with tempfile.TemporaryDirectory() as out:
+        ar_kernel.launches.clear()
+        summary = decode.decode_utterances(
+            model, cfg, dutts, [f"utt{i}.wav" for i in range(len(dutts))],
+            out, torch.Generator(device="cuda").manual_seed(seed),
+            model_step=mstep)
+        launched = dict(ar_kernel.launches)
+    require(set(launched) == {name} and launched[name] == 1
+            and summary["kernel"] == layout and layout["cluster"] > 1,
+            f"the trained decode launched {launched} on {summary['kernel']}")
+    cond, _, _ = pad_batch_for_decode(dutts, d.hop_length)
+    pp = extract_plain_params(model)
+    with torch.no_grad():
+        c_up = model.upsample_cond(torch.from_numpy(cond).cuda())
+    noise = ar_kernel.uniform_noise(
+        c_up.shape[:2], torch.Generator(device="cuda").manual_seed(seed))
+    out = ar_kernel.generate(pp, mc, c_up, noise=noise, **layout)
+    require(bool(torch.isfinite(out).all()), "trained decode finite")
+    Tp = TRAIN_DECODE_T
+    plain = ar_kernel.generate_plain(
+        pp, mc, c_up[:, :Tp].contiguous(), noise=noise[:, :Tp].contiguous(),
+        teacher=own_feedback(out)[:, :Tp])
+    record(f"trained_kernel_vs_plain_teacher_forced_{Tp}",
+           err(plain, out[:, :Tp]), TOL_TEACHER)
+
+    samples = B * T
+    emit("train", config=cfg.name, compute_dtype=mc.compute_dtype, B=B,
+         T=T, corpus_utterances=len(utts), corpus_seconds=TRAIN_SECONDS,
+         steps=TRAIN_STEPS, steps_per_call=K,
+         params=int(state0.params.numel()),
+         loss_first=recs[0]["loss"], loss_last=recs[-1]["loss"],
+         losses=[r["loss"] for r in recs], eval_loss=evals,
+         fit_seconds=fit_s, fit_samples_per_s=recs[-1]["samples_per_s"],
+         ms_per_update_k8=k8, host_ms_per_update_k8=k8_host,
+         samples_per_s_k8=1e3 * samples / k8,
+         ms_per_update_k1=k1, samples_per_s_k1=1e3 * samples / k1,
+         k1_over_k8=k1 / k8, peak_memory_bytes=peak,
+         device_busy_ms_per_update=busy_ms if busy_ms else "not measured",
+         device_busy_share=busy_ms / k8 if busy_ms else "not measured",
+         kernels_per_update=launches, gflop_per_update=flops / 1e9,
+         bound_ms_fp32=bound32, bound_ms_bf16_tensor_cores=bound16,
+         decode={"variant": name, "kernel": layout,
+                 "launches": launched[name], "rtf": summary["rtf"],
+                 "wall_seconds": summary["wall_seconds"],
+                 "model_step": summary["model_step"]},
+         checks=checks, readings=readings, card=smi)
+    for c in checks:
+        require(c["ok"], f"train: {c}")
+
+
 def cluster_fits(mc, dtype: str, fused: int, limit: int):
     """Occupancy and bytes of the cluster kernel for every size of
     CLUSTER_N, weights resident and streamed ({N: {...}}), and the
@@ -1801,6 +2135,7 @@ def run(args, smi: str, builds: dict) -> int:
                   for dt in ("float32", "bfloat16")]
     phase_deep_fused_times(dcfg.model, dmodel, dpp, args.seed)
     phase_streaming(cfg, model, pp, args.seed, smi)
+    phase_train(cfg, args.seed, smi)
     held = phase_cluster(smi, regs, {cfg.name: (cfg.model, model, pp),
                                      dcfg.name: (dcfg.model, dmodel, dpp)})
     phase_kfuse(smi)

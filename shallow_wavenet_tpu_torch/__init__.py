@@ -5,11 +5,14 @@ it (and never `jax` or `flax`). Module layout and names follow the JAX
 package so each function's counterpart is easy to find:
 
   config.py  — copy of the dataclass config tree and presets
-  ops/       — mu-law codec; the AR-generation kernel wrapper and its build
+  ops/       — mu-law codec, STFT/log-mel, high-pass; the AR-generation
+               kernel wrapper and its build
   csrc/      — hand-written CUDA C++ kernels (compiled with nvcc at first use)
-  models/    — torch WaveNet, output heads, AR generation
-  data/      — file lists, decode batching, wav and HDF5 I/O
-  bin/       — the copy-synthesis decode CLI
+  models/    — torch WaveNet, output heads (losses, samplers), AR generation
+  data/      — file lists, segment sampling, prefetching, decode batching,
+               wav and HDF5 I/O, the synthetic corpus
+  training/  — the teacher-forced trainer and its checkpoints
+  bin/       — the train and copy-synthesis decode CLIs, the probes
 
 Entry points take `device=None`, meaning "cuda", and raise when CUDA is
 absent; pass `device="cpu"` to run the plain PyTorch versions on the host.

@@ -1,7 +1,8 @@
 """Decoding CLI — batched copy-synthesis with the AR kernel; the torch twin
 of `shallow_wavenet_tpu/bin/decode.py`.
 
-Reads normalized features (--feats-dir, --stats), loads the weights from a
+Reads normalized features (--feats-dir, --stats), loads the weights from the
+latest checkpoint of a training run (--workdir, `bin/train.py`) or from a
 flat .npz of the flax parameter tree (--params; see
 models.wavenet.save_params_npz), upsamples the conditioning, generates each
 padded batch with a CUDA AR kernel in one launch, trims every utterance to
@@ -18,6 +19,9 @@ a fused layout that fits nowhere raises instead of dropping --fused.
     python -m shallow_wavenet_tpu_torch.bin.decode --preset shallow_laplace_single \
         --eval-scp eval.scp --feats-dir feats --stats stats.h5 \
         --params params.npz --outdir out
+    python -m shallow_wavenet_tpu_torch.bin.decode --preset shallow_laplace_single \
+        --eval-scp eval.scp --feats-dir feats --stats stats.h5 \
+        --workdir exp --outdir out
     python -m shallow_wavenet_tpu_torch.bin.decode --preset deep_baseline \
         --kernel-dtype bfloat16 --eval-scp eval.scp --feats-dir feats \
         --stats stats.h5 --params params.npz --outdir out
@@ -50,8 +54,24 @@ from shallow_wavenet_tpu_torch.models.wavenet import (
     WaveNet, extract_plain_params, load_params_npz, params_from_flax,
 )
 from shallow_wavenet_tpu_torch.ops import ar_kernel
+from shallow_wavenet_tpu_torch.training import Trainer
 
 log = logging.getLogger("decode")
+
+
+def load_model_state(cfg: Config, workdir: str, device=None
+                     ) -> tuple[WaveNet, int]:
+    """The params of --workdir's latest checkpoint in the port's WaveNet,
+    on the device, and the checkpoint's step (0: none found, the model
+    keeps the trainer's random init, as in the JAX decode)."""
+    trainer = Trainer(cfg, device)
+    state, _, step = trainer.restore(workdir, trainer.init_state())
+    if step == 0:
+        log.warning("no checkpoint found in %s — decoding with random init",
+                    workdir)
+    model = params_from_flax(WaveNet(cfg.model),
+                             trainer.params_tree(state.params))
+    return model.to(trainer.device), step
 
 # The kernel layouts, in order: (dtype, streamed, chunk, cluster). Every
 # fp32 layout comes before any bf16 one, as in the JAX decode's tier order
@@ -181,10 +201,12 @@ def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
 def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
                       generator, batch_size: int = 8,
                       segment_samples: int = 0, device=None,
-                      kernel_dtype: str = "auto", fused: int = 0) -> dict:
+                      kernel_dtype: str = "auto", fused: int = 0,
+                      model_step: int | None = None) -> dict:
     """Decode `utts` in batches, write `<outdir>/<name>` wavs and
     `decode_summary.json`; returns the summary. The kernel layout is
-    chosen once, from `kernel_dtype` and `fused`, for every batch."""
+    chosen once, from `kernel_dtype` and `fused`, for every batch.
+    model_step: the training step of the weights (None for an .npz)."""
     layout = kernel_layout(cfg.model, kernel_dtype, device, fused)
     log.info("AR kernel layout: %s", layout)
     warn_waves(cfg.model, layout, batch_size, device)
@@ -207,8 +229,7 @@ def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
         log.info("batch %d: %.2f audio-s in %.2f s (RTF %.3f)",
                  i // batch_size, audio_s, wall, wall / max(audio_s, 1e-9))
     summary = {
-        # the .npz carries no training step
-        "utterances": len(utts), "model_step": None,
+        "utterances": len(utts), "model_step": model_step,
         "audio_seconds": total_audio_s, "wall_seconds": total_wall,
         "rtf": total_wall / max(total_audio_s, 1e-9),
         "audio_seconds_per_s": total_audio_s / max(total_wall, 1e-9),
@@ -225,8 +246,13 @@ def main(argv=None):
     p.add_argument("--eval-scp", required=True)
     p.add_argument("--feats-dir", required=True)
     p.add_argument("--stats", default=None)
-    p.add_argument("--params", required=True,
-                   help=".npz of the flax parameter tree (save_params_npz)")
+    weights = p.add_mutually_exclusive_group(required=True)
+    weights.add_argument("--workdir", default=None,
+                         help="training run whose latest checkpoint to "
+                              "decode with")
+    weights.add_argument("--params", default=None,
+                         help=".npz of the flax parameter tree "
+                              "(save_params_npz)")
     p.add_argument("--outdir", required=True)
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--segment-samples", type=int, default=0,
@@ -256,15 +282,21 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    utts = load_utterances(args.eval_scp, args.feats_dir, args.stats)
+    utts = load_utterances(args.eval_scp, args.feats_dir, args.stats,
+                           load_wav=False)
     names = read_file_list(args.eval_scp)
-    model = params_from_flax(WaveNet(cfg.model),
-                             load_params_npz(args.params)).to(dev)
+    if args.workdir:
+        model, step = load_model_state(cfg, args.workdir, dev)
+    else:
+        model = params_from_flax(WaveNet(cfg.model),
+                                 load_params_npz(args.params)).to(dev)
+        step = None
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     decode_utterances(model, cfg, utts, names, args.outdir, generator,
                       batch_size=args.batch_size,
                       segment_samples=args.segment_samples, device=dev,
-                      kernel_dtype=args.kernel_dtype, fused=args.fused)
+                      kernel_dtype=args.kernel_dtype, fused=args.fused,
+                      model_step=step)
 
 
 if __name__ == "__main__":

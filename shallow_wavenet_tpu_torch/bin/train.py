@@ -1,0 +1,115 @@
+"""Training CLI — the torch twin of `shallow_wavenet_tpu/bin/train.py`, on
+one device. Resumes automatically from the latest checkpoint in --workdir.
+
+    python -m shallow_wavenet_tpu_torch.bin.train --preset shallow_laplace_single \
+        --train-scp train.scp --dev-scp dev.scp --feats-dir feats \
+        --stats stats.h5 --workdir exp
+
+`--device cpu` trains on the host. There is no --profile, --debug-nans or
+data-parallel option yet; a config whose mesh asks for more than one device
+is refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+from pathlib import Path
+
+import torch
+
+from shallow_wavenet_tpu_torch.bin.common import (
+    add_config_args, load_utterances, resolve_config, setup_logging,
+)
+from shallow_wavenet_tpu_torch.data.dataset import SegmentSampler, read_file_list
+from shallow_wavenet_tpu_torch.training import Trainer
+
+log = logging.getLogger("train")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--train-scp", required=True)
+    p.add_argument("--dev-scp", default=None,
+                   help="held-out list for periodic eval loss")
+    p.add_argument("--feats-dir", required=True)
+    p.add_argument("--stats", default=None)
+    p.add_argument("--waveform-dir", default=None,
+                   help="noise-shaped training waveforms")
+    p.add_argument("--workdir", required=True)
+    p.add_argument("--init-from", default=None,
+                   help="warm-start params from another run's latest "
+                        "checkpoint (fine-tuning); optimizer, step and LR "
+                        "schedule start fresh. Ignored when --workdir "
+                        "already has a checkpoint to resume from.")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' trains on the "
+                        "host)")
+    add_config_args(p)
+    args = p.parse_args(argv)
+    setup_logging()
+    cfg = resolve_config(args)
+    if cfg.mesh.multihost or cfg.mesh.num_devices > 1:
+        raise SystemExit("data-parallel training is not ported yet: set "
+                         "mesh.num_devices=0 and mesh.multihost=false")
+    trainer = Trainer(cfg, args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    utts = load_utterances(args.train_scp, args.feats_dir, args.stats,
+                           args.waveform_dir,
+                           highpass_cutoff=cfg.data.highpass_cutoff,
+                           sample_rate=cfg.data.sample_rate)
+    log.info("loaded %d utterances", len(utts))
+    sampler = SegmentSampler(
+        utts, batch_size=cfg.data.batch_size,
+        segment_length=cfg.data.segment_length,
+        hop_length=cfg.data.hop_length,
+        receptive_field=cfg.model.receptive_field,
+        seed=cfg.train.seed,
+        silence_boost=cfg.data.silence_boost,
+    )
+
+    eval_batches = None
+    if args.dev_scp:
+        # eval on the SAME signal distribution as training: with noise
+        # shaping the dev waveforms must be the pre-emphasized ones, else
+        # eval loss measures a spectrally different target
+        dev_wavdir = args.waveform_dir
+        if dev_wavdir:
+            missing = [p for p in read_file_list(args.dev_scp)
+                       if not (Path(dev_wavdir) / Path(p).name).exists()]
+            if missing:
+                log.warning(
+                    "%d dev waveform(s) missing from %s; eval loss falls "
+                    "back to unshaped dev waveforms", len(missing),
+                    dev_wavdir)
+                dev_wavdir = None
+        dev_utts = load_utterances(args.dev_scp, args.feats_dir, args.stats,
+                                   dev_wavdir,
+                                   highpass_cutoff=cfg.data.highpass_cutoff,
+                                   sample_rate=cfg.data.sample_rate)
+        dev_sampler = SegmentSampler(
+            dev_utts, batch_size=cfg.data.batch_size,
+            segment_length=cfg.data.segment_length,
+            hop_length=cfg.data.hop_length,
+            receptive_field=cfg.model.receptive_field, seed=12345,
+        )
+        eval_batches = [next(dev_sampler) for _ in range(4)]
+
+    state = trainer.init_state()
+    state, sampler_state, start = trainer.restore(args.workdir, state)
+    if sampler_state is not None:
+        sampler.set_state(sampler_state)
+    if start == 0 and args.init_from:
+        # fine-tune: fresh run seeded with pretrained params; own-workdir
+        # resume takes precedence so a preempted fine-tune continues itself
+        state = trainer.warm_start(args.init_from, state)
+    trainer.fit(state, sampler, args.workdir, steps=args.steps,
+                eval_batches=eval_batches)
+
+
+if __name__ == "__main__":
+    main()
