@@ -118,6 +118,30 @@ Phases, each printing one JSON line; any failure exits nonzero:
      teacher-forced with its own samples over its first 1,024 steps at
      TOL_TEACHER. No kernel of this repo lies on the training path (the
      JAX step has no Pallas call): the kernels line gains no row;
+  10b. train_dp: data parallelism on the one card: an NCCL process group
+     of one rank, joined through the launcher's variables as torchrun
+     sets them (parallel.init_distributed) and left after; the DP trainer
+     (each update all-reduced through NCCL) and the plain trainer from
+     one init, Trainer.fit over 8 updates each: parameters, Adam's
+     moments and records equal to the bit; ms per update of both (the
+     median of 3 rounds of turns: plain, DP, DP, plain) and the
+     all-reduce alone, on the device's clock and the host's. Scaling
+     over cards is not measured (one card);
+  10c. decode_dp: decode --dp's path, bin.decode.decode_batch with the
+     rows split by models.generate.generate_dp, on the main path's 8
+     utterances, over every visible card and over two shards on cuda:0:
+     equal to the single call to the bit, with wall times and launches;
+  10d. stream_pool: models.streaming.StreamPool at config 2, fp32
+     unfused on the decode's layout (the cluster kernel), 80 ms blocks,
+     at 1 and 8 streams, at the card's clusters for the layout
+     (max_active_clusters) and at one more (two waves, warned once):
+     per steady step wall ms (mean, p95), the launches' CUDA-event ms,
+     the rest and its host split by call, launches per step and the
+     streams' audio-s per wall-s; the first, a middle and the last
+     stream equal to standalone sessions to the bit; then a staggered
+     open/end scenario over 3 slots, every stream equal to its session,
+     at most two launches per step. The cluster kernel's row counts the
+     pool's launches;
   11. kfuse sweep: bin.kfuse at config 2, B = 1, 8, 32, T = 2048,
      W = 0, 2, 3, 4, 6 (us per step), on the kernel the decode picks for
      each W (--kernel cluster) and on ar_generate;
@@ -203,8 +227,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
+import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -222,8 +249,12 @@ from shallow_wavenet_tpu_torch.data.dataset import (
 )
 from shallow_wavenet_tpu_torch.data.prefetch import GroupSampler
 from shallow_wavenet_tpu_torch.data.synthetic import synth_utterance
-from shallow_wavenet_tpu_torch.models.generate import generate_segmented
-from shallow_wavenet_tpu_torch.models.streaming import StreamingSynthesizer
+from shallow_wavenet_tpu_torch.models.generate import (
+    generate_dp, generate_segmented,
+)
+from shallow_wavenet_tpu_torch.models.streaming import (
+    StreamingSynthesizer, StreamPool,
+)
 from shallow_wavenet_tpu_torch.models.wavenet import (
     WaveNet, _flatten, extract_plain_params, init_params_tree,
     params_from_flax,
@@ -233,6 +264,7 @@ from shallow_wavenet_tpu_torch.ops import (
 )
 from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_quantize
 from shallow_wavenet_tpu_torch.ops.stft import log_mel_spectrogram
+from shallow_wavenet_tpu_torch.parallel import mesh
 from shallow_wavenet_tpu_torch.training import Trainer
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
@@ -350,6 +382,20 @@ TRAIN_UTTS, TRAIN_SECONDS, TRAIN_CHECK_B = 8, 2.0, 2
 TOL_TRAIN_FP32, TOL_TRAIN_BF16, TOL_TRAIN_BF16_LOSS = 1e-4, 2e-2, 1e-3
 TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_TIME_GROUPS, TRAIN_K1_STEPS = 64, 32, 4, 8
 TRAIN_DECODE_UTTS, TRAIN_DECODE_T = 2, 1024
+# data parallelism on the one card: the DP trainer (an NCCL group of one
+# rank) against the plain one over DP_UPDATES updates, timed in
+# DP_ROUNDS rounds of turns (plain, DP, DP, plain) of DP_UPDATES each (the
+# update is the host's dispatch, whose time drifts within a call); the
+# NCCL all-reduce of the update's buffer alone over DP_REDUCE_REPS, on the
+# device's clock and on the host's
+DP_UPDATES, DP_ROUNDS, DP_REDUCE_REPS = 8, 3, 20
+# the stream pool at config 2: POOL_STREAMS streams (and the card's
+# clusters, and one more), STREAM_BLOCK-frame blocks, STREAM_FRAMES frames
+# each; then a staggered scenario over POOL_STAGGER_SLOTS slots of
+# POOL_STAGGER (open step, frames) streams
+POOL_STREAMS = (1, 8)
+POOL_STAGGER_SLOTS = 3
+POOL_STAGGER = ((0, 40), (2, 27), (3, 4), (5, 33), (7, 20))
 T0 = time.perf_counter()
 
 
@@ -1498,6 +1544,398 @@ def phase_train(cfg, seed: int, smi: str) -> None:
         require(c["ok"], f"train: {c}")
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_train_dp(cfg, seed: int, smi: str) -> None:
+    """Data parallelism (A8) on the one card: an NCCL process group of one
+    rank, joined through the launcher's variables as `torchrun` sets them
+    (`parallel.init_distributed`), and left after. The DP trainer (its
+    update all-reduced through NCCL, which at one rank changes no bit)
+    against the plain trainer from one init: `fit` over DP_UPDATES
+    updates each, the parameters equal to the bit; ms per update of both
+    in DP_ROUNDS rounds of turns (plain, DP, DP, plain) on batches
+    already on the card, and the all-reduce alone. Scaling over cards is
+    not measured: one card."""
+    mc = cfg.model
+    utts = corpus(cfg, seed)
+    launcher = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+                "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    os.environ.update(launcher)
+    try:
+        dev = mesh.init_distributed(cfg.mesh)
+        backend = torch.distributed.get_backend()
+        tcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, steps_per_call=DP_UPDATES))
+        dp, plain = Trainer(tcfg, dev, dp=True), Trainer(tcfg, dev, dp=False)
+        require(dp.dp and not plain.dp and mesh.world() == 1,
+                "one DP rank beside the plain trainer")
+        state0 = plain.init_state(seed)
+        ends, recs = {}, {}
+        for name, tr in (("plain", plain), ("dp", dp)):
+            workdir = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{name}_"))
+            try:
+                ends[name] = tr.fit(state0, segment_sampler(cfg, utts,
+                                                            seed + 3),
+                                    workdir, steps=DP_UPDATES)
+                recs[name] = (workdir / "metrics.jsonl").read_text()
+                require((workdir / "checkpoints" / str(DP_UPDATES)).is_dir(),
+                        f"{name} fit's checkpoint")
+            finally:
+                shutil.rmtree(workdir)
+        same = (torch.equal(ends["dp"].params, ends["plain"].params)
+                and all(torch.equal(ends["dp"].opt_state[k],
+                                    ends["plain"].opt_state[k])
+                        for k in ("mu", "nu")))
+        losses = [json.loads(r)["loss"] for r in recs["dp"].splitlines()]
+        checks = [{"check": "dp_fit_params_equal_plain", "updates":
+                   DP_UPDATES, "ok": same},
+                  {"check": "dp_records_equal_plain",
+                   "ok": [json.loads(r)["loss"] for r in
+                          recs["plain"].splitlines()] == losses}]
+
+        # ms per update in turns, on batches already on the card
+        src = segment_sampler(cfg, utts, seed + 4)
+        batches = [plain.to_device(next(src)) for _ in range(DP_UPDATES)]
+
+        def turn(tr):
+            st = state0
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for b in batches:
+                st, _ = tr.step(st, b)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / DP_UPDATES
+
+        turn(plain), turn(dp)                        # warm-up
+        times = {"plain": [], "dp": []}
+        for name in ("plain", "dp", "dp", "plain") * DP_ROUNDS:
+            times[name].append(turn(plain if name == "plain" else dp))
+        buf = torch.cat([state0.params, torch.zeros(1, device=dev)])
+        mesh.all_reduce_mean(buf)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        h0 = time.perf_counter()
+        for _ in range(DP_REDUCE_REPS):
+            mesh.all_reduce_mean(buf)
+        # the host's time to issue them, before waiting for the device
+        reduce_host_ms = 1e3 * (time.perf_counter() - h0) / DP_REDUCE_REPS
+        end.record()
+        torch.cuda.synchronize()
+        reduce_ms = start.elapsed_time(end) / DP_REDUCE_REPS
+    finally:
+        mesh.shutdown()
+        for v in launcher:
+            os.environ.pop(v, None)
+    require(not torch.distributed.is_initialized(), "process group left")
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    emit("train_dp", config=cfg.name, backend=backend, world=1,
+         device=str(dev), B=cfg.data.batch_size, updates=DP_UPDATES,
+         losses=losses, ms_per_update_plain=ms["plain"],
+         ms_per_update_dp=ms["dp"], turns=times,
+         dp_over_plain=ms["dp"] / ms["plain"],
+         dp_faster_pairs=sum(d < p for d, p in zip(times["dp"],
+                                                   times["plain"])),
+         all_reduce_ms=reduce_ms, all_reduce_host_ms=reduce_host_ms,
+         all_reduce_bytes=4 * buf.numel(),
+         scaling="not measured: one card on this host "
+                 f"(torch.cuda.device_count() = {torch.cuda.device_count()})",
+         checks=checks, card=smi)
+    for c in checks:
+        require(c["ok"], f"train_dp: {c}")
+
+
+def phase_decode_dp(cfg, model, pp, seed: int, smi: str) -> None:
+    """`decode --dp`'s path (A8, A5b): the 8 main-path utterances through
+    decode_batch with the rows split by `generate_dp`, once over every
+    visible card and once over two shards on cuda:0 (the split and the
+    gather on the card), each equal to the single call, to the bit; the
+    wall time of each and the launches."""
+    mc = cfg.model
+    layout = decode.kernel_layout(mc, "auto")
+    name = layout_variant(mc, layout)
+    _, utts = utterances(mc, seed + 7, 75, 150)
+    runs, outs = {}, {}
+    for key, devices in (("single", None),
+                         ("all_cards", mesh.dp_devices(cfg.mesh)),
+                         ("two_shards_one_card", ["cuda:0", "cuda:0"])):
+        ar_kernel.launches.clear()
+        outs[key], ms = host_ms(lambda: decode.decode_batch(
+            model, cfg, utts,
+            generator=torch.Generator(device="cuda").manual_seed(seed),
+            layout=layout, devices=devices))
+        runs[key] = {"devices": [str(d) for d in devices or ["cuda:0"]],
+                     "wall_ms": ms, "launches": dict(ar_kernel.launches)}
+    checks = []
+    for key in ("all_cards", "two_shards_one_card"):
+        e = max(float(np.abs(a - b).max())
+                for a, b in zip(outs[key], outs["single"]))
+        n_dev = len(runs[key]["devices"])
+        checks.append({"check": f"{key}_vs_single", "max_abs_err": e,
+                       "limit": 0.0,
+                       "ok": e == 0.0 and runs[key]["launches"]
+                       == {name: n_dev}})
+    emit("decode_dp", config=cfg.name, variant=name, kernel=layout,
+         utterances=len(utts), cards=torch.cuda.device_count(), runs=runs,
+         checks=checks, card=smi)
+    for c in checks:
+        require(c["ok"], f"decode_dp: {c}")
+
+
+class LaunchTimer:
+    """CUDA events around every `ar_kernel.generate` call made while it is
+    active (the stream pool's launches); `take()` returns their summed
+    device time since the last take."""
+
+    def __enter__(self):
+        self._orig, self._events = ar_kernel.generate, []
+
+        def timed(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = self._orig(*a, **k)
+            ev[1].record()
+            self._events.append(ev)
+            return out
+
+        ar_kernel.generate = timed
+        return self
+
+    def take(self) -> float:
+        torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self._events)
+        self._events = []
+        return ms
+
+    def __exit__(self, *exc):
+        ar_kernel.generate = self._orig
+
+
+class HostSplit:
+    """Host seconds spent in the stream pool's per-member calls while it
+    is active, by kind: `_next_block` (the haloed window's upsampling),
+    `_prepare_block` (uniforms, their copy, the warm-up's
+    concatenations), `_finish_block` (the history's roll); `take()`
+    returns {kind: ms} since the last take. No synchronization is added:
+    each is the host's time in the call, waits included."""
+
+    KINDS = ("_next_block", "_prepare_block", "_finish_block")
+
+    def __enter__(self):
+        self._orig = {k: getattr(StreamingSynthesizer, k) for k in self.KINDS}
+        self._ms = dict.fromkeys(self.KINDS, 0.0)
+        for k, f in self._orig.items():
+            setattr(StreamingSynthesizer, k, self._timed(k, f))
+        return self
+
+    def _timed(self, kind, f):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **kw)
+            finally:
+                self._ms[kind] += 1e3 * (time.perf_counter() - t0)
+        return timed
+
+    def take(self) -> dict:
+        out, self._ms = self._ms, dict.fromkeys(self.KINDS, 0.0)
+        return out
+
+    def __exit__(self, *exc):
+        for k, f in self._orig.items():
+            setattr(StreamingSynthesizer, k, f)
+
+
+class WarningCount(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.count = 0
+
+    def emit(self, record):
+        self.count += 1
+
+
+def standalone_stream(pp, model, mc, hop, frames, seed: int) -> np.ndarray:
+    """A batch=1 session with `seed`, fed `frames` in STREAM_BLOCK-frame
+    pushes, then flushed: the samples a pooled stream must equal."""
+    syn = StreamingSynthesizer(pp, model, mc, hop, batch=1,
+                               block_frames=STREAM_BLOCK, seed=seed)
+    pieces = [syn.push(frames[None, i:i + STREAM_BLOCK])
+              for i in range(0, len(frames), STREAM_BLOCK)]
+    return np.concatenate(pieces + [syn.flush()], axis=1)[0]
+
+
+def phase_stream_pool(cfg, model, pp, seed: int, smi: str
+                      ) -> tuple[int, int]:
+    """The multi-tenant pool (A9) at config 2, fp32 unfused on the
+    decode's layout, 80 ms blocks: at 1 and 8 streams, at the card's
+    clusters for the layout and at one more (two waves), every stream
+    pushed STREAM_BLOCK frames before each step(); per steady step (a
+    warm-started block from every stream) wall ms, the launches' CUDA
+    event ms, the rest, launches, and the streams' audio-s per wall-s;
+    the first, a middle and the last stream equal to standalone sessions
+    to the bit; then a staggered open/end scenario, every stream equal to
+    its session. Returns the pool's kernel launches and the most it
+    launched in one step(), over every count's steps, tails and the
+    staggered scenario."""
+    mc, hop, sr = cfg.model, cfg.data.hop_length, cfg.data.sample_rate
+    layout = decode.kernel_layout(mc, "float32")
+    name = layout_variant(mc, layout)
+    warnings = WarningCount()
+    logging.getLogger("shallow_wavenet_tpu_torch.models.streaming"
+                      ).addHandler(warnings)
+    rng = np.random.default_rng(seed + 11)
+    probe = StreamPool(pp, model, mc, hop, slots=1,
+                       block_frames=STREAM_BLOCK)
+    require(probe.cluster == layout["cluster"] and layout["fused"] == 0,
+            f"the pool's cluster {probe.cluster}, the decode's {layout}")
+    at_once = probe.clusters_at_once
+    counts = sorted({*POOL_STREAMS, at_once, at_once + 1})
+    block_s = STREAM_BLOCK * hop / sr
+    runs, checks, launches, most = {}, [], 0, 0
+    with LaunchTimer() as timer, HostSplit() as split:
+        for count in counts:
+            frames = rng.standard_normal(
+                (count, STREAM_FRAMES, mc.aux_channels)).astype(np.float32)
+            pool = StreamPool(pp, model, mc, hop, slots=count,
+                              block_frames=STREAM_BLOCK)
+            sids = [pool.open(seed=seed + 1000 + i) for i in range(count)]
+            got = {sid: [] for sid in sids}
+            warned = warnings.count
+            ar_kernel.launches.clear()
+            steps, splits = [], []
+            timer.take()
+            for lo in range(0, STREAM_FRAMES, STREAM_BLOCK):
+                for i, sid in enumerate(sids):
+                    pool.push(sid, frames[i, lo:lo + STREAM_BLOCK])
+                d0 = pool.dispatches
+                split.take()
+                t0 = time.perf_counter()
+                out = pool.step()
+                wall = 1e3 * (time.perf_counter() - t0)
+                splits.append(split.take())
+                steps.append((wall, timer.take(), pool.dispatches - d0,
+                              len(out)))
+                for sid, w in out.items():
+                    got[sid].append(w)
+            for sid in sids:
+                pool.end(sid)
+            while pool.active:
+                d0 = pool.dispatches
+                for sid, w in pool.step().items():
+                    got[sid].append(w)
+                most = max(most, pool.dispatches - d0)
+            most = max([most, *(x[2] for x in steps)])
+            require(most <= 2, f"at most two launches per step: {most}")
+            timer.take()
+            launched = dict(ar_kernel.launches)
+            launches += launched.get(name, 0)
+            require(set(launched) == {name}
+                    and launched[name] == pool.dispatches,
+                    f"the pool launched {launched}, {pool.dispatches}")
+            emitting = [i for i, x in enumerate(steps) if x[3]][1:]
+            steady = np.array([steps[i] for i in emitting])
+            host = {k.strip("_"): float(np.mean([splits[i][k]
+                                                 for i in emitting]))
+                    for k in HostSplit.KINDS}
+            require(len(steady) and (steady[:, 3] == count).all()
+                    and (steady[:, 2] == 1).all(),
+                    f"{count} streams: one launch of every stream per step")
+            wall, kern = steady[:, 0], steady[:, 1]
+            held = sorted({0, count // 2, count - 1})
+            errs = {}
+            for i in held:
+                want = standalone_stream(pp, model, mc, hop, frames[i],
+                                         seed + 1000 + i)
+                wav = np.concatenate(got[sids[i]])
+                errs[i] = (float(np.abs(wav - want).max())
+                           if wav.shape == want.shape else float("inf"))
+            timer.take()
+            checks.append({"check": f"{count}_streams_vs_sessions",
+                           "streams": held, "max_abs_err": max(errs.values()),
+                           "limit": 0.0,
+                           "ok": max(errs.values()) == 0.0})
+            checks.append({"check": f"{count}_streams_waves_warning",
+                           "warnings": warnings.count - warned,
+                           "ok": warnings.count - warned
+                           == (1 if count > at_once else 0)})
+            runs[str(count)] = {
+                "steady_steps": len(steady),
+                "step_ms_mean": float(wall.mean()),
+                "step_ms_p95": float(np.percentile(wall, 95)),
+                "kernel_ms_mean": float(kern.mean()),
+                "non_kernel_ms_mean": float((wall - kern).mean()),
+                "host_ms_per_step": host,
+                "launches_per_step": float(steady[:, 2].mean()),
+                "audio_s_per_wall_s": float(count * block_s * len(steady)
+                                            / (wall.sum() / 1e3)),
+                "launches": launched[name]}
+            for c in checks[-2:]:
+                require(c["ok"], f"stream_pool: {c}")
+
+        # staggered: streams open on their step (or when a slot frees),
+        # push a block's frames a step, end after their last frame
+        pool = StreamPool(pp, model, mc, hop, slots=POOL_STAGGER_SLOTS,
+                          block_frames=STREAM_BLOCK)
+        frames = [rng.standard_normal((n, mc.aux_channels)).astype(
+            np.float32) for _, n in POOL_STAGGER]
+        waiting = list(range(len(POOL_STAGGER)))
+        sid_of, pushed, got, per_step = {}, {}, {}, []
+        ar_kernel.launches.clear()
+        step = 0
+        while waiting or pool.active:
+            while (waiting and POOL_STAGGER[waiting[0]][0] <= step
+                   and pool.free_slots):
+                i = waiting.pop(0)
+                sid_of[i] = pool.open(seed=seed + 2000 + i)
+                pushed[i], got[i] = 0, []
+            for i, sid in sid_of.items():
+                if sid in pool.active and pushed[i] < len(frames[i]):
+                    pool.push(sid, frames[i][pushed[i]:
+                                             pushed[i] + STREAM_BLOCK])
+                    pushed[i] += STREAM_BLOCK
+                    if pushed[i] >= len(frames[i]):
+                        pool.end(sid)
+            d0 = pool.dispatches
+            out = pool.step()
+            per_step.append(pool.dispatches - d0)
+            for i, sid in sid_of.items():
+                if sid in out:
+                    got[i].append(out[sid])
+            step += 1
+            require(step < 200, "the staggered streams end")
+        timer.take()
+    launches += ar_kernel.launches.get(name, 0)
+    most = max([most, *per_step])
+    logging.getLogger("shallow_wavenet_tpu_torch.models.streaming"
+                      ).removeHandler(warnings)
+    serr = max(float(np.abs(np.concatenate(got[i]) - standalone_stream(
+        pp, model, mc, hop, frames[i], seed + 2000 + i)).max())
+        for i in range(len(frames)))
+    checks.append({"check": "staggered_vs_sessions",
+                   "streams": len(frames), "max_abs_err": serr,
+                   "limit": 0.0, "steps": step,
+                   "launches_per_step_max": max(per_step),
+                   "steps_with_two_launches": per_step.count(2),
+                   "ok": serr == 0.0 and max(per_step) <= 2
+                   and per_step.count(2) > 0})
+    emit("stream_pool", config=cfg.name, variant=name, kernel=layout,
+         block_frames=STREAM_BLOCK, frames=STREAM_FRAMES, hop=hop,
+         block_ms=1e3 * block_s, warmup=probe.M, clusters_at_once=at_once,
+         runs=runs, launches=launches, launches_per_step_max=most,
+         checks=checks, card=smi)
+    for c in checks:
+        require(c["ok"], f"stream_pool: {c}")
+    require(most <= 2, f"at most two launches per step: {most}")
+    return launches, most
+
+
 def cluster_fits(mc, dtype: str, fused: int, limit: int):
     """Occupancy and bytes of the cluster kernel for every size of
     CLUSTER_N, weights resident and streamed ({N: {...}}), and the
@@ -2136,6 +2574,10 @@ def run(args, smi: str, builds: dict) -> int:
     phase_deep_fused_times(dcfg.model, dmodel, dpp, args.seed)
     phase_streaming(cfg, model, pp, args.seed, smi)
     phase_train(cfg, args.seed, smi)
+    phase_train_dp(cfg, args.seed, smi)
+    phase_decode_dp(cfg, model, pp, args.seed, smi)
+    pool_launches, pool_most = phase_stream_pool(cfg, model, pp, args.seed,
+                                                 smi)
     held = phase_cluster(smi, regs, {cfg.name: (cfg.model, model, pp),
                                      dcfg.name: (dcfg.model, dmodel, dpp)})
     phase_kfuse(smi)
@@ -2164,7 +2606,9 @@ def run(args, smi: str, builds: dict) -> int:
     # the cluster kernel on the main paths (config 2, deep fp32, deep
     # bf16), unfused and with the fused window
     kernels = [row(main_path, "ar_cluster.cu", ":560",
-                   check_ms=check["cluster_kernel_ms"])]
+                   check_ms=check["cluster_kernel_ms"],
+                   stream_pool_launches=pool_launches,
+                   stream_pool_launches_per_step_max=pool_most)]
     kernels += [row(d, "ar_cluster.cu", r)
                 for d, r in zip(deep, (":560", ":616"))]
     kernels.append(row(fused_main, "ar_cluster.cu", ":368",

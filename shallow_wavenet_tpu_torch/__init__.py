@@ -9,10 +9,16 @@ package so each function's counterpart is easy to find:
                kernel wrapper and its build
   csrc/      — hand-written CUDA C++ kernels (compiled with nvcc at first use)
   models/    — torch WaveNet, output heads (losses, samplers), AR generation
+               (one device, or a batch's rows split over devices), the
+               streaming session and the multi-tenant StreamPool
   data/      — file lists, segment sampling, prefetching, decode batching,
                wav and HDF5 I/O, the synthetic corpus
-  training/  — the teacher-forced trainer and its checkpoints
-  bin/       — the train and copy-synthesis decode CLIs, the probes
+  training/  — the teacher-forced trainer (one device, or data-parallel
+               over ranks) and its checkpoints
+  parallel/  — the launcher's process group (torchrun), per-rank file-list
+               shards, the gradient's mean all-reduce
+  bin/       — the train (data-parallel under torchrun) and copy-synthesis
+               decode (--dp) CLIs, the probes
 
 Entry points take `device=None`, meaning "cuda", and raise when CUDA is
 absent; pass `device="cpu"` to run the plain PyTorch versions on the host.

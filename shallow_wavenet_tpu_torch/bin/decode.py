@@ -28,6 +28,14 @@ a fused layout that fits nowhere raises instead of dropping --fused.
     python -m shallow_wavenet_tpu_torch.bin.decode --preset shallow_laplace_single \
         --fused 4 --eval-scp eval.scp --feats-dir feats --stats stats.h5 \
         --params params.npz --outdir out
+
+`--dp` splits each batch's rows over the visible GPUs (cut to
+`mesh.num_devices`; with `--device cpu` the host stands in for
+`max(1, mesh.num_devices)` devices), one kernel call per device
+(`models.generate.generate_dp`). The batch is padded to a multiple of the
+devices by repeating its last row, after the noise is drawn at the true
+batch shape, and trimmed after: the samples are the single-device
+decode's with the same --seed.
 """
 
 from __future__ import annotations
@@ -49,11 +57,14 @@ from shallow_wavenet_tpu_torch.data.audio_io import write_wav
 from shallow_wavenet_tpu_torch.data.dataset import (
     pad_batch_for_decode, read_file_list,
 )
-from shallow_wavenet_tpu_torch.models.generate import generate_segmented
+from shallow_wavenet_tpu_torch.models.generate import (
+    generate_dp, generate_segmented,
+)
 from shallow_wavenet_tpu_torch.models.wavenet import (
     WaveNet, extract_plain_params, load_params_npz, params_from_flax,
 )
 from shallow_wavenet_tpu_torch.ops import ar_kernel
+from shallow_wavenet_tpu_torch.parallel import dp_devices
 from shallow_wavenet_tpu_torch.training import Trainer
 
 log = logging.getLogger("decode")
@@ -161,7 +172,7 @@ def warn_waves(model_cfg, layout: dict, batch_size: int, device=None
 @torch.no_grad()
 def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
                  generator=None, segment_samples: int = 0, device=None,
-                 layout: dict | None = None):
+                 layout: dict | None = None, devices=None):
     """Generate one padded batch; returns the list of trimmed waveforms.
 
     noise: (B, T) uniforms for the padded batch, or None to draw them from
@@ -170,13 +181,20 @@ def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
     decodes in bounded kernel calls with teacher-forced warm-starts (same
     samples; `generate_segmented` checks the warm-start length). layout:
     the kernel layout (`kernel_layout`), or None for
-    kernel_layout(cfg.model, "auto", device).
+    kernel_layout(cfg.model, "auto", device). devices: split the rows over
+    these devices (`--dp`): the conditioning is upsampled and the noise
+    drawn on `device` at the true batch shape, both padded to a multiple
+    of the devices by repeating the last row, decoded by `generate_dp` and
+    trimmed, so every row is the single call's.
     """
     dev = resolve_device(device)
     if layout is None:
         layout = kernel_layout(cfg.model, "auto", dev)
     if segment_samples % 64 != 0:
         raise ValueError("--segment-samples must be a multiple of 64")
+    if devices and segment_samples > 0:
+        raise ValueError("--dp and --segment-samples are mutually "
+                         "exclusive (--dp splits whole utterances)")
     cond, _, n_samples = pad_batch_for_decode(utts, cfg.data.hop_length)
     spk = (torch.tensor([u.speaker for u in utts], device=dev)
            if cfg.model.n_speakers > 0 else None)
@@ -188,7 +206,13 @@ def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
             raise ValueError("decode_batch needs noise or a generator")
         noise = ar_kernel.uniform_noise(c_up.shape[:2], generator)
     noise = torch.as_tensor(noise).to(dev)
-    if segment_samples > 0:
+    if devices:
+        B, pad = len(utts), -len(utts) % len(devices)
+        c_up, noise = (torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+                       for x in (c_up, noise))
+        wav = generate_dp(pp, cfg.model, c_up, noise, devices,
+                          **layout)[:B]
+    elif segment_samples > 0:
         wav = generate_segmented(pp, cfg.model, c_up, noise,
                                  segment_samples, device=dev, **layout)
     else:
@@ -202,14 +226,19 @@ def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
                       generator, batch_size: int = 8,
                       segment_samples: int = 0, device=None,
                       kernel_dtype: str = "auto", fused: int = 0,
-                      model_step: int | None = None) -> dict:
+                      model_step: int | None = None, devices=None) -> dict:
     """Decode `utts` in batches, write `<outdir>/<name>` wavs and
     `decode_summary.json`; returns the summary. The kernel layout is
     chosen once, from `kernel_dtype` and `fused`, for every batch.
-    model_step: the training step of the weights (None for an .npz)."""
-    layout = kernel_layout(cfg.model, kernel_dtype, device, fused)
+    model_step: the training step of the weights (None for an .npz).
+    devices: split each batch's rows over them (`--dp`); the layout and
+    the waves are those of the first device at the per-device batch."""
+    per_device = -(-batch_size // len(devices)) if devices else batch_size
+    layout = kernel_layout(cfg.model, kernel_dtype,
+                           devices[0] if devices else device, fused)
     log.info("AR kernel layout: %s", layout)
-    warn_waves(cfg.model, layout, batch_size, device)
+    warn_waves(cfg.model, layout, per_device,
+               devices[0] if devices else device)
     outdir = Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     sr = cfg.data.sample_rate
@@ -219,7 +248,7 @@ def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
         wavs = decode_batch(model, cfg, utts[i: i + batch_size],
                             generator=generator,
                             segment_samples=segment_samples, device=device,
-                            layout=layout)
+                            layout=layout, devices=devices)
         wall = time.perf_counter() - t0
         audio_s = sum(len(w) for w in wavs) / sr
         total_audio_s += audio_s
@@ -235,6 +264,8 @@ def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
         "audio_seconds_per_s": total_audio_s / max(total_wall, 1e-9),
         "kernel": layout,
     }
+    if devices:
+        summary["dp_devices"] = [str(d) for d in devices]
     (outdir / "decode_summary.json").write_text(json.dumps(summary, indent=2))
     log.info("decode: %s", summary)
     return summary
@@ -270,6 +301,11 @@ def main(argv=None):
                         "recurrence expanded into the gate inputs within "
                         "blocks of W layers (0: unfused; not bit-exact "
                         "against it)")
+    p.add_argument("--dp", action="store_true",
+                   help="split each batch's utterances over the visible "
+                        "GPUs (cut to mesh.num_devices), one kernel call "
+                        "per GPU; the same samples as one device with the "
+                        "same --seed")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
@@ -292,11 +328,14 @@ def main(argv=None):
                                  load_params_npz(args.params)).to(dev)
         step = None
     generator = torch.Generator(device=dev).manual_seed(args.seed)
+    devices = dp_devices(cfg.mesh, dev) if args.dp else None
+    if devices:
+        log.info("--dp: rows split over %s", [str(d) for d in devices])
     decode_utterances(model, cfg, utts, names, args.outdir, generator,
                       batch_size=args.batch_size,
                       segment_samples=args.segment_samples, device=dev,
                       kernel_dtype=args.kernel_dtype, fused=args.fused,
-                      model_step=step)
+                      model_step=step, devices=devices)
 
 
 if __name__ == "__main__":

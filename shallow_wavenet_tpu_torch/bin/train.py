@@ -1,13 +1,22 @@
-"""Training CLI — the torch twin of `shallow_wavenet_tpu/bin/train.py`, on
-one device. Resumes automatically from the latest checkpoint in --workdir.
+"""Training CLI — the torch twin of `shallow_wavenet_tpu/bin/train.py`.
+Resumes automatically from the latest checkpoint in --workdir.
 
     python -m shallow_wavenet_tpu_torch.bin.train --preset shallow_laplace_single \
         --train-scp train.scp --dev-scp dev.scp --feats-dir feats \
         --stats stats.h5 --workdir exp
 
-`--device cpu` trains on the host. There is no --profile, --debug-nans or
-data-parallel option yet; a config whose mesh asks for more than one device
-is refused.
+Data-parallel over N GPUs of one host, one process per GPU:
+
+    torchrun --nproc-per-node N -m shallow_wavenet_tpu_torch.bin.train ...
+
+Each rank trains on its shard of the utterance list (`process_shard`) and
+draws `data.batch_size` rows per update from it, so the global batch is
+`batch_size x N`, as the JAX CLI draws `batch_size x local devices` rows
+per process. Without the launcher a config whose mesh asks for more than
+one device (`multihost`, `num_devices > 1`) trains on the one device with
+a warning, as the JAX CLI does (`parallel.init_distributed`). `--device
+cpu` trains on the host (gloo under the launcher). There is no --profile
+or --debug-nans yet.
 """
 
 from __future__ import annotations
@@ -17,11 +26,15 @@ import logging
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from shallow_wavenet_tpu_torch.bin.common import (
     add_config_args, load_utterances, resolve_config, setup_logging,
 )
 from shallow_wavenet_tpu_torch.data.dataset import SegmentSampler, read_file_list
+from shallow_wavenet_tpu_torch.parallel import (
+    init_distributed, process_shard, shutdown,
+)
 from shallow_wavenet_tpu_torch.training import Trainer
 
 log = logging.getLogger("train")
@@ -51,10 +64,17 @@ def main(argv=None):
     args = p.parse_args(argv)
     setup_logging()
     cfg = resolve_config(args)
-    if cfg.mesh.multihost or cfg.mesh.num_devices > 1:
-        raise SystemExit("data-parallel training is not ported yet: set "
-                         "mesh.num_devices=0 and mesh.multihost=false")
-    trainer = Trainer(cfg, args.device)
+    joined = dist.is_initialized()
+    device = init_distributed(cfg.mesh, args.device)
+    try:
+        _train(args, cfg, device)
+    finally:
+        if not joined:
+            shutdown()
+
+
+def _train(args, cfg, device):
+    trainer = Trainer(cfg, device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -62,7 +82,8 @@ def main(argv=None):
                            args.waveform_dir,
                            highpass_cutoff=cfg.data.highpass_cutoff,
                            sample_rate=cfg.data.sample_rate)
-    log.info("loaded %d utterances", len(utts))
+    utts = process_shard(utts)
+    log.info("loaded %d utterances (this rank)", len(utts))
     sampler = SegmentSampler(
         utts, batch_size=cfg.data.batch_size,
         segment_length=cfg.data.segment_length,

@@ -7,6 +7,8 @@
   on any device.
 - `generate_segmented`: long utterances in fixed-size kernel calls, each
   segment warm-started by teacher forcing the previous segment's samples.
+- `generate_dp`: the rows of one batch split over devices, each shard one
+  kernel call on its own device, gathered on the host.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from shallow_wavenet_tpu_torch.config import ModelConfig
 from shallow_wavenet_tpu_torch.ops import ar_kernel
 from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_quantize
+from shallow_wavenet_tpu_torch.parallel.mesh import dp_devices
 
 
 def seed_feedback(cfg: ModelConfig):
@@ -75,3 +78,45 @@ def generate_segmented(pp: dict, cfg: ModelConfig, c_up, noise,
                                  warmup=M, **kw)
         segs.append(wav[:, M:])
     return torch.cat(segs, dim=1)
+
+
+def generate_dp(pp: dict, cfg: ModelConfig, c_up, noise, devices=None, *,
+                mode: str = "sample", chunk: int = 64, dtype: str = "float32",
+                stream: bool = False, fused: int = 0, cluster: int = 0):
+    """The rows of (B, T) generation split over `devices` (torch devices or
+    their names; one may repeat; None: every visible CUDA device, raising
+    without CUDA): shard i, rows [i B/n, (i+1) B/n), is one
+    `ar_kernel.generate` call on devices[i] with that device's own
+    `KernelWeights` (made once per distinct device). Every shard is
+    launched before any result is collected, so the cards run at once,
+    and there is no traffic between them during the AR loop; the shards
+    are gathered on the host, (B, T) fp32 on the CPU. The counterpart of
+    the JAX `generate_dp` (shard_map over a ('data',) mesh).
+
+    noise: (B, T) uniforms, required, so that the split cannot change
+    which uniform a row draws. B must be divisible by len(devices). The
+    layout keywords (chunk, dtype, stream, fused, cluster) pass to every
+    call. A kernel's rows are independent of the batch, so each row
+    equals the single call's; on the CPU, the plain version's products
+    at another batch size may sum in another order."""
+    devices = [torch.device(d) for d in
+               (dp_devices() if devices is None else devices)]
+    B = c_up.shape[0]
+    if not devices or B % len(devices):
+        raise ValueError(f"batch {B} does not split over {len(devices)} "
+                         f"devices")
+    if noise is None or tuple(noise.shape) != tuple(c_up.shape[:2]):
+        raise ValueError("generate_dp needs (B, T) noise")
+    per = B // len(devices)
+    weights = {}
+    outs = []
+    for i, dev in enumerate(devices):
+        if dev not in weights:
+            weights[dev] = ar_kernel.kernel_weights(pp, cfg, dtype, fused,
+                                                    dev, cluster)
+        rows = slice(i * per, (i + 1) * per)
+        outs.append(ar_kernel.generate(
+            weights[dev], cfg, c_up[rows].to(dev), noise=noise[rows].to(dev),
+            mode=mode, device=dev, chunk=chunk, dtype=dtype, stream=stream,
+            fused=fused, cluster=cluster))
+    return torch.cat([o.cpu() for o in outs])

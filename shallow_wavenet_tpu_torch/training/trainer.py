@@ -1,5 +1,6 @@
 """Teacher-forced training loop — the torch twin of
-`shallow_wavenet_tpu/training/trainer.py`, on one device.
+`shallow_wavenet_tpu/training/trainer.py`, on one device or data-parallel
+over the ranks of a process group (`parallel.init_distributed`).
 
 The step is the JAX step's math in eager PyTorch:
 - the loss: mu-law input and target for the softmax head, the port's
@@ -14,7 +15,8 @@ The step is the JAX step's math in eager PyTorch:
 - `grad_accum` microbatches of contiguous rows, one update on their mean;
   `steps_per_call` = K updates per `multi_step` call over a (K, B, ...)
   group already on the device; `context_dropout` on the input copy, its
-  mask drawn on the host from (seed, step, microbatch).
+  mask drawn on the host from (seed, step, microbatch), data-parallel at
+  the global batch's rows, of which each rank keeps its own.
 
 The forward splits the flat vector into views (one `split`, whose backward
 is one concatenation with zeros for unreached parameters) and runs the
@@ -22,6 +24,23 @@ model on them through `torch.func.functional_call`. Checkpoints are
 directories `<workdir>/checkpoints/<step>/`: `.npz` files in the flax
 parameter-tree layout (`models.wavenet.save_params_npz` names), Adam's
 moments likewise, and a JSON file with the step and the sampler state.
+
+Data parallelism. The JAX DP step computes each device's gradient on its
+rows, the mean over the data axis (inserted by XLA), then the global-norm
+clip on that mean. Here each rank computes the gradient of its own rows
+(its `grad_accum` microbatches summed locally), then one `all_reduce` of
+the flat gradient with the loss appended makes their mean on every rank,
+before the clip and Adam. `DistributedDataParallel` would have nothing to
+hook: the step differentiates with respect to the flat vector
+`TrainState.params`, not the module's `nn.Parameter`s, and one all-reduce
+of that vector per update is DDP's bucketed reduce with a single bucket.
+Every rank applies the same reduced gradient to the same parameters, so
+every rank ends each update with the same parameters, to the bit. `fit`
+writes `config.json`, `metrics.jsonl` and the checkpoints on rank 0 alone
+(the JAX `fit`'s `is_main`); every rank computes, and the ranks meet at a
+barrier after each save. Each rank keeps its own sampler state: the
+checkpoint holds every rank's, gathered to rank 0, and `restore` hands
+each rank its own.
 
 No hand-written kernel lies on this path: the JAX step is one XLA program
 with no Pallas call, and its products stay `torch.matmul` here.
@@ -42,6 +61,7 @@ from typing import Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from shallow_wavenet_tpu_torch import resolve_device
@@ -53,6 +73,7 @@ from shallow_wavenet_tpu_torch.models.wavenet import (
     save_params_npz,
 )
 from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_quantize
+from shallow_wavenet_tpu_torch.parallel import mesh
 
 log = logging.getLogger(__name__)
 
@@ -71,12 +92,20 @@ class TrainState:
 
 
 class Trainer:
-    """One-device trainer. `device=None` means CUDA, and raises without
-    it; `device="cpu"` runs the same code on the host."""
+    """The trainer of one device, or of one rank of a data-parallel group.
+    `device=None` means CUDA, and raises without it; `device="cpu"` runs
+    the same code on the host. dp: reduce each update over the process
+    group's ranks; None (the default) does so when a group of more than
+    one rank is up, True also at world size 1 (the collective then runs
+    and changes no bit)."""
 
-    def __init__(self, cfg: Config, device=None):
+    def __init__(self, cfg: Config, device=None, dp: bool | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dp = mesh.world() > 1 if dp is None else bool(dp)
+        if self.dp and not dist.is_initialized():
+            raise ValueError("dp=True needs a process group "
+                             "(parallel.init_distributed)")
         # the module's own parameters stay on the host, unused: every call
         # passes the state's views through functional_call
         self.model = WaveNet(cfg.model)
@@ -153,14 +182,20 @@ class Trainer:
 
         Span length = train.context_dropout_span_ms; each span is dropped
         i.i.d. with probability train.context_dropout. Only the INPUT copy
-        is masked (the caller keeps the unmasked waveform for targets)."""
+        is masked (the caller keeps the unmasked waveform for targets).
+        Data-parallel, every rank draws the mask of the global microbatch
+        (the ranks' rows in rank order) and keeps its own rows, as JAX's DP
+        step draws one (global B, n_spans) mask: each row of the global
+        batch gets a mask of its own, the one the single-process update on
+        the row concatenation of the ranks' batches gives it."""
         cfg = self.cfg
-        t = x.shape[1]
+        b, t = x.shape
         span = max(1, int(round(cfg.train.context_dropout_span_ms
                                 * cfg.data.sample_rate / 1000.0)))
         n_spans = -(-t // span)
-        keep = (torch.rand((x.shape[0], n_spans), generator=generator)
-                < 1.0 - cfg.train.context_dropout)
+        r, n = (mesh.rank(), mesh.world()) if self.dp else (0, 1)
+        draw = torch.rand((b * n, n_spans), generator=generator)
+        keep = draw[r * b:(r + 1) * b] < 1.0 - cfg.train.context_dropout
         mask = keep.repeat_interleave(span, dim=1)[:, :t]
         return x * mask.to(device=x.device, dtype=x.dtype)
 
@@ -259,11 +294,20 @@ class Trainer:
         return TrainState(params=params, opt_state={"mu": mu, "nu": nu},
                           step=count), norm
 
+    def _all_reduce(self, loss: torch.Tensor, grad: torch.Tensor):
+        """The mean of (loss, gradient) over the ranks: one all_reduce of
+        the flat gradient with the loss appended."""
+        buf = mesh.all_reduce_mean(torch.cat([grad, loss.reshape(1)]))
+        return buf[-1], buf[:-1]
+
     def step(self, state: TrainState, batch: dict):
         """One update. Returns (new state, {"loss", "grad_norm"}) with the
         metrics as device scalars (no host sync); `state` is left as it
-        was."""
+        was. Data-parallel: `batch` is this rank's rows, and the loss and
+        gradient are the means over the ranks."""
         loss, grad = self.value_and_grad(state, batch)
+        if self.dp:
+            loss, grad = self._all_reduce(loss, grad)
         state, norm = self._apply(state, grad)
         return state, {"loss": loss, "grad_norm": norm}
 
@@ -280,9 +324,13 @@ class Trainer:
     # ---- eval ------------------------------------------------------------
     @torch.no_grad()
     def eval_loss(self, state: TrainState, batches: list[dict]) -> float:
-        losses = [float(self._loss_fn(state.params, self.to_device(b)))
-                  for b in batches]
-        return float(np.mean(losses))
+        """The mean loss over `batches` (data-parallel: and over the
+        ranks, each with its own batches)."""
+        losses = torch.stack([self._loss_fn(state.params, self.to_device(b))
+                              for b in batches])
+        if self.dp:
+            mesh.all_reduce_mean(losses)
+        return float(np.mean(losses.tolist()))
 
     # ---- checkpointing ---------------------------------------------------
     @staticmethod
@@ -322,7 +370,10 @@ class Trainer:
     def restore(self, workdir: str | Path, state: TrainState
                 ) -> tuple[TrainState, dict | None, int]:
         """Restore the latest checkpoint. Returns (state, sampler_state,
-        step); `state` untouched, None and 0 if there is none."""
+        step); `state` untouched, None and 0 if there is none. In a
+        process group the sampler state is this rank's own; a checkpoint
+        written by another number of ranks has none for it (a warning,
+        and None)."""
         latest = self.latest_step(workdir)
         if latest is None:
             return state, None, 0
@@ -334,7 +385,34 @@ class Trainer:
             opt_state={k: self.flat_params(opt[k]) for k in ("mu", "nu")},
             step=int(meta["step"]))
         log.info("restored checkpoint at step %d", latest)
-        return restored, meta["sampler"] or None, latest
+        sampler = meta["sampler"] or None
+        ranks = sampler.get("ranks") if isinstance(sampler, dict) else None
+        if ranks is not None or mesh.world() > 1:
+            if ranks is not None and len(ranks) == mesh.world():
+                sampler = ranks[mesh.rank()]
+            else:
+                log.warning("checkpoint %s holds the sampler states of %s "
+                            "ranks, this run has %d: the samplers start "
+                            "from their seeds", d,
+                            len(ranks) if ranks is not None else 1,
+                            mesh.world())
+                sampler = None
+        return restored, sampler, latest
+
+    def checkpoint(self, workdir: str | Path, state: TrainState,
+                   sampler_state: dict | None = None) -> None:
+        """`save` from every rank's call: with more than one rank, every
+        rank's sampler state gathered to rank 0 (as {"ranks": [...]}),
+        written by rank 0 alone; then the ranks meet at a barrier, so that
+        no rank reads a checkpoint half written."""
+        if mesh.world() > 1:
+            ranks = [None] * mesh.world()
+            dist.all_gather_object(ranks, sampler_state)
+            sampler_state = {"ranks": ranks}
+        if mesh.is_main():
+            self.save(workdir, state, sampler_state)
+        if dist.is_initialized():
+            dist.barrier()
 
     def warm_start(self, init_workdir: str | Path,
                    state: TrainState) -> TrainState:
@@ -357,8 +435,12 @@ class Trainer:
         cfg = self.cfg
         steps = cfg.train.steps if steps is None else steps
         workdir = Path(workdir)
+        # every rank computes; rank 0 alone writes the run's files
+        is_main = mesh.is_main()
+        ranks = mesh.world() if self.dp else 1
         workdir.mkdir(parents=True, exist_ok=True)
-        (workdir / "config.json").write_text(cfg.to_json())
+        if is_main:
+            (workdir / "config.json").write_text(cfg.to_json())
         K = max(1, int(cfg.train.steps_per_call))
         # the worker thread assembles each batch (stacks K of them) and
         # copies it to the device while the device runs the step.
@@ -373,7 +455,7 @@ class Trainer:
         t0 = time.time()
         samples_per_batch = None
         step = start
-        mf = (workdir / "metrics.jsonl").open("a")
+        mf = (workdir / "metrics.jsonl").open("a") if is_main else None
         try:
             while step < steps:
                 k = min(K, steps - step)
@@ -403,21 +485,25 @@ class Trainer:
                         "loss": float(last["loss"]),
                         "grad_norm": float(last["grad_norm"]),
                         "steps_per_s": done / max(dt, 1e-9),
-                        "samples_per_s": (done * samples_per_batch
+                        # the global batch: every rank's rows
+                        "samples_per_s": (done * samples_per_batch * ranks
                                           / max(dt, 1e-9)),
                     }
                     if ckpt_due and eval_batches is not None:
                         rec["eval_loss"] = self.eval_loss(state, eval_batches)
-                    mf.write(json.dumps(rec) + "\n")
-                    mf.flush()
-                    log.info("step %(step)d loss %(loss).4f gnorm "
-                             "%(grad_norm).2f %(steps_per_s).2f it/s", rec)
+                    if is_main:
+                        mf.write(json.dumps(rec) + "\n")
+                        mf.flush()
+                        log.info("step %(step)d loss %(loss).4f gnorm "
+                                 "%(grad_norm).2f %(steps_per_s).2f it/s",
+                                 rec)
                 if ckpt_due:
-                    self.save(workdir, state, prefetch.state())
+                    self.checkpoint(workdir, state, prefetch.state())
         finally:
             # on ANY exit (exception, Ctrl-C): stop the prefetch worker
             prefetch.close()
-            mf.close()
+            if mf is not None:
+                mf.close()
         return state
 
 

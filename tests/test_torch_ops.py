@@ -105,7 +105,8 @@ def test_port_imports_no_jax():
         "need = {'ops.ar_kernel', 'ops.ar_probe', 'ops.ring_probe', "
         "'bin.decode', 'bin.kfuse', 'bin.kprobe', 'bin.dma_probe', "
         "'models.streaming', 'training.trainer', 'bin.train', 'ops.stft', "
-        "'ops.filters', 'data.prefetch', 'data.synthetic'}\n"
+        "'ops.filters', 'data.prefetch', 'data.synthetic', "
+        "'parallel.mesh'}\n"
         "missing = [n for n in need if pkg.__name__ + '.' + n not in mods]\n"
         "print(bad, missing)\n"
         "sys.exit(1 if bad or missing else 0)\n")
