@@ -14,6 +14,16 @@ Phases, each printing one JSON line; any failure exits nonzero:
   2. weights: config 2 (shallow_laplace_single) at full width, random
      flax-layout weights from --seed with a random head2 (zero in the flax
      init), loaded through params_from_flax;
+  2a. plain_graph: every check below holds a kernel against its plain
+     version, `ar_kernel.generate_plain`, which dispatches its torch ops
+     from Python once per sample. Here it runs with `graph=True`: one step
+     captured in a CUDA graph and replayed per sample, which takes the
+     host's dispatch off the run's time. Held to the bit against the eager
+     loop over PLAIN_GRAPH_T steps at config 2, B = 4: Laplace
+     teacher-forced, free running (sample, greedy) and with a warm-up
+     prefix, softmax teacher-forced, the fused window, and bf16 in the
+     cluster kernel's order (chain=True, split=8), unfused and fused; each
+     call's host ms beside the eager one's;
   3. kernel against plain: the one-SM-per-row AR kernel (ar_generate, the
      fallback layout) and its plain PyTorch version on the same
      conditioning and uniforms, B=4, T=4096 — Laplace teacher-forced,
@@ -118,7 +128,35 @@ Phases, each printing one JSON line; any failure exits nonzero:
      teacher-forced with its own samples over its first 1,024 steps at
      TOL_TEACHER. No kernel of this repo lies on the training path (the
      JAX step has no Pallas call): the kernels line gains no row;
-  10b. train_dp: data parallelism on the one card: an NCCL process group
+  10b. recipe: config 3 (shallow_laplace_ns: config 2's model with MLSA
+     noise shaping) at full width and depth through the port's recipe
+     runner, bin.run, on the card: stages 0-6, each its own call and wall
+     time, 8 training and 2 eval utterances of 1 s (24 kHz), 16 training
+     steps (two calls of steps_per_call = 8). Stage 1 (feature
+     extraction, the torch log-mel on the card): every .h5 listed, the
+     features against the pooled numpy path (RECIPE_WORKERS spawned CPU
+     workers) at TOL_MEL_POOL, audio-s per wall-s; stage 2 (statistics):
+     mean and std against a float64 numpy recomputation, avg_mcep on the
+     card against the native analysis (`mcep_native`) at
+     TOL_MCEP_NATIVE; stage 3 (noise shaping): the native C++ filter ran
+     (the CLI's log), it against the plain recursion (`ops.mlsa`) on the
+     card on a RECIPE_EXCERPT-sample excerpt, forward and inverse, at
+     TOL_MLSA, and de-emphasis of a shaped training wav restoring it below
+     the 16-bit floor; stage 4 (training): finite losses, the record and
+     checkpoint of step 16; stage 5 (decode): the cluster kernel's
+     launches counted (the config-2 row's `recipe_launches`), the wavs
+     equal to a re-run of the kernel on the decode's inputs and that
+     re-run against the plain version teacher-forced with its own samples
+     over its first 1,024 steps at TOL_TEACHER, the RTF; stage 6
+     (de-emphasis and evaluation): finite MCD, F0 RMSE, V/UV error and LSD
+     in mcd.json, and eval_pair on the card against the CPU for one pair.
+     Then the world branch at deep_baseline (world features with the
+     energy channel, feature_dim 32), stages 0-2: the features on the
+     card against the native pooled path on frames whose voicing agrees,
+     at TOL_WORLD, with the share of frames that agree. The .h5 files go
+     through h5py where it is installed, else the port's own HDF5 codec
+     (the line says which);
+  10c. train_dp: data parallelism on the one card: an NCCL process group
      of one rank, joined through the launcher's variables as torchrun
      sets them (parallel.init_distributed) and left after; the DP trainer
      (each update all-reduced through NCCL) and the plain trainer from
@@ -127,11 +165,11 @@ Phases, each printing one JSON line; any failure exits nonzero:
      median of 3 rounds of turns: plain, DP, DP, plain) and the
      all-reduce alone, on the device's clock and the host's. Scaling
      over cards is not measured (one card);
-  10c. decode_dp: decode --dp's path, bin.decode.decode_batch with the
+  10d. decode_dp: decode --dp's path, bin.decode.decode_batch with the
      rows split by models.generate.generate_dp, on the main path's 8
      utterances, over every visible card and over two shards on cuda:0:
      equal to the single call to the bit, with wall times and launches;
-  10d. stream_pool: models.streaming.StreamPool at config 2, fp32
+  10e. stream_pool: models.streaming.StreamPool at config 2, fp32
      unfused on the decode's layout (the cluster kernel), 80 ms blocks,
      at 1 and 8 streams, at the card's clusters for the layout
      (max_active_clusters) and at one more (two waves, warned once):
@@ -217,7 +255,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
      TIMER_RATIO_MAX (config 2 fp32 unfused: TIMER_RATIO_MAX_C2_FP32),
      and the stage table (us per step and share of each stage kind).
 Every phase line carries `t`, the script's seconds so far. Then the
-card's nvidia-smi line, the kernels' JSON line and, last,
+`plain_seconds` line (the plain versions' host seconds by kind, and where
+they ran), the card's nvidia-smi line, the kernels' JSON line and, last,
 {"ok": true, "device": {...}}. Without CUDA, or outside the repo, it exits
 nonzero before printing any result.
 """
@@ -242,10 +281,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from shallow_wavenet_tpu_torch.bin import decode, dma_probe, kfuse, kprobe
+from shallow_wavenet_tpu_torch.bin import (
+    decode, dma_probe, feature_extract, kfuse, kprobe, mcd_eval,
+)
+from shallow_wavenet_tpu_torch.bin import noise_shaping as shaping
+from shallow_wavenet_tpu_torch.bin import run as recipe
+from shallow_wavenet_tpu_torch.bin.common import load_utterances
 from shallow_wavenet_tpu_torch.config import get_config
+from shallow_wavenet_tpu_torch.data import hdf5_io
+from shallow_wavenet_tpu_torch.data.audio_io import read_wav
 from shallow_wavenet_tpu_torch.data.dataset import (
-    SegmentSampler, Utterance, pad_batch_for_decode,
+    SegmentSampler, Utterance, pad_batch_for_decode, read_file_list,
 )
 from shallow_wavenet_tpu_torch.data.prefetch import GroupSampler
 from shallow_wavenet_tpu_torch.data.synthetic import synth_utterance
@@ -260,12 +306,13 @@ from shallow_wavenet_tpu_torch.models.wavenet import (
     params_from_flax,
 )
 from shallow_wavenet_tpu_torch.ops import (
-    _build, ar_kernel, ar_probe, ring_probe,
+    _build, ar_kernel, ar_probe, mlsa, ring_probe,
 )
 from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_quantize
 from shallow_wavenet_tpu_torch.ops.stft import log_mel_spectrogram
 from shallow_wavenet_tpu_torch.parallel import mesh
 from shallow_wavenet_tpu_torch.training import Trainer
+from shallow_wavenet_tpu_torch.utils import native
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
@@ -279,6 +326,9 @@ TOL_TEACHER = 1e-5               # Laplace teacher-forced, kernel vs plain
 # free running is held to the teacher-forced limit.
 TOL_FREE = 1e-5
 T_CHECK, B_CHECK = 4096, 4
+# the prefix over which the plain version's graph replay is held against
+# its eager loop
+PLAIN_GRAPH_T = 512
 SWEEP_T, SWEEP_B = 2048, (1, 4, 8, 32, 128)
 SEGMENT = 2048
 # deep_baseline. Free running is held one step at a time: the random deep
@@ -382,6 +432,24 @@ TRAIN_UTTS, TRAIN_SECONDS, TRAIN_CHECK_B = 8, 2.0, 2
 TOL_TRAIN_FP32, TOL_TRAIN_BF16, TOL_TRAIN_BF16_LOSS = 1e-4, 2e-2, 1e-3
 TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_TIME_GROUPS, TRAIN_K1_STEPS = 64, 32, 4, 8
 TRAIN_DECODE_UTTS, TRAIN_DECODE_T = 2, 1024
+# recipe (config 3 through bin.run, stages 0-6; the world branch at
+# deep_baseline, stages 0-2)
+RECIPE_ARGS = ("--n-train", "8", "--n-eval", "2", "--steps", "16")
+RECIPE_STEPS, RECIPE_WORKERS, RECIPE_EXCERPT = 16, 4, 2400
+# log10 mel, card against the pooled numpy path: cuFFT and numpy's FFT
+# round apart by ~1e-7 of a frame's peak, and a mel band 60-70 dB below
+# the peak turns that into ~1e-4 relative, 4e-5 in log10; bands at the
+# 1e-10 floor agree exactly
+TOL_MEL_POOL = 1e-3
+TOL_MCEP_NATIVE = 1e-4           # tests/test_native_featext.py:53
+TOL_MLSA = 2e-6                  # tests/test_mlsa_native.py:48
+FLOOR_16BIT = 2.0 ** -15         # tests/test_mlsa_native.py:51 (3e-5)
+TOL_WORLD, VUV_AGREE_MIN = 2e-4, 0.98   # tests/test_native_featext.py:103
+# eval_pair on the card against the CPU: mceps and spectra agree within
+# 1e-4, so MCD and LSD within 1e-3 dB; one frame's voicing may flip
+# (2% of frames, the F0 suite's limit), which moves the F0 RMSEs by that
+# frame's share
+TOL_EVAL_DB, TOL_EVAL_VUV, TOL_EVAL_F0_REL = 1e-3, 0.02, 0.05
 # data parallelism on the one card: the DP trainer (an NCCL group of one
 # rank) against the plain one over DP_UPDATES updates, timed in
 # DP_ROUNDS rounds of turns (plain, DP, DP, plain) of DP_UPDATES each (the
@@ -500,6 +568,86 @@ def host_ms(fn):
     return out, 1e3 * (time.perf_counter() - t0)
 
 
+# host seconds of the plain versions by kind and where they ran, for the
+# plain_seconds line
+PLAIN_SECONDS: dict = {}
+
+
+def plain_time(kind: str, fn, *args, **kw):
+    """fn(*args, **kw), its host seconds (card synchronized on both
+    sides) added to PLAIN_SECONDS[kind]."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    PLAIN_SECONDS[kind] = (PLAIN_SECONDS.get(kind, 0.0)
+                           + time.perf_counter() - t0)
+    return out
+
+
+def plain_version(*args, **kw):
+    """ar_kernel.generate_plain with its step replayed from a CUDA graph
+    on the card (`graph=True`; equal to the eager loop to the bit,
+    phase `plain_graph`)."""
+    return plain_time("generate_plain, CUDA-graph replay on the card",
+                      ar_kernel.generate_plain, *args, graph=True, **kw)
+
+
+def probe_plain(*args, **kw):
+    return plain_time("ar_probe.probe_plain, eager on the card",
+                      ar_probe.probe_plain, *args, **kw)
+
+
+def ring_plain(*args, **kw):
+    return plain_time("ring_probe.ring_probe_plain, on the card",
+                      ring_probe.ring_probe_plain, *args, **kw)
+
+
+def phase_plain_graph(mc, model, pp, seed: int) -> None:
+    """The plain version's CUDA-graph replay against its eager loop, to the
+    bit, over a PLAIN_GRAPH_T-step prefix at config 2, B = B_CHECK: the
+    Laplace head teacher-forced, free running (sample and greedy) and with
+    a warm-up prefix; the softmax head teacher-forced; the fused window;
+    and the bf16 weights summed in the cluster kernel's order (chain=True,
+    split=8), unfused and fused. Each eager and replayed call's host ms."""
+    B, T = B_CHECK, PLAIN_GRAPH_T
+    c_up = random_cond(mc, model, B, T, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    noise = ar_kernel.uniform_noise((B, T), g)
+    teacher = torch.rand((B, T), generator=g, device="cuda") * 2 - 1
+    mcs = get_config("shallow_laplace_single", ["model.head=softmax"]).model
+    pps = extract_plain_params(random_model(mcs, seed + 1))
+    ids = torch.randint(0, mcs.quantize_channels, (B, T), generator=g,
+                        device="cuda").float()
+    cases = {
+        "laplace_teacher_forced": (pp, mc, dict(teacher=teacher)),
+        "laplace_free_sample": (pp, mc, {}),
+        "laplace_free_greedy": (pp, mc, dict(mode="greedy")),
+        "laplace_warmup_100": (pp, mc, dict(teacher=teacher, warmup=100)),
+        "softmax_teacher_forced": (pps, mcs, dict(teacher=ids)),
+        "fused4_teacher_forced": (pp, mc, dict(teacher=teacher,
+                                               fused=FUSED)),
+        "bf16_chain_split8": (pp, mc, dict(dtype="bfloat16", chain=True,
+                                           split=8)),
+        "bf16_chain_split8_fused4": (pp, mc, dict(
+            dtype="bfloat16", chain=True, split=8, fused=FUSED)),
+    }
+    checks = []
+    for name, (p, m, kw) in cases.items():
+        eager, eager_ms = host_ms(lambda: plain_time(
+            "generate_plain, eager loop on the card",
+            ar_kernel.generate_plain, p, m, c_up, noise=noise, **kw))
+        replay, replay_ms = host_ms(lambda: plain_version(
+            p, m, c_up, noise=noise, **kw))
+        e = float((eager - replay).abs().max())
+        checks.append({"check": name, "max_abs_err": e, "limit": 0.0,
+                       "eager_ms": eager_ms, "replay_ms": replay_ms,
+                       "ok": e == 0.0})
+    emit("plain_graph", B=B, T=T, checks=checks)
+    for c in checks:
+        require(c["ok"], f"plain version, graph replay vs eager: {c}")
+
+
 def random_tree(mc, seed: int) -> dict:
     """The port's numpy init with a random head2 (zero in the flax init)."""
     tree = init_params_tree(mc, seed)
@@ -576,13 +724,12 @@ def phase_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
     q = mcs.quantize_channels
     # the plain outputs, shared by both kernels
     ar_kernel.launches.clear()
-    p_tf = ar_kernel.generate_plain(pp, mc, c_up, noise=noise,
-                                    teacher=teacher)
+    p_tf = plain_version(pp, mc, c_up, noise=noise, teacher=teacher)
     p_free = {}
     for mode in ("sample", "greedy"):
-        p_free[mode], plain_ms = host_ms(lambda: ar_kernel.generate_plain(
+        p_free[mode], plain_ms = host_ms(lambda: plain_version(
             pp, mc, c_up, noise=noise, mode=mode))
-    p_ids = mulaw_quantize(ar_kernel.generate_plain(
+    p_ids = mulaw_quantize(plain_version(
         pps, mcs, c_up, noise=noise, teacher=ids), q)
     times = {}
     for n in (0, N):
@@ -725,7 +872,7 @@ def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
     Tp = PLAIN_T if fused else T
     cp, npl = c_up[:, :Tp].contiguous(), noise[:, :Tp].contiguous()
     ms = full_ms if Tp == T else cuda_ms(lambda: gen(cp, npl), 2)
-    plain, plain_ms = host_ms(lambda: ar_kernel.generate_plain(
+    plain, plain_ms = host_ms(lambda: plain_version(
         pp, mc, cp, noise=npl, teacher=own_feedback(out)[:, :Tp],
         fused=fused))
     max_err = err(plain, out[:, :Tp])
@@ -795,8 +942,7 @@ def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
         return ar_kernel.generate(pp, mc, c, noise=n, **layout, **kw)
 
     def plain(c, n, dtype="float32", **kw):
-        return ar_kernel.generate_plain(pp, mc, c, noise=n, dtype=dtype,
-                                        **kw)
+        return plain_version(pp, mc, c, noise=n, dtype=dtype, **kw)
 
     # fp32 streamed, teacher-forced
     k32 = gen(c_up, noise, lay32, teacher=teacher)
@@ -992,7 +1138,7 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
     teacher = own_feedback(out)[:, :Tp]
     ms = cuda_ms(lambda: ar_kernel.generate(w, mc, cp, noise=npl,
                                             **layout), 2)
-    plain, plain_ms = host_ms(lambda: ar_kernel.generate_plain(
+    plain, plain_ms = host_ms(lambda: plain_version(
         pp, mc, cp, noise=npl, teacher=teacher, dtype=layout["dtype"],
         chain=bf16, split=split, fused=fused))
     max_err = err(plain, out[:, :Tp])
@@ -1001,12 +1147,11 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
         limit = TOL_CHAIN
         d = (plain - out[:, :Tp]).abs().amax(0)
         parted = torch.nonzero(d > limit)
-        control = err(ar_kernel.generate_plain(
+        control = err(plain_version(
             pp, mc, cp, noise=npl, teacher=teacher, fused=fused),
             out[:, :Tp])
-        matmul = ar_kernel.generate_plain(pp, mc, cp, noise=npl,
-                                          teacher=teacher, dtype="bfloat16",
-                                          fused=fused)
+        matmul = plain_version(pp, mc, cp, noise=npl, teacher=teacher,
+                               dtype="bfloat16", fused=fused)
         extra = {"first_parted_step": int(parted[0]) if len(parted) else None,
                  "control_fp32": control, "control_min": CONTROL_MIN,
                  "matmul_order_drift": err(matmul, out[:, :Tp]),
@@ -1049,8 +1194,7 @@ def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
         return ar_kernel.generate(pp, mc, c, noise=n, **{"fused": FUSED, **kw})
 
     def plain(c, n, **kw):
-        return ar_kernel.generate_plain(pp, mc, c, noise=n,
-                                        **{"fused": FUSED, **kw})
+        return plain_version(pp, mc, c, noise=n, **{"fused": FUSED, **kw})
 
     mcs = get_config("shallow_laplace_single", ["model.head=softmax"]).model
     pps = extract_plain_params(random_model(mcs, seed + 1))
@@ -1061,7 +1205,7 @@ def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
     # the plain outputs, shared by both kernels
     ar_kernel.launches.clear()
     p, plain_ms = host_ms(lambda: plain(c_up, noise, teacher=teacher))
-    p_ids = mulaw_quantize(ar_kernel.generate_plain(
+    p_ids = mulaw_quantize(plain_version(
         pps, mcs, c_up, noise=noise, teacher=ids, fused=FUSED), q)
     p_w = {W: plain(cw, nw, teacher=tw, fused=W) for W in FUSED_WINDOWS}
     kernel_ms = {}
@@ -1235,7 +1379,7 @@ def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
         # stream's
         n_blk, M = STREAM_BLOCK * hop, syn.M
         Tp = n_blk + M
-        tf = err(ar_kernel.generate_plain(
+        tf = err(plain_version(
             pp, mc, c_all[:, :Tp], noise=n_all[:, :Tp],
             teacher=own_feedback(one_t)[:, :Tp], fused=W), one_t[:, :Tp])
         push = dict(noise=n_all[:, n_blk - M:2 * n_blk],
@@ -1243,7 +1387,7 @@ def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
                     fused=W)
         kp = ar_kernel.generate(pp, mc, c_all[:, n_blk - M:2 * n_blk],
                                 cluster=n, **push)
-        pe = err(ar_kernel.generate_plain(
+        pe = err(plain_version(
             pp, mc, c_all[:, n_blk - M:2 * n_blk], **push), kp)
         se = float(np.abs(kp[:, M:].cpu().numpy()
                           - wav[:, n_blk:2 * n_blk]).max())
@@ -1513,7 +1657,7 @@ def phase_train(cfg, seed: int, smi: str) -> None:
     out = ar_kernel.generate(pp, mc, c_up, noise=noise, **layout)
     require(bool(torch.isfinite(out).all()), "trained decode finite")
     Tp = TRAIN_DECODE_T
-    plain = ar_kernel.generate_plain(
+    plain = plain_version(
         pp, mc, c_up[:, :Tp].contiguous(), noise=noise[:, :Tp].contiguous(),
         teacher=own_feedback(out)[:, :Tp])
     record(f"trained_kernel_vs_plain_teacher_forced_{Tp}",
@@ -1542,6 +1686,234 @@ def phase_train(cfg, seed: int, smi: str) -> None:
          checks=checks, readings=readings, card=smi)
     for c in checks:
         require(c["ok"], f"train: {c}")
+
+
+class LogLines(logging.Handler):
+    """Every message logged to one logger, kept."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.lines, self.logger = [], logging.getLogger(name)
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        self.logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+
+def phase_recipe(seed: int, smi: str) -> int:
+    """Config 3 (shallow_laplace_ns) through the port's recipe runner,
+    bin.run stages 0-6, each stage its own call and wall time, on the
+    card, then the world branch's stages 0-2 at deep_baseline. Returns the
+    decode's launches of the cluster kernel."""
+    cfg = get_config("shallow_laplace_ns")
+    mc, d, ns = cfg.model, cfg.data, cfg.noise_shaping
+    checks, times = [], {}
+
+    def record(name, e, limit, **kw):
+        checks.append({"check": name, "max_abs_err": e, "limit": limit,
+                       "ok": e <= limit, **kw})
+
+    def run_stage(key, wd, n, preset="shallow_laplace_ns"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recipe.main(["--preset", preset, "--workdir", str(wd), "--stage",
+                     str(n), "--stop-stage", str(n), "--corpus-seed",
+                     str(1234 + seed), *RECIPE_ARGS])
+        torch.cuda.synchronize()
+        times[key] = time.perf_counter() - t0
+
+    def feats_of(directory):
+        return {p.name: hdf5_io.read_hdf5(p, "feats")
+                for p in sorted(Path(directory).glob("*.h5"))}
+
+    def pooled(wd, preset, out):
+        """Both splits' features from one pool of CPU workers."""
+        both = out.with_suffix(".scp")
+        both.write_text((wd / "corpus/train.scp").read_text()
+                        + (wd / "corpus/eval.scp").read_text())
+        feature_extract.main(["--wav-scp", str(both), "--outdir", str(out),
+                              "--num-workers", str(RECIPE_WORKERS),
+                              "--preset", preset])
+        return feats_of(out)
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_recipe_"))
+    try:
+        wd = root / "config3"
+        run_stage("stage0", wd, 0)
+        train = read_file_list(wd / "corpus/train.scp")
+        evals = read_file_list(wd / "corpus/eval.scp")
+        audio_s = sum(read_wav(w)[0].size for w in train + evals) / d.sample_rate
+        # stage 1: the torch log-mel on the card against the pooled numpy
+        # path on the same wavs
+        run_stage("stage1", wd, 1)
+        card = feats_of(wd / "feats")
+        listed = sorted(tuple(hdf5_io.list_hdf5(p))
+                        for p in (wd / "feats").glob("*.h5"))
+        require(len(card) == len(train) + len(evals)
+                and set(listed) == {("feats",)},
+                f"stage 1 wrote {len(card)} files, datasets {set(listed)}")
+        pool = pooled(wd, "shallow_laplace_ns", root / "pool3")
+        require(sorted(pool) == sorted(card), "pooled files")
+        record("stage1_log_mel_card_vs_numpy_pool",
+               max(float(np.abs(card[k] - pool[k]).max()) for k in card),
+               TOL_MEL_POOL)
+        # stage 2: mean and std against a float64 numpy recomputation;
+        # avg_mcep on the card against the native analysis
+        run_stage("stage2", wd, 2)
+        stats = wd / "stats.h5"
+        f = np.concatenate([card[Path(w).stem + ".h5"] for w in train]
+                           ).astype(np.float64)
+        mean = f.mean(axis=0)
+        std = np.sqrt(np.maximum((f ** 2).mean(axis=0) - mean ** 2, 1e-12))
+        for k, want in (("mean", mean), ("std", std)):
+            got = hdf5_io.read_hdf5(stats, k)
+            record(f"stage2_{k}_vs_float64_numpy",
+                   float(np.abs(got - want.astype(np.float32)).max()), 1e-6)
+        tot, cnt = 0.0, 0
+        for w in train:
+            m = native.mcep_native(read_wav(w, target_sr=d.sample_rate)[0],
+                                   d.n_fft, d.hop_length, d.win_length,
+                                   ns.mcep_order, ns.alpha)
+            tot, cnt = tot + m.sum(axis=0), cnt + m.shape[0]
+        record("stage2_avg_mcep_card_vs_native",
+               float(np.abs(hdf5_io.read_hdf5(stats, "avg_mcep")
+                            - tot / cnt).max()), TOL_MCEP_NATIVE)
+        # stage 3: the native filter ran; it against the plain recursion on
+        # the card on an excerpt, and the de-emphasis of a shaped wav
+        with LogLines("noise_shaping") as lines:
+            run_stage("stage3", wd, 3)
+        ran = [m for m in lines.lines if m.startswith("filtering on")]
+        require(ran and all("native" in m for m in ran),
+                f"stage 3 ran the native filter: {ran}")
+        b = shaping.shaping_coefficients(str(stats), ns.mag, ns.alpha)
+        x = read_wav(train[0], target_sr=d.sample_rate)[0]
+        for inverse in (False, True):
+            got = native.mlsa_filter_native(x[:RECIPE_EXCERPT], b, ns.alpha,
+                                            ns.pade_order, inverse)
+            plain = plain_time(
+                "ops.mlsa.mlsa_filter, eager on the card", mlsa.mlsa_filter,
+                torch.from_numpy(x[:RECIPE_EXCERPT]).cuda(),
+                torch.tensor(b, dtype=torch.float32, device="cuda"),
+                ns.alpha, ns.pade_order, inverse).cpu().numpy()
+            record(f"stage3_native_vs_plain_recursion_on_card"
+                   f"{'_inverse' if inverse else ''}_{RECIPE_EXCERPT}",
+                   float(np.abs(got - plain).max()), TOL_MLSA)
+        shaped = shaping.filter_waveform(x, b, ns.alpha, ns.pade_order, False)
+        back = shaping.filter_waveform(shaped, b, ns.alpha, ns.pade_order,
+                                       True)
+        record("stage3_deemphasis_restores_below_16bit_floor",
+               float(np.abs(back - x).max()), FLOOR_16BIT)
+        # stage 4: training, two calls of steps_per_call = 8
+        run_stage("stage4", wd, 4)
+        recs = [json.loads(line) for line in
+                (wd / "model/metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in recs if "loss" in r]
+        require(losses and all(np.isfinite(losses))
+                and recs[-1]["step"] == RECIPE_STEPS
+                and (wd / f"model/checkpoints/{RECIPE_STEPS}").is_dir(),
+                f"stage 4: losses {losses}, last record {recs[-1]}")
+        # stage 5: the decode on the cluster kernel, then the kernel re-run
+        # on its inputs against the plain version, teacher-forced with its
+        # own samples
+        layout = decode.kernel_layout(mc, "auto")
+        name = layout_variant(mc, layout)
+        ar_kernel.launches.clear()
+        run_stage("stage5", wd, 5)
+        launched = dict(ar_kernel.launches)
+        summary = json.loads((wd / "gen_wav/decode_summary.json").read_text())
+        require(set(launched) == {name} and launched[name] >= 1
+                and summary["kernel"] == layout and layout["cluster"] > 1,
+                f"stage 5 launched {launched} on {summary['kernel']}")
+        model, step = decode.load_model_state(cfg, wd / "model", "cuda")
+        require(step == RECIPE_STEPS, f"stage 5 decoded step {step}")
+        utts = load_utterances(wd / "corpus/eval.scp", wd / "feats", stats,
+                               load_wav=False)
+        cond, _, n_samples = pad_batch_for_decode(utts, d.hop_length)
+        pp = extract_plain_params(model)
+        with torch.no_grad():
+            c_up = model.upsample_cond(torch.from_numpy(cond).cuda())
+        noise = ar_kernel.uniform_noise(
+            c_up.shape[:2], torch.Generator(device="cuda").manual_seed(0))
+        out = ar_kernel.generate(pp, mc, c_up, noise=noise, **layout)
+        wav_err = max(float(np.abs(read_wav(wd / "gen_wav" / Path(w).name)[0]
+                                   - out[i, :n_samples[i]].cpu().numpy())
+                            .max()) for i, w in enumerate(evals))
+        record("stage5_wavs_vs_kernel_rerun", wav_err, 0.5 / 32767 + 1e-7)
+        Tp = TRAIN_DECODE_T
+        plain = plain_version(
+            pp, mc, c_up[:, :Tp].contiguous(),
+            noise=noise[:, :Tp].contiguous(),
+            teacher=own_feedback(out)[:, :Tp])
+        record(f"stage5_kernel_vs_plain_teacher_forced_{Tp}",
+               float((plain - out[:, :Tp]).abs().max()), TOL_TEACHER)
+        # stage 6: de-emphasis and evaluation; eval_pair on the card
+        # against the CPU for one pair
+        run_stage("stage6", wd, 6)
+        mcd = json.loads((wd / "mcd.json").read_text())
+        keys = ("mcd_db", "f0_rmse_hz", "vuv_error_rate", "lsd_db")
+        require(all(mcd[k + "_mean"] is not None
+                    and np.isfinite(mcd[k + "_mean"]) for k in keys),
+                f"stage 6 mcd.json: {mcd}")
+        ref = read_wav(evals[0], target_sr=d.sample_rate)[0]
+        gen = read_wav(wd / "restored_wav" / Path(evals[0]).name,
+                       target_sr=d.sample_rate)[0]
+        on_card = mcd_eval.eval_pair(ref, gen, cfg, "cuda")
+        on_cpu = mcd_eval.eval_pair(ref, gen, cfg, "cpu")
+        for k in ("mcd_db", "lsd_db"):
+            record(f"stage6_eval_pair_{k}_card_vs_cpu",
+                   abs(on_card[k] - on_cpu[k]), TOL_EVAL_DB)
+        record("stage6_eval_pair_vuv_error_rate_card_vs_cpu",
+               abs(on_card["vuv_error_rate"] - on_cpu["vuv_error_rate"]),
+               TOL_EVAL_VUV)
+        for k in ("f0_rmse_hz", "f0_rmse_cents"):
+            a, b_ = on_card[k], on_cpu[k]
+            require((a is None) == (b_ is None), f"eval_pair {k}: {a}, {b_}")
+            if a is not None:
+                record(f"stage6_eval_pair_{k}_card_vs_cpu_relative",
+                       abs(a - b_) / max(abs(b_), 1e-9), TOL_EVAL_F0_REL)
+        # the world branch at deep_baseline: stages 0-2, the torch world
+        # features on the card against the native pooled path
+        wdw = root / "deep_world"
+        for n in (0, 1, 2):
+            run_stage(f"world_stage{n}", wdw, n, "deep_baseline")
+        card_w = feats_of(wdw / "feats")
+        pool_w = pooled(wdw, "deep_baseline", root / "pool_world")
+        require(sorted(card_w) == sorted(pool_w) and len(card_w) == 10
+                and all(v.shape[1] == 32 for v in card_w.values()),
+                "world features: files and feature_dim 32")
+        agree = np.concatenate([card_w[k][:, 1] == pool_w[k][:, 1]
+                                for k in card_w])
+        werr = max(float(np.abs(card_w[k][m] - pool_w[k][m]).max())
+                   for k in card_w
+                   for m in [card_w[k][:, 1] == pool_w[k][:, 1]])
+        record("world_features_card_vs_native_pool_vuv_agreeing", werr,
+               TOL_WORLD, vuv_agreement=float(agree.mean()),
+               vuv_agreement_min=VUV_AGREE_MIN)
+        checks[-1]["ok"] &= float(agree.mean()) >= VUV_AGREE_MIN
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("recipe", config=cfg.name, world_config="deep_baseline",
+         hdf5="h5py" if hdf5_io._h5py() else "the port's codec (no h5py)",
+         stage_seconds=times, seconds=sum(times.values()),
+         corpus_audio_seconds=audio_s,
+         feature_audio_s_per_s=audio_s / times["stage1"],
+         decode={"variant": name, "kernel": layout,
+                 "launches": launched[name], "rtf": summary["rtf"],
+                 "wall_seconds": summary["wall_seconds"]},
+         mcd=({k: mcd[k] for k in mcd if k != "per_utterance"}),
+         eval_pair_card=on_card, eval_pair_cpu=on_cpu,
+         native_library=str(native.lib_path().name), checks=checks,
+         card=smi)
+    for c in checks:
+        require(c["ok"], f"recipe: {c}")
+    return launched[name]
 
 
 def free_port() -> int:
@@ -2068,7 +2440,7 @@ def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
                                 k, outs[1][W][:, :CLUSTER_CHECK_T])})
                     fb = own_feedback(k)
                     fp32, plain_ms = host_ms(
-                        lambda: ar_kernel.generate_plain(
+                        lambda: plain_version(
                             pp, mc, c1, noise=n1, teacher=fb, fused=W))
                     if dtype == "float32":
                         e = err(fp32, k)
@@ -2078,7 +2450,7 @@ def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
                                        "ok": e <= TOL_FREE})
                     else:
                         chain, plain_ms = host_ms(
-                            lambda: ar_kernel.generate_plain(
+                            lambda: plain_version(
                                 pp, mc, c1, noise=n1, teacher=fb,
                                 dtype=dtype, chain=True, split=size,
                                 fused=W))
@@ -2210,13 +2582,13 @@ def phase_kprobe(smi: str) -> dict:
                 fb = own_feedback(k.t())
                 if dt == "float32":
                     record(f"float32_B{B}_{ab}_vs_plain", err(k, (
-                        ar_probe.probe_plain(wd, mc, c, n, ab, feedback=fb))),
+                        probe_plain(wd, mc, c, n, ab, feedback=fb))),
                         TOL_TEACHER)
                     continue
-                e = err(k, ar_probe.probe_plain(wd, mc, c, n, ab,
-                                                feedback=fb, chain=True))
-                ctl = err(k, ar_probe.probe_plain(w["float32"], mc, c, n, ab,
-                                                  feedback=fb))
+                e = err(k, probe_plain(wd, mc, c, n, ab, feedback=fb,
+                                       chain=True))
+                ctl = err(k, probe_plain(w["float32"], mc, c, n, ab,
+                                         feedback=fb))
                 checks.append({
                     "check": f"bfloat16_B{B}_{ab}_vs_chain", "max_abs_err": e,
                     "limit": TOL_CHAIN, "control_fp32": ctl,
@@ -2240,7 +2612,7 @@ def phase_kprobe(smi: str) -> dict:
     # the plain version's time: full, free running, at B = 8, held at
     # TOL_FREE (config 2 does not amplify fp32 rounding under its own
     # feedback on these weights either)
-    free, plain_ms = host_ms(lambda: ar_probe.probe_plain(
+    free, plain_ms = host_ms(lambda: probe_plain(
         w["float32"], mc, c, n, "full"))
     record("float32_B8_full_free_running_vs_plain", err(o["full"], free),
            TOL_FREE)
@@ -2268,8 +2640,7 @@ def phase_dma_probe(smi: str, regs: dict) -> dict:
     rows = dma_probe.sweep()
     launched = dict(ring_probe.launches)
     kw = ring_probe.SHAPES["rate"]
-    _, plain_ms = host_ms(lambda: ring_probe.ring_probe_plain(
-        **kw, device="cuda"))
+    _, plain_ms = host_ms(lambda: ring_plain(**kw, device="cuda"))
     emit("dma_probe", rows=rows, plain_ms_rate=plain_ms, launches=launched,
          card=smi)
     for r in rows:
@@ -2366,17 +2737,16 @@ def phase_cluster_probe(smi: str, regs: dict, models: dict) -> list:
                            equal=torch.equal(k, full))
                 fb = own_feedback(k.t())
                 if dt == "float32":
-                    e = err(k, ar_probe.probe_plain(wd, mc, c, nz, ab,
-                                                    feedback=fb, split=n))
+                    e = err(k, probe_plain(wd, mc, c, nz, ab, feedback=fb,
+                                           split=n))
                     record(f"float32_B{B}_{ab}_vs_plain_split{n}", e,
                            TOL_TEACHER)
                     errs[dt].append(e)
                     continue
-                e = err(k, ar_probe.probe_plain(wd, mc, c, nz, ab,
-                                                feedback=fb, chain=True,
-                                                split=n))
-                ctl = err(k, ar_probe.probe_plain(w["float32"], mc, c, nz,
-                                                  ab, feedback=fb, split=n))
+                e = err(k, probe_plain(wd, mc, c, nz, ab, feedback=fb,
+                                       chain=True, split=n))
+                ctl = err(k, probe_plain(w["float32"], mc, c, nz, ab,
+                                         feedback=fb, split=n))
                 errs[dt].append(e)
                 # local_exchange's output at N = 8 is rank 0's eighth of
                 # the model, whose fp32 control misses by less than
@@ -2398,12 +2768,11 @@ def phase_cluster_probe(smi: str, regs: dict, models: dict) -> list:
     k2 = ar_probe.probe(w["bfloat16"], mc, o["cond"], o["noise"],
                         "local_exchange", kernel="cluster", split=2)
     fb = own_feedback(k2.t())
-    e = err(k2, ar_probe.probe_plain(w["bfloat16"], mc, o["cond"],
-                                     o["noise"], "local_exchange",
-                                     feedback=fb, chain=True, split=2))
-    ctl = err(k2, ar_probe.probe_plain(w["float32"], mc, o["cond"],
-                                       o["noise"], "local_exchange",
-                                       feedback=fb, split=2))
+    e = err(k2, probe_plain(w["bfloat16"], mc, o["cond"], o["noise"],
+                            "local_exchange", feedback=fb, chain=True,
+                            split=2))
+    ctl = err(k2, probe_plain(w["float32"], mc, o["cond"], o["noise"],
+                              "local_exchange", feedback=fb, split=2))
     checks.append({"check": f"bfloat16_B{B8}_local_exchange_N2_vs_chain_"
                    "split2", "max_abs_err": e, "limit": TOL_CHAIN,
                    "control_fp32": ctl, "control_min": KPROBE_CONTROL_MIN,
@@ -2433,7 +2802,7 @@ def phase_cluster_probe(smi: str, regs: dict, models: dict) -> list:
     plain_ms = {}
     for dt, (n, _) in layouts.items():
         o = outs[dt][B8]
-        free, plain_ms[dt] = host_ms(lambda: ar_probe.probe_plain(
+        free, plain_ms[dt] = host_ms(lambda: probe_plain(
             w[dt], mc, o["cond"], o["noise"], "full", split=n))
         if dt == "float32":
             record(f"float32_B{B8}_full_free_running_vs_plain_split{n}",
@@ -2475,7 +2844,7 @@ def phase_cluster_probe(smi: str, regs: dict, models: dict) -> list:
         for dt in ar_kernel.DTYPES:
             for W in (0, FUSED):
                 r = kprobe.time_stages(pp, pmc, c_up, nz, dt, W)
-                _, pms = host_ms(lambda: ar_kernel.generate_plain(
+                _, pms = host_ms(lambda: plain_version(
                     pp, pmc, c_up[:, :TIMER_PLAIN_T], noise=nz[:, :TIMER_PLAIN_T],
                     dtype=dt, fused=W))
                 c2_fp32 = (preset, dt, W) == ("shallow_laplace_single",
@@ -2550,6 +2919,7 @@ def run(args, smi: str, builds: dict) -> int:
     emit("weights", config=cfg.name, seed=args.seed,
          params=sum(v.numel() for v in model.parameters()),
          compute_dtype=cfg.model.compute_dtype)
+    phase_plain_graph(cfg.model, model, pp, args.seed)
 
     check = phase_kernel_vs_plain(cfg.model, model, pp, args.seed)
     main_path = phase_main_path(cfg, model, pp, args.seed, smi)
@@ -2574,6 +2944,7 @@ def run(args, smi: str, builds: dict) -> int:
     phase_deep_fused_times(dcfg.model, dmodel, dpp, args.seed)
     phase_streaming(cfg, model, pp, args.seed, smi)
     phase_train(cfg, args.seed, smi)
+    recipe_launches = phase_recipe(args.seed, smi)
     phase_train_dp(cfg, args.seed, smi)
     phase_decode_dp(cfg, model, pp, args.seed, smi)
     pool_launches, pool_most = phase_stream_pool(cfg, model, pp, args.seed,
@@ -2608,7 +2979,8 @@ def run(args, smi: str, builds: dict) -> int:
     kernels = [row(main_path, "ar_cluster.cu", ":560",
                    check_ms=check["cluster_kernel_ms"],
                    stream_pool_launches=pool_launches,
-                   stream_pool_launches_per_step_max=pool_most)]
+                   stream_pool_launches_per_step_max=pool_most,
+                   recipe_launches=recipe_launches)]
     kernels += [row(d, "ar_cluster.cu", r)
                 for d, r in zip(deep, (":560", ":616"))]
     kernels.append(row(fused_main, "ar_cluster.cu", ":368",
@@ -2662,6 +3034,10 @@ def run(args, smi: str, builds: dict) -> int:
             "route": "cuda",
             "source": "shallow_wavenet_tpu_torch/csrc/ring_probe.cu",
             "replaces": "tools/dma_probe.py:25", "library_ms": None, **r})
+    emit("plain_seconds", seconds=sum(PLAIN_SECONDS.values()),
+         by_kind=PLAIN_SECONDS,
+         where="on the card: generate_plain's step replayed from a CUDA "
+               "graph, the probe's and the MLSA recursion's eager")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

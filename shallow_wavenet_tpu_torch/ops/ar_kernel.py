@@ -503,10 +503,18 @@ def generate_plain(pp, cfg: ModelConfig, c_up, noise=None,
                    generator=None, unroll: int = 1, device=None, *,
                    chunk: int = 64, stream: bool = False, fused: int = 0,
                    dtype: str = "float32", chain: bool = False,
-                   split: int = 0):
+                   split: int = 0, graph: bool = False):
     """The plain PyTorch version of `generate`, on any device: one Python
     step per sample, the kernel's arithmetic in torch ops. Where the
     rings are stored (`stream`, `chunk`) changes nothing here.
+
+    graph: on a CUDA device, capture one step in a CUDA graph and replay it
+    once per sample, instead of dispatching its torch ops from Python each
+    step (the host's dispatch is most of an eager step's time). The step
+    reads its index, ring slots, conditioning, uniform and teacher sample
+    through device tensors, with the same ops on the same values, so the
+    samples are those of the eager loop (held to the bit on the card by
+    chip_smoke). The CPU path is the eager loop.
 
     chain: sum every product of a dot as one fp32 chain in k order and form
     the gate's sigmoid as 1 / (1 + exp(-x)), as the kernel does, instead of
@@ -533,8 +541,10 @@ def generate_plain(pp, cfg: ModelConfig, c_up, noise=None,
     dev = resolve_device(device)
     args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
                     unroll, dev, chunk, fused, dtype)
+    if graph and dev.type != "cuda":
+        raise ValueError("graph replay needs a CUDA device")
     return _finish(cfg, _plain(cfg, mode == "greedy", *args, fused=fused,
-                               chain=chain, split=split))
+                               chain=chain, split=split, graph=graph))
 
 
 def _chain_sum(p, dim):
@@ -591,7 +601,7 @@ def split_sum(pairs, split: int = 0, chain: bool = False, owners=None):
 
 @torch.no_grad()
 def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
-           chain=False, split=0):
+           chain=False, split=0, graph=False):
     B, T, C = c_up.shape
     dil = cfg.dilations
     L, R, G, S = (len(dil), cfg.residual_channels, cfg.gate_channels,
@@ -632,22 +642,24 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
     fb = torch.full((B,), float(cfg.quantize_channels // 2) if softmax
                     else 0.0, device=dev)
     out = torch.empty(B, T, device=dev)
-    for t in range(T):
-        x_in = teacher[:, t] if t < n_forced else fb
+
+    def step(x_in, c_t, u_t, read, write):
+        """One sample: x_in the feedback input, c_t (B, C) and u_t (B,)
+        the step's conditioning and uniforms; read(l) gives layer l's ring
+        row for this step and write(l, h) stores h there."""
         if softmax:
             h = w["in_w"][x_in.long()]
         else:
             h = rnd(rnd(rnd(x_in)[:, None] * w["in_w"][0][None, :])
                     + w["in_b"][None, :])
-        cc = dot_sum((rnd(c_up[:, t]), cond_wcat))
+        cc = dot_sum((rnd(c_t), cond_wcat))
         skip = torch.zeros(B, S, device=dev)
-        slots = [offs[l] + (t & (dil[l] - 1)) for l in range(L)]
         if fused:
             # every layer's base, then per block: the block input, then
             # each layer's z @ [skip | res | P toward the later layers]
-            taps = ([dot_sum((rings[slots[l]], w["conv_w"][l, 0]))
+            taps = ([dot_sum((read(l), w["conv_w"][l, 0]))
                      for l in range(L)] if split else
-                    dots(*((rings[slots[l]], w["conv_w"][l, 0])
+                    dots(*((read(l), w["conv_w"][l, 0])
                            for l in range(L))))
             base = [(taps[l] + w["conv_b"][l]) + cc[:, l * G:(l + 1) * G]
                     for l in range(L)]
@@ -663,16 +675,16 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
                         p0 = S + R + (q - k - 1) * G
                         us[q] = us[q] + o[:, p0:p0 + G]
                     rs = o[:, :S + R] + rs_b[l]
-                    rings[slots[l]] = h
+                    write(l, h)
                     h = rnd(h + rs[:, S:])
                     skip = skip + rs[:, :S]
         else:
             for l in range(L):
-                g = dot_sum((rings[slots[l]], w["conv_w"][l, 0]),
+                g = dot_sum((read(l), w["conv_w"][l, 0]),
                             (h, w["conv_w"][l, 1]))
                 u = (g + w["conv_b"][l]) + cc[:, l * G:(l + 1) * G]
                 z = rnd(torch.tanh(u[:, :half]) * sigmoid(u[:, half:]))
-                rings[slots[l]] = h
+                write(l, h)
                 rs = dot_sum((z, rs_w[l])) + rs_b[l]
                 h = rnd(h + rs[:, S:])
                 skip = skip + rs[:, :S]
@@ -681,14 +693,70 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
         o = dot_sum((o, w["head2_w"])) + w["head2_b"]
         if softmax:
             ids = (torch.argmax(o, dim=-1) if greedy
-                   else heads.categorical_from_uniform(o, noise[:, t]))
-            x = ids.float()
-        else:
-            x = o[:, 0] if greedy else heads.laplace_from_uniform(
-                o, noise[:, t] - 0.5, cfg.log_b_min, cfg.log_b_max)
-            x = torch.clamp(x, -1.0, 1.0)
+                   else heads.categorical_from_uniform(o, u_t))
+            return ids.float()
+        x = o[:, 0] if greedy else heads.laplace_from_uniform(
+            o, u_t - 0.5, cfg.log_b_min, cfg.log_b_max)
+        return torch.clamp(x, -1.0, 1.0)
+
+    if graph:
+        return _replay(step, rings, out, fb, c_up, noise, teacher, n_forced,
+                       offs, dil)
+    for t in range(T):
+        slots = [offs[l] + (t & (dil[l] - 1)) for l in range(L)]
+        x = step(teacher[:, t] if t < n_forced else fb, c_up[:, t],
+                 noise[:, t], lambda l: rings[slots[l]],
+                 lambda l, h: rings.__setitem__(slots[l], h))
         out[:, t] = x
         fb = x
+    return out
+
+
+def _replay(step, rings, out, fb, c_up, noise, teacher, n_forced, offs,
+            dil):
+    """`_plain`'s loop as one captured step replayed T times: the step
+    index, its ring slots and the feedback live on the card, and the step
+    reads c_up, noise and teacher at its index (index_select) and writes
+    its ring rows and output column there (index_copy_)."""
+    T = out.shape[1]
+    dev = out.device
+    t_dev = torch.zeros(1, dtype=torch.long, device=dev)
+    offs = torch.tensor(offs, device=dev)
+    masks = torch.tensor([d - 1 for d in dil], device=dev)
+    fb0, fb = fb, fb.clone()
+
+    def one():
+        slot = offs + (t_dev & masks)
+        at = [slot[l:l + 1] for l in range(len(dil))]
+        if teacher is None or n_forced == 0:
+            x_in = fb
+        else:
+            forced = teacher.index_select(1, t_dev)[:, 0]
+            x_in = forced if n_forced >= T else torch.where(
+                t_dev < n_forced, forced, fb)
+        x = step(x_in, c_up.index_select(1, t_dev)[:, 0],
+                 noise.index_select(1, t_dev)[:, 0],
+                 lambda l: rings.index_select(0, at[l])[0],
+                 lambda l, h: rings.index_copy_(0, at[l], h[None]))
+        out.index_copy_(1, t_dev, x[:, None])
+        fb.copy_(x)
+        t_dev.add_(1)
+
+    # a warm-up step on a side stream (the library handles and the graph
+    # pool's blocks), then the state it moved is put back
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        one()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    rings.zero_()
+    t_dev.zero_()
+    fb.copy_(fb0)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        one()
+    for _ in range(T):
+        g.replay()
     return out
 
 
