@@ -7,14 +7,22 @@ flat .npz of the flax parameter tree (--params; see
 models.wavenet.save_params_npz), upsamples the conditioning, generates each
 padded batch with a CUDA AR kernel in one launch, trims every utterance to
 n_frames * hop and writes wavs plus decode_summary.json (audio-seconds/s,
-RTF and the kernel layout). There is no backend ladder: the layout is the
-first of KERNEL_LAYOUTS that fits the device, chosen from the kernels' own
-sizes and occupancy query before any launch; a failure raises. The cluster
-kernel (`csrc/ar_cluster.cu`, a cluster of N SMs per row, each reading
-1/N of the weights) comes first, unfused and with --fused W, the fused
-window; the one-SM-per-row kernel (`csrc/ar_generate.cu`) is the fallback
-where no cluster fits the model, dtype and window. Unlike the JAX ladder,
-a fused layout that fits nowhere raises instead of dropping --fused.
+RTF and the kernel layout that ran). There is no try-and-fall-back
+ladder: the layout is the first of KERNEL_LAYOUTS that fits the device,
+chosen from the kernels' own sizes and occupancy query before any launch;
+a failed launch raises. The cluster kernel (`csrc/ar_cluster.cu`, a
+cluster of N SMs per row, each reading 1/N of the weights) comes first,
+unfused and with --fused W, the fused window; the one-SM-per-row kernel
+(`csrc/ar_generate.cu`) is the fallback where no cluster fits the model,
+dtype and window. Where no layout fits the fused window W at all, --fused
+is dropped with a warning and the unfused layouts are tried, as the JAX
+tier ladder does (`decode_layout`); where none of those fits either, the
+decode raises.
+
+`--f0-factor F` (world features only) moves the log-F0 conditioning by
+ln F on voiced frames before synthesis (`shift_f0`): pitch transposition
+through the vocoder. `--profile` writes a torch.profiler trace of the
+batch loop to `<outdir>/profile/` (`utils.observability.maybe_profile`).
 
     python -m shallow_wavenet_tpu_torch.bin.decode --preset shallow_laplace_single \
         --eval-scp eval.scp --feats-dir feats --stats stats.h5 \
@@ -46,11 +54,13 @@ import logging
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from shallow_wavenet_tpu_torch import resolve_device
 from shallow_wavenet_tpu_torch.bin.common import (
-    add_config_args, load_utterances, resolve_config, setup_logging,
+    add_config_args, load_stats, load_utterances, resolve_config,
+    setup_logging,
 )
 from shallow_wavenet_tpu_torch.config import Config
 from shallow_wavenet_tpu_torch.data.audio_io import write_wav
@@ -66,6 +76,7 @@ from shallow_wavenet_tpu_torch.models.wavenet import (
 from shallow_wavenet_tpu_torch.ops import ar_kernel
 from shallow_wavenet_tpu_torch.parallel import dp_devices
 from shallow_wavenet_tpu_torch.training import Trainer
+from shallow_wavenet_tpu_torch.utils.observability import maybe_profile
 
 log = logging.getLogger("decode")
 
@@ -106,6 +117,10 @@ KERNEL_LAYOUTS = (
 )
 
 
+class NoLayoutError(ValueError):
+    """No AR kernel layout of the asked dtype and window fits the device."""
+
+
 def kernel_layout(model_cfg, kernel_dtype: str = "auto", device=None,
                   fused: int = 0, cluster: bool = True) -> dict:
     """The first of KERNEL_LAYOUTS of `kernel_dtype` ("auto": any) that
@@ -118,7 +133,8 @@ def kernel_layout(model_cfg, kernel_dtype: str = "auto", device=None,
     layout that streams no layer is the resident one and is skipped;
     cluster=False skips the cluster layouts. Returns the generate()
     keywords {"dtype", "stream", "chunk", "fused", "cluster"} (cluster: N,
-    or 0 for ar_generate). Raises ValueError when none fits."""
+    or 0 for ar_generate). Raises NoLayoutError (a ValueError) when none
+    fits."""
     dev = resolve_device(device)
     if kernel_dtype not in ("auto", *ar_kernel.DTYPES):
         raise ValueError(f"unknown kernel dtype {kernel_dtype!r}")
@@ -140,9 +156,28 @@ def kernel_layout(model_cfg, kernel_dtype: str = "auto", device=None,
                 model_cfg, dtype, stream, chunk, fused) <= limit:
             return {"dtype": dtype, "stream": stream, "chunk": chunk,
                     "fused": fused, "cluster": 0}
-    raise ValueError(f"no AR kernel layout of dtype {kernel_dtype!r} and "
-                     f"fused={fused} fits the shared memory of a block on "
-                     f"{dev}")
+    raise NoLayoutError(f"no AR kernel layout of dtype {kernel_dtype!r} and "
+                        f"fused={fused} fits the shared memory of a block "
+                        f"on {dev}")
+
+
+def decode_layout(model_cfg, kernel_dtype: str = "auto", device=None,
+                  fused: int = 0) -> dict:
+    """The decode's layout: kernel_layout for the fused window W = fused;
+    where none fits W, --fused is dropped with a warning and the unfused
+    layout is taken, as the JAX tier ladder retries without --fused
+    (`_run_tier_ladder`). The choice is made from the kernels' byte counts
+    and occupancy query before any launch; it raises NoLayoutError where
+    no unfused layout fits either."""
+    try:
+        return kernel_layout(model_cfg, kernel_dtype, device, fused)
+    except NoLayoutError as e:
+        if not fused:
+            raise
+        layout = kernel_layout(model_cfg, kernel_dtype, device, 0)
+        log.warning("%s; --fused %d dropped: decoding on the unfused "
+                    "layout %s", e, fused, layout)
+        return layout
 
 
 def warn_waves(model_cfg, layout: dict, batch_size: int, device=None
@@ -226,15 +261,19 @@ def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
                       generator, batch_size: int = 8,
                       segment_samples: int = 0, device=None,
                       kernel_dtype: str = "auto", fused: int = 0,
-                      model_step: int | None = None, devices=None) -> dict:
+                      model_step: int | None = None, devices=None,
+                      profile: bool = False) -> dict:
     """Decode `utts` in batches, write `<outdir>/<name>` wavs and
     `decode_summary.json`; returns the summary. The kernel layout is
-    chosen once, from `kernel_dtype` and `fused`, for every batch.
-    model_step: the training step of the weights (None for an .npz).
-    devices: split each batch's rows over them (`--dp`); the layout and
-    the waves are those of the first device at the per-device batch."""
+    chosen once, from `kernel_dtype` and `fused` (`decode_layout`: a
+    fused window that fits nowhere is dropped), for every batch; the
+    summary records the one that ran. model_step: the training step of
+    the weights (None for an .npz). devices: split each batch's rows over
+    them (`--dp`); the layout and the waves are those of the first device
+    at the per-device batch. profile: a torch.profiler trace of the batch
+    loop in `<outdir>/profile/`."""
     per_device = -(-batch_size // len(devices)) if devices else batch_size
-    layout = kernel_layout(cfg.model, kernel_dtype,
+    layout = decode_layout(cfg.model, kernel_dtype,
                            devices[0] if devices else device, fused)
     log.info("AR kernel layout: %s", layout)
     warn_waves(cfg.model, layout, per_device,
@@ -243,20 +282,23 @@ def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
     outdir.mkdir(parents=True, exist_ok=True)
     sr = cfg.data.sample_rate
     total_audio_s, total_wall = 0.0, 0.0
-    for i in range(0, len(utts), batch_size):
-        t0 = time.perf_counter()
-        wavs = decode_batch(model, cfg, utts[i: i + batch_size],
-                            generator=generator,
-                            segment_samples=segment_samples, device=device,
-                            layout=layout, devices=devices)
-        wall = time.perf_counter() - t0
-        audio_s = sum(len(w) for w in wavs) / sr
-        total_audio_s += audio_s
-        total_wall += wall
-        for name, w in zip(names[i: i + batch_size], wavs):
-            write_wav(outdir / Path(name).name, w, sr)
-        log.info("batch %d: %.2f audio-s in %.2f s (RTF %.3f)",
-                 i // batch_size, audio_s, wall, wall / max(audio_s, 1e-9))
+    with maybe_profile(outdir / "profile" if profile else None):
+        for i in range(0, len(utts), batch_size):
+            t0 = time.perf_counter()
+            wavs = decode_batch(model, cfg, utts[i: i + batch_size],
+                                generator=generator,
+                                segment_samples=segment_samples,
+                                device=device, layout=layout,
+                                devices=devices)
+            wall = time.perf_counter() - t0
+            audio_s = sum(len(w) for w in wavs) / sr
+            total_audio_s += audio_s
+            total_wall += wall
+            for name, w in zip(names[i: i + batch_size], wavs):
+                write_wav(outdir / Path(name).name, w, sr)
+            log.info("batch %d: %.2f audio-s in %.2f s (RTF %.3f)",
+                     i // batch_size, audio_s, wall,
+                     wall / max(audio_s, 1e-9))
     summary = {
         "utterances": len(utts), "model_step": model_step,
         "audio_seconds": total_audio_s, "wall_seconds": total_wall,
@@ -269,6 +311,29 @@ def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
     (outdir / "decode_summary.json").write_text(json.dumps(summary, indent=2))
     log.info("decode: %s", summary)
     return summary
+
+
+def shift_f0(utts, cfg: Config, stats_path, factor: float):
+    """Scale the log-F0 conditioning column by `factor` on voiced frames:
+    pitch transposition through the vocoder (a numpy copy of the JAX
+    decode's `shift_f0`). Features arrive normalized, so the column is
+    un-normalized, shifted by ln(factor) and re-normalized; unvoiced
+    frames (lf0 encoded 0, ops/f0.log_f0) are untouched. The stats are
+    read by `bin.common.load_stats` (h5py, or the port's HDF5 codec)."""
+    if cfg.data.feature_type != "world":
+        raise ValueError("--f0-factor needs data.feature_type=world "
+                         "(the mel feature set has no explicit F0 track)")
+    if factor <= 0:
+        raise ValueError("--f0-factor must be > 0")
+    mean, std = load_stats(stats_path)
+    shift = float(np.log(factor))
+    for u in utts:
+        lf0 = u.feats[:, 0] * max(std[0], 1e-8) + mean[0]
+        vuv = u.feats[:, 1] * max(std[1], 1e-8) + mean[1]
+        voiced = vuv > 0.5
+        lf0 = np.where(voiced, lf0 + shift, lf0)
+        u.feats[:, 0] = (lf0 - mean[0]) / max(std[0], 1e-8)
+    return utts
 
 
 def main(argv=None):
@@ -306,7 +371,14 @@ def main(argv=None):
                         "GPUs (cut to mesh.num_devices), one kernel call "
                         "per GPU; the same samples as one device with the "
                         "same --seed")
+    p.add_argument("--f0-factor", type=float, default=1.0,
+                   help="scale the F0 conditioning track by this factor "
+                        "before synthesis (world features only): pitch "
+                        "transposition; 1.0 = off")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace of the batch loop to "
+                        "<outdir>/profile")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch generator)")
@@ -320,6 +392,8 @@ def main(argv=None):
 
     utts = load_utterances(args.eval_scp, args.feats_dir, args.stats,
                            load_wav=False)
+    if args.f0_factor != 1.0:
+        utts = shift_f0(utts, cfg, args.stats, args.f0_factor)
     names = read_file_list(args.eval_scp)
     if args.workdir:
         model, step = load_model_state(cfg, args.workdir, dev)
@@ -335,7 +409,8 @@ def main(argv=None):
                       batch_size=args.batch_size,
                       segment_samples=args.segment_samples, device=dev,
                       kernel_dtype=args.kernel_dtype, fused=args.fused,
-                      model_step=step, devices=devices)
+                      model_step=step, devices=devices,
+                      profile=args.profile)
 
 
 if __name__ == "__main__":

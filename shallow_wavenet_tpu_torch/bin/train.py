@@ -15,8 +15,15 @@ draws `data.batch_size` rows per update from it, so the global batch is
 per process. Without the launcher a config whose mesh asks for more than
 one device (`multihost`, `num_devices > 1`) trains on the one device with
 a warning, as the JAX CLI does (`parallel.init_distributed`). `--device
-cpu` trains on the host (gloo under the launcher). There is no --profile
-or --debug-nans yet.
+cpu` trains on the host (gloo under the launcher).
+
+`--profile` writes a torch.profiler trace of the whole `fit` to
+`<workdir>/profile/` (one `*.pt.trace.json` per process; see
+`utils.observability.maybe_profile`). `--debug-nans` fails fast: autograd's
+anomaly mode and a finiteness check of every update, which raises
+`FloatingPointError` at the first non-finite loss, gradient or parameter
+(`utils.observability.enable_debug_mode`; one host sync per update). Both
+are off by default and change no number of the run.
 """
 
 from __future__ import annotations
@@ -36,6 +43,9 @@ from shallow_wavenet_tpu_torch.parallel import (
     init_distributed, process_shard, shutdown,
 )
 from shallow_wavenet_tpu_torch.training import Trainer
+from shallow_wavenet_tpu_torch.utils.observability import (
+    debug_mode, disable_debug_mode, enable_debug_mode, maybe_profile,
+)
 
 log = logging.getLogger("train")
 
@@ -60,17 +70,30 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' trains on the "
                         "host)")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace to <workdir>/profile")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="fail fast on the first non-finite loss, gradient "
+                        "or parameter (anomaly mode; one sync per update)")
     add_config_args(p)
     args = p.parse_args(argv)
     setup_logging()
     cfg = resolve_config(args)
+    debug_was_on = debug_mode()
+    if args.debug_nans:
+        enable_debug_mode()
     joined = dist.is_initialized()
-    device = init_distributed(cfg.mesh, args.device)
     try:
-        _train(args, cfg, device)
+        device = init_distributed(cfg.mesh, args.device)
+        try:
+            _train(args, cfg, device)
+        finally:
+            if not joined:
+                shutdown()
     finally:
-        if not joined:
-            shutdown()
+        # the mode is process-wide: leave a caller's process as it was
+        if args.debug_nans and not debug_was_on:
+            disable_debug_mode()
 
 
 def _train(args, cfg, device):
@@ -128,8 +151,10 @@ def _train(args, cfg, device):
         # fine-tune: fresh run seeded with pretrained params; own-workdir
         # resume takes precedence so a preempted fine-tune continues itself
         state = trainer.warm_start(args.init_from, state)
-    trainer.fit(state, sampler, args.workdir, steps=args.steps,
-                eval_batches=eval_batches)
+    with maybe_profile(Path(args.workdir) / "profile" if args.profile
+                       else None):
+        trainer.fit(state, sampler, args.workdir, steps=args.steps,
+                    eval_batches=eval_batches)
 
 
 if __name__ == "__main__":

@@ -24,6 +24,15 @@ model on them through `torch.func.functional_call`. Checkpoints are
 directories `<workdir>/checkpoints/<step>/`: `.npz` files in the flax
 parameter-tree layout (`models.wavenet.save_params_npz` names), Adam's
 moments likewise, and a JSON file with the step and the sampler state.
+`fit` writes `metrics.jsonl` and the same records as TensorBoard scalars
+under `<workdir>/tb` (`utils.observability.MetricsWriter`).
+
+Debug mode (`utils.observability.enable_debug_mode`, `--debug-nans`):
+every update's loss is checked before its backward, the backward runs
+under autograd's anomaly mode, and the loss, gradient norm and parameters
+after the update are checked for finite values; the first that is not
+raises `FloatingPointError` naming the update (1-based, the count the
+records' "step" uses). Off, no check runs and no host sync is added.
 
 Data parallelism. The JAX DP step computes each device's gradient on its
 rows, the mean over the data axis (inserted by XLA), then the global-norm
@@ -74,6 +83,8 @@ from shallow_wavenet_tpu_torch.models.wavenet import (
 )
 from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_quantize
 from shallow_wavenet_tpu_torch.parallel import mesh
+from shallow_wavenet_tpu_torch.utils import observability
+from shallow_wavenet_tpu_torch.utils.observability import MetricsWriter
 
 log = logging.getLogger(__name__)
 
@@ -257,7 +268,18 @@ class Trainer:
                   {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()})
             gen = self._dropout_generator(state.step, i) if drop else None
             l_i = self._loss_fn(params, mb, gen)
-            (g_i,) = torch.autograd.grad(l_i, params)
+            debug = observability.debug_mode()
+            if debug:
+                _check_finite(state.step + 1, loss=l_i)
+            try:
+                (g_i,) = torch.autograd.grad(l_i, params)
+            except RuntimeError as e:
+                # anomaly mode's report of a backward op that made a NaN
+                if debug and "nan values" in str(e):
+                    raise FloatingPointError(
+                        f"non-finite gradient at update {state.step + 1}: "
+                        f"{e}") from e
+                raise
             loss = l_i.detach() if loss is None else loss + l_i.detach()
             grad = g_i if grad is None else grad + g_i
         if accum > 1:
@@ -309,6 +331,9 @@ class Trainer:
         if self.dp:
             loss, grad = self._all_reduce(loss, grad)
         state, norm = self._apply(state, grad)
+        if observability.debug_mode():
+            _check_finite(state.step, loss=loss, grad_norm=norm,
+                          params=state.params)
         return state, {"loss": loss, "grad_norm": norm}
 
     def multi_step(self, state: TrainState, group: dict):
@@ -456,6 +481,7 @@ class Trainer:
         samples_per_batch = None
         step = start
         mf = (workdir / "metrics.jsonl").open("a") if is_main else None
+        tb = MetricsWriter(workdir / "tb") if is_main else None
         try:
             while step < steps:
                 k = min(K, steps - step)
@@ -494,6 +520,7 @@ class Trainer:
                     if is_main:
                         mf.write(json.dumps(rec) + "\n")
                         mf.flush()
+                        tb.scalars(step, rec)
                         log.info("step %(step)d loss %(loss).4f gnorm "
                                  "%(grad_norm).2f %(steps_per_s).2f it/s",
                                  rec)
@@ -502,9 +529,22 @@ class Trainer:
         finally:
             # on ANY exit (exception, Ctrl-C): stop the prefetch worker
             prefetch.close()
+            if tb is not None:
+                tb.close()
             if mf is not None:
                 mf.close()
         return state
+
+
+def _check_finite(update: int, **tensors) -> None:
+    """Debug mode: raise FloatingPointError naming `update` unless every
+    entry of every tensor is finite (one host sync)."""
+    ok = torch.stack([torch.isfinite(v).all()
+                      for v in tensors.values()]).tolist()
+    bad = [k for k, good in zip(tensors, ok) if not good]
+    if bad:
+        raise FloatingPointError(
+            f"non-finite {', '.join(bad)} at update {update}")
 
 
 def _json_safe(obj):

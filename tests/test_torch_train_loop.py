@@ -5,7 +5,8 @@ no-op; warm start and its missing-checkpoint error; K updates per
 multi_step call equal K single steps, to the bit, remainder and resume
 included; grad_accum equals the big batch; context dropout's mask. Then the
 CLIs: bin/train.py on a synthetic corpus with the port's log-mel features,
-and bin/decode.py --workdir on its checkpoint."""
+and bin/decode.py --workdir on its checkpoint; bin/train.py accepts
+--profile and --debug-nans."""
 
 import dataclasses
 import json
@@ -376,6 +377,11 @@ def test_train_and_decode_cli(tmp_path):
         decode.main(dec + ["--workdir", str(workdir), "--params", "p.npz"])
     with pytest.raises(SystemExit):          # neither
         decode.main(dec)
-    with pytest.raises(SystemExit):          # not ported yet
-        train.main(common + ["--train-scp", "x", "--workdir", "w",
-                             "--profile"])
+    # --profile and --debug-nans are accepted: the run resumes at 6 with
+    # nothing left to do, and the profiler writes its trace
+    train.main(common + ["--train-scp", str(tmp_path / "corpus/train.scp"),
+                         "--workdir", str(workdir), "--steps", "6",
+                         "--device", "cpu", "--profile", "--debug-nans"])
+    assert len(records(workdir)) == 3
+    assert len(list((workdir / "profile").glob("*.pt.trace.json"))) == 1
+    assert not torch.is_anomaly_enabled()
