@@ -1,0 +1,22 @@
+"""Host time of a `decode_batch` call from the program's own spans: its
+`swt.decode.batch` span less its `swt.decode.copy_back` (the host's wait
+on the kernel and the copy), the mean over the traced calls."""
+from port_bench import program_spans as ps
+
+KIND, UNIT, SOURCE = ps.kind(), "ms", "program_span"
+LAYER = "decode entry"
+MOVES = "decode_audio_s_per_s"
+
+
+def value(spans, n):
+    calls = ps.trees(spans, "swt.decode.batch", n)
+    if not calls:
+        return None
+    return sum(ps.ms(r) - sum(map(ps.ms, ps.named(b, "swt.decode.copy_back")))
+               for r, b in calls) / len(calls)
+
+
+def read(rec, ctx):
+    if rec.kind != "offline" or rec.trace is None:
+        return None
+    return value(ps.records(), ps.traced_count(rec, "pb.decode_batch"))

@@ -49,6 +49,7 @@ decode's with the same --seed.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import logging
 import time
@@ -76,9 +77,12 @@ from shallow_wavenet_tpu_torch.models.wavenet import (
 from shallow_wavenet_tpu_torch.ops import ar_kernel
 from shallow_wavenet_tpu_torch.parallel import dp_devices
 from shallow_wavenet_tpu_torch.training import Trainer
-from shallow_wavenet_tpu_torch.utils.observability import maybe_profile
+from shallow_wavenet_tpu_torch.utils.observability import maybe_profile, span
 
 log = logging.getLogger("decode")
+
+# decode_batch calls in this process: each call's spans carry its number
+_CALLS = itertools.count()
 
 
 def load_model_state(cfg: Config, workdir: str, device=None
@@ -222,39 +226,48 @@ def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
     of the devices by repeating the last row, decoded by `generate_dp` and
     trimmed, so every row is the single call's.
     """
-    dev = resolve_device(device)
-    if layout is None:
-        layout = kernel_layout(cfg.model, "auto", dev)
     if segment_samples % 64 != 0:
         raise ValueError("--segment-samples must be a multiple of 64")
     if devices and segment_samples > 0:
         raise ValueError("--dp and --segment-samples are mutually "
                          "exclusive (--dp splits whole utterances)")
-    cond, _, n_samples = pad_batch_for_decode(utts, cfg.data.hop_length)
-    spk = (torch.tensor([u.speaker for u in utts], device=dev)
-           if cfg.model.n_speakers > 0 else None)
-    model = model.to(dev)
-    c_up = model.upsample_cond(torch.from_numpy(cond).to(dev), spk)
-    pp = extract_plain_params(model)
-    if noise is None:
-        if generator is None:
-            raise ValueError("decode_batch needs noise or a generator")
-        noise = ar_kernel.uniform_noise(c_up.shape[:2], generator)
-    noise = torch.as_tensor(noise).to(dev)
-    if devices:
-        B, pad = len(utts), -len(utts) % len(devices)
-        c_up, noise = (torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
-                       for x in (c_up, noise))
-        wav = generate_dp(pp, cfg.model, c_up, noise, devices,
-                          **layout)[:B]
-    elif segment_samples > 0:
-        wav = generate_segmented(pp, cfg.model, c_up, noise,
-                                 segment_samples, device=dev, **layout)
-    else:
-        wav = ar_kernel.generate(pp, cfg.model, c_up, noise=noise,
-                                 device=dev, **layout)
-    wav = wav.cpu().numpy()
-    return [wav[i, : n_samples[i]] for i in range(len(utts))]
+    with span("swt.decode.batch", id=next(_CALLS)):
+        dev = resolve_device(device)
+        if layout is None:
+            layout = kernel_layout(cfg.model, "auto", dev)
+        with span("swt.decode.pad"):
+            cond, _, n_samples = pad_batch_for_decode(utts,
+                                                      cfg.data.hop_length)
+            spk = (torch.tensor([u.speaker for u in utts], device=dev)
+                   if cfg.model.n_speakers > 0 else None)
+            model = model.to(dev)
+            cond = torch.from_numpy(cond).to(dev)
+        with span("swt.decode.upsample"):
+            c_up = model.upsample_cond(cond, spk)
+        with span("swt.decode.params"):
+            pp = extract_plain_params(model)
+        with span("swt.decode.noise"):
+            if noise is None:
+                if generator is None:
+                    raise ValueError("decode_batch needs noise or a "
+                                     "generator")
+                noise = ar_kernel.uniform_noise(c_up.shape[:2], generator)
+            noise = torch.as_tensor(noise).to(dev)
+        if devices:
+            B, pad = len(utts), -len(utts) % len(devices)
+            c_up, noise = (torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+                           for x in (c_up, noise))
+            wav = generate_dp(pp, cfg.model, c_up, noise, devices,
+                              **layout)[:B]
+        elif segment_samples > 0:
+            wav = generate_segmented(pp, cfg.model, c_up, noise,
+                                     segment_samples, device=dev, **layout)
+        else:
+            wav = ar_kernel.generate(pp, cfg.model, c_up, noise=noise,
+                                     device=dev, **layout)
+        with span("swt.decode.copy_back"):
+            wav = wav.cpu().numpy()
+            return [wav[i, : n_samples[i]] for i in range(len(utts))]
 
 
 def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,

@@ -14,6 +14,8 @@ import queue
 import threading
 from typing import Callable, Iterator
 
+from shallow_wavenet_tpu_torch.utils.observability import span
+
 
 class GroupSampler:
     """Wraps a batch sampler to yield K-stacked groups (leaf shape
@@ -70,7 +72,8 @@ class Prefetcher:
                 batch = next(self._sampler)
                 state = (self._sampler.state()
                          if hasattr(self._sampler, "state") else None)
-                item = (self._put(batch), state)
+                with span("swt.data.put"):
+                    item = (self._put(batch), state)
                 while not self._stop.is_set():
                     try:
                         self._q.put(item, timeout=0.2)
@@ -84,16 +87,18 @@ class Prefetcher:
         return self
 
     def __next__(self):
-        while True:
-            try:
-                batch, state = self._q.get(timeout=0.2)
-                self._consumed_state = state
-                return batch
-            except queue.Empty:
-                # only surface worker errors once the good batches are drained
-                if self._err is not None:
-                    raise self._err
-                continue
+        with span("swt.data.next"):
+            while True:
+                try:
+                    batch, state = self._q.get(timeout=0.2)
+                    self._consumed_state = state
+                    return batch
+                except queue.Empty:
+                    # only surface worker errors once the good batches are
+                    # drained
+                    if self._err is not None:
+                        raise self._err
+                    continue
 
     def state(self):
         """Sampler state as of the last batch the consumer actually took."""

@@ -47,6 +47,7 @@ from shallow_wavenet_tpu_torch import resolve_device
 from shallow_wavenet_tpu_torch.config import ModelConfig
 from shallow_wavenet_tpu_torch.ops import ar_kernel
 from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_quantize
+from shallow_wavenet_tpu_torch.utils.observability import span
 
 log = logging.getLogger(__name__)
 
@@ -149,6 +150,7 @@ class StreamingSynthesizer:
         self._record = bool(record_noise)
         self._noise_cols, self._cond_cols = [], []
         self._closed = False
+        self.sid = None              # the pool's stream id, for the spans
 
     def _upsample_block(self, lo: int, hi: int, last: bool):
         """c_up rows for frames [lo, hi): upsample the haloed window and
@@ -157,7 +159,7 @@ class StreamingSynthesizer:
         a = max(lo - self.halo, 0)
         b = hi if last else hi + self.halo
         win = self._frames[:, a - self._frames_base:b - self._frames_base]
-        with torch.no_grad():
+        with span("swt.stream.upsample"), torch.no_grad():
             c_up = self.model.upsample_cond(
                 torch.from_numpy(np.ascontiguousarray(win)).to(self.dev),
                 self.speaker)
@@ -171,21 +173,24 @@ class StreamingSynthesizer:
         replays the previous M steps: step s - M + t is forced with sample
         s - M - 1 + t and sees the conditioning and noise it consumed, so
         the call takes `warmup=M`."""
-        n = c_blk.shape[1]
-        noise = torch.from_numpy(self._rng.uniform(
-            1e-7, 1.0 - 1e-7, (self.B, n)).astype(np.float32)).to(self.dev)
-        if self._record:
-            self._noise_cols.append(noise)
-            self._cond_cols.append(c_blk)
-        self._blk = (c_blk, noise)
-        if self._hist is None:
-            return c_blk, noise, None
-        wav, c_prev, n_prev = self._hist
-        prev = wav[:, :-1]
-        if self.cfg.head == "softmax":
-            prev = mulaw_quantize(prev, self.cfg.quantize_channels).float()
-        return (torch.cat([c_prev, c_blk], dim=1),
-                torch.cat([n_prev, noise], dim=1), prev)
+        with span("swt.stream.prepare", id=self.sid):
+            n = c_blk.shape[1]
+            noise = torch.from_numpy(self._rng.uniform(
+                1e-7, 1.0 - 1e-7, (self.B, n)).astype(np.float32)
+            ).to(self.dev)
+            if self._record:
+                self._noise_cols.append(noise)
+                self._cond_cols.append(c_blk)
+            self._blk = (c_blk, noise)
+            if self._hist is None:
+                return c_blk, noise, None
+            wav, c_prev, n_prev = self._hist
+            prev = wav[:, :-1]
+            if self.cfg.head == "softmax":
+                prev = mulaw_quantize(prev,
+                                      self.cfg.quantize_channels).float()
+            return (torch.cat([c_prev, c_blk], dim=1),
+                    torch.cat([n_prev, noise], dim=1), prev)
 
     def _finish_block(self, wav):
         """The kernel's output for the rows `_prepare_block` gave it ->
@@ -216,19 +221,20 @@ class StreamingSynthesizer:
         ended), whatever is left, with the utterance-final upsampler edge,
         a partial block padded with zero conditioning (as
         pad_batch_for_decode pads) and trimmed by the caller."""
-        if self._frames is None:
-            return None
-        have = self._frames.shape[1] + self._frames_base
-        ready = have - self._done_frames - (0 if last else self.halo)
-        if ready < self.block_frames and not (last and ready > 0):
-            return None
-        n = min(ready, self.block_frames)
-        lo, hi = self._done_frames, self._done_frames + n
-        c_blk = self._upsample_block(lo, hi, last=last and hi == have)
-        if n < self.block_frames:
-            c_blk = torch.nn.functional.pad(
-                c_blk, (0, 0, 0, (self.block_frames - n) * self.hop))
-        return n, c_blk
+        with span("swt.stream.next_block", id=self.sid):
+            if self._frames is None:
+                return None
+            have = self._frames.shape[1] + self._frames_base
+            ready = have - self._done_frames - (0 if last else self.halo)
+            if ready < self.block_frames and not (last and ready > 0):
+                return None
+            n = min(ready, self.block_frames)
+            lo, hi = self._done_frames, self._done_frames + n
+            c_blk = self._upsample_block(lo, hi, last=last and hi == have)
+            if n < self.block_frames:
+                c_blk = torch.nn.functional.pad(
+                    c_blk, (0, 0, 0, (self.block_frames - n) * self.hop))
+            return n, c_blk
 
     def _consume(self, n: int) -> None:
         """Mark n more frames synthesized and drop the frames no longer
@@ -387,6 +393,7 @@ class StreamPool:
         self._at_once = None
         self._warned = False
         self.dispatches = 0
+        self._steps = 0
 
     # ---- lifecycle -------------------------------------------------------
 
@@ -399,6 +406,7 @@ class StreamPool:
         self._sessions[sid] = StreamingSynthesizer(
             self.weights, self.model, self.cfg, seed=seed,
             **self._session_kw)
+        self._sessions[sid].sid = sid
         return sid
 
     def push(self, sid: int, frames) -> None:
@@ -461,19 +469,21 @@ class StreamPool:
         blocks). Returns {sid: (k,) float32 samples} for the streams that
         emitted; an ended stream with nothing left is closed and its slot
         freed."""
-        phases = ([], [])
-        for sid, s in sorted(self._sessions.items()):
-            blk = s._next_block(last=sid in self._ended)
-            if blk is not None:
-                phases[s._hist is not None].append((sid, *blk))
-        out = {}
-        for members in phases:
-            if members:
-                out.update(self._launch(members))
-        for sid in sorted(self._ended):
-            if self._sessions[sid].pending_frames == 0:
-                self._close(sid)
-        return out
+        self._steps += 1
+        with span("swt.pool.step", id=self._steps):
+            phases = ([], [])
+            for sid, s in sorted(self._sessions.items()):
+                blk = s._next_block(last=sid in self._ended)
+                if blk is not None:
+                    phases[s._hist is not None].append((sid, *blk))
+            out = {}
+            for members in phases:
+                if members:
+                    out.update(self._launch(members))
+            for sid in sorted(self._ended):
+                if self._sessions[sid].pending_frames == 0:
+                    self._close(sid)
+            return out
 
     # ---- internals -------------------------------------------------------
 
@@ -495,16 +505,19 @@ class StreamPool:
                         "launch runs in waves", len(members), at_once,
                         self.cluster)
             self._warned = True
-        wav = ar_kernel.generate(
-            self.weights, self.cfg, c, noise=noise, teacher=teacher,
-            warmup=0 if teacher is None else self.M, **self._kw)
+        with span("swt.pool.launch", id=int(teacher is not None)):
+            wav = ar_kernel.generate(
+                self.weights, self.cfg, c, noise=noise, teacher=teacher,
+                warmup=0 if teacher is None else self.M, **self._kw)
         self.dispatches += 1
-        host = wav.cpu().numpy()
+        with span("swt.pool.copy_back"):
+            host = wav.cpu().numpy()
         off = 0 if teacher is None else self.M
         out = {}
-        for i, (sid, n, _) in enumerate(members):
-            s = self._sessions[sid]
-            s._finish_block(wav[i:i + 1])
-            s._consume(n)
-            out[sid] = host[i, off:off + n * self.hop]
+        with span("swt.pool.finish"):
+            for i, (sid, n, _) in enumerate(members):
+                s = self._sessions[sid]
+                s._finish_block(wav[i:i + 1])
+                s._consume(n)
+                out[sid] = host[i, off:off + n * self.hop]
         return out

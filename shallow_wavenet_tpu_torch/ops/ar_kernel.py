@@ -57,6 +57,7 @@ from shallow_wavenet_tpu_torch.config import ModelConfig
 from shallow_wavenet_tpu_torch.models import heads
 from shallow_wavenet_tpu_torch.ops import _build
 from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_dequantize
+from shallow_wavenet_tpu_torch.utils.observability import span
 
 # kernel launches by variant (`variant`) since the last reset; callers
 # clear it to count a run
@@ -347,22 +348,23 @@ def kernel_weights(pp, cfg: ModelConfig, dtype: str = "float32",
         return pp
     _check_kind(dtype, fused, cluster)
     dev = resolve_device(device)
-    w = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
-         for k, v in pp.items()}
-    if cfg.head == "softmax":
-        w["in_w"] = w.pop("input_embed")
-        w["in_b"] = torch.zeros(cfg.residual_channels, device=dev)
-    else:
-        w["in_w"], w["in_b"] = w.pop("input_w"), w.pop("input_b")
-    if fused:
-        w.update(fused_weights(w, cfg, fused))
-        del w["res_w"], w["skip_w"]
-    if cluster and fused:
-        w.update(pack_cluster_fused(w, cfg, cluster, fused))
-    elif cluster:
-        w.update(pack_cluster(w, cfg, cluster))
-    return KernelWeights({k: v.to(DTYPES[dtype]).contiguous()
-                          for k, v in w.items()}, dtype, fused, cluster)
+    with span("swt.ar.pack"):
+        w = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
+             for k, v in pp.items()}
+        if cfg.head == "softmax":
+            w["in_w"] = w.pop("input_embed")
+            w["in_b"] = torch.zeros(cfg.residual_channels, device=dev)
+        else:
+            w["in_w"], w["in_b"] = w.pop("input_w"), w.pop("input_b")
+        if fused:
+            w.update(fused_weights(w, cfg, fused))
+            del w["res_w"], w["skip_w"]
+        if cluster and fused:
+            w.update(pack_cluster_fused(w, cfg, cluster, fused))
+        elif cluster:
+            w.update(pack_cluster(w, cfg, cluster))
+        return KernelWeights({k: v.to(DTYPES[dtype]).contiguous()
+                              for k, v in w.items()}, dtype, fused, cluster)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -482,20 +484,23 @@ def generate(pp, cfg: ModelConfig, c_up, noise=None,
     they fit in shared memory (`cluster_resident`), to time the two
     placements; the samples do not change.
     """
-    dev = resolve_device(device)
-    args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
-                    unroll, dev, chunk, fused, dtype, cluster)
-    if args[0].is_cuda and cluster:
-        raw = _launch_cluster(cfg, mode == "greedy", *args, dtype=dtype,
-                              n=cluster, weights_l2=weights_l2, fused=fused)
-    elif args[0].is_cuda:
-        raw = _launch(cfg, mode == "greedy", *args, dtype=dtype,
-                      streamed=_streamed_mask(cfg, chunk, stream),
-                      fused=fused)
-    else:
-        raw = _plain(cfg, mode == "greedy", *args, fused=fused,
-                     split=cluster)
-    return _finish(cfg, raw)
+    with span("swt.ar.generate"):
+        dev = resolve_device(device)
+        args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup,
+                        generator, unroll, dev, chunk, fused, dtype, cluster)
+        with span("swt.ar.launch"):
+            if args[0].is_cuda and cluster:
+                raw = _launch_cluster(cfg, mode == "greedy", *args,
+                                      dtype=dtype, n=cluster,
+                                      weights_l2=weights_l2, fused=fused)
+            elif args[0].is_cuda:
+                raw = _launch(cfg, mode == "greedy", *args, dtype=dtype,
+                              streamed=_streamed_mask(cfg, chunk, stream),
+                              fused=fused)
+            else:
+                raw = _plain(cfg, mode == "greedy", *args, fused=fused,
+                             split=cluster)
+        return _finish(cfg, raw)
 
 
 def generate_plain(pp, cfg: ModelConfig, c_up, noise=None,

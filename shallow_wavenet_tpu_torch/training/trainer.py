@@ -84,7 +84,7 @@ from shallow_wavenet_tpu_torch.models.wavenet import (
 from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_quantize
 from shallow_wavenet_tpu_torch.parallel import mesh
 from shallow_wavenet_tpu_torch.utils import observability
-from shallow_wavenet_tpu_torch.utils.observability import MetricsWriter
+from shallow_wavenet_tpu_torch.utils.observability import MetricsWriter, span
 
 log = logging.getLogger(__name__)
 
@@ -267,12 +267,14 @@ class Trainer:
             mb = (batch if accum == 1 else
                   {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()})
             gen = self._dropout_generator(state.step, i) if drop else None
-            l_i = self._loss_fn(params, mb, gen)
+            with span("swt.train.forward"):
+                l_i = self._loss_fn(params, mb, gen)
             debug = observability.debug_mode()
             if debug:
                 _check_finite(state.step + 1, loss=l_i)
             try:
-                (g_i,) = torch.autograd.grad(l_i, params)
+                with span("swt.train.backward"):
+                    (g_i,) = torch.autograd.grad(l_i, params)
             except RuntimeError as e:
                 # anomaly mode's report of a backward op that made a NaN
                 if debug and "nan values" in str(e):
@@ -327,24 +329,29 @@ class Trainer:
         metrics as device scalars (no host sync); `state` is left as it
         was. Data-parallel: `batch` is this rank's rows, and the loss and
         gradient are the means over the ranks."""
-        loss, grad = self.value_and_grad(state, batch)
-        if self.dp:
-            loss, grad = self._all_reduce(loss, grad)
-        state, norm = self._apply(state, grad)
-        if observability.debug_mode():
-            _check_finite(state.step, loss=loss, grad_norm=norm,
-                          params=state.params)
-        return state, {"loss": loss, "grad_norm": norm}
+        with span("swt.train.step", id=state.step + 1):
+            loss, grad = self.value_and_grad(state, batch)
+            if self.dp:
+                loss, grad = self._all_reduce(loss, grad)
+            with span("swt.train.apply"):
+                state, norm = self._apply(state, grad)
+            if observability.debug_mode():
+                _check_finite(state.step, loss=loss, grad_norm=norm,
+                              params=state.params)
+            return state, {"loss": loss, "grad_norm": norm}
 
     def multi_step(self, state: TrainState, group: dict):
         """K updates over a (K, B, ...) group, in order: the math of K
         `step` calls. Metrics are (K,) device tensors."""
-        group = self.to_device(group)
-        ms = []
-        for i in range(group["x"].shape[0]):
-            state, m = self.step(state, {k: v[i] for k, v in group.items()})
-            ms.append(m)
-        return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+        with span("swt.train.multi_step", id=state.step + 1):
+            group = self.to_device(group)
+            ms = []
+            for i in range(group["x"].shape[0]):
+                state, m = self.step(state,
+                                     {k: v[i] for k, v in group.items()})
+                ms.append(m)
+            return state, {k: torch.stack([m[k] for m in ms])
+                           for k in ms[0]}
 
     # ---- eval ------------------------------------------------------------
     @torch.no_grad()
@@ -504,11 +511,14 @@ class Trainer:
                 log_due = step // le > prev // le or step == steps
                 ckpt_due = step // ce > prev // ce or step == steps
                 if log_due or (ckpt_due and eval_batches is not None):
+                    # the clock after the loss's copy to the host, which
+                    # waits for the updates: the rates count finished ones
+                    loss = float(last["loss"])
                     dt = time.time() - t0
                     done = step - start
                     rec = {
                         "step": step,
-                        "loss": float(last["loss"]),
+                        "loss": loss,
                         "grad_norm": float(last["grad_norm"]),
                         "steps_per_s": done / max(dt, 1e-9),
                         # the global batch: every rank's rows

@@ -13,7 +13,10 @@ training size.
   NaN, for K = 1 and K = 4, where the default mode runs on, and at one
   whose backward alone makes a NaN; a clean run's records are the same to
   the bit with it on;
-- `bin.train --profile --debug-nans`.
+- `bin.train --profile --debug-nans`, K = 2: the trace holds the
+  trainer's spans and the data path's consumer wait as
+  `user_annotation`s, and `spans.json` holds every trainer and data path
+  span, the prefetcher thread's `to_device` included.
 Anomaly mode is process-wide: a fixture turns debug mode off after every
 test and checks that it is off.
 """
@@ -186,7 +189,7 @@ def test_debug_mode_keeps_a_clean_run_to_the_bit(tmp_path):
 
 
 def test_train_cli_profile_and_debug_nans(tmp_path):
-    cfg = tiny_train_cfg(checkpoint_every=4, log_every=2)
+    cfg = tiny_train_cfg(checkpoint_every=4, log_every=2, steps_per_call=2)
     (tmp_path / "config.json").write_text(cfg.to_json())
     feats = _corpus(tmp_path, cfg)
     args = ["--config", str(tmp_path / "config.json"), "--feats-dir",
@@ -197,8 +200,17 @@ def test_train_cli_profile_and_debug_nans(tmp_path):
                        "--debug-nans"])
     assert not torch.is_anomaly_enabled()      # the CLI turned it off
     traces = list((tmp_path / "a/profile").glob("*.pt.trace.json"))
-    assert len(traces) == 1 and json.loads(traces[0].read_text())[
-        "traceEvents"]
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert len(traces) == 1 and events
+    main_thread = {"swt.train.multi_step", "swt.train.step",
+                   "swt.train.forward", "swt.train.backward",
+                   "swt.train.apply", "swt.data.next"}
+    assert main_thread <= {e["name"] for e in events
+                           if e.get("cat") == "user_annotation"}
+    spans = json.loads((tmp_path / "a/profile/spans.json").read_text())
+    assert main_thread | {"swt.data.put"} <= set(spans)
+    assert spans["swt.train.step"]["count"] == 4
+    assert spans["swt.train.multi_step"]["count"] == 2
     train.main(args + ["--workdir", str(tmp_path / "b")])
     a, b = records(tmp_path / "a"), records(tmp_path / "b")
     assert [r["step"] for r in a] == [2, 4]
