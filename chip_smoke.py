@@ -262,7 +262,18 @@ Phases, each printing one JSON line; any failure exits nonzero:
      kernel that fits at B = 1, and ar_generate's and the chosen N's at
      B = 8 (beside the unfused rows); the same row equal at B = 1, 8 and
      16; each fused template instance held at B = 1 as above (bf16 against
-     `chain=True, split=N, fused=4`);
+     `chain=True, split=N, fused=4`). Last, per-row lengths: fp32 (and
+     at config 2 bf16, on its shared-memory layout), unfused and
+     fused=4, on the layout the decode picks, B = 8 rows of
+     LENGTHS_FRAMES x hop steps (port_bench's offline_b8 mix), the
+     launch with `lengths` (rows stopped at their lengths, longest
+     started first) against the padded launch: each row equal to the bit
+     within its length and 0 past it; the call's ms in both forms in
+     turns (padded, lengths, lengths, padded); and at config 2 fp32 a
+     call of MANY_ROWS = CLUSTER_MAX_ROWS + 1 rows of random lengths
+     (two launches of one call), each row equal to the bit to the same
+     row in one of two single-launch padded calls of half the rows and 0
+     past its length, counted as two launches;
   15. cluster_probe: the ablation probe on the cluster kernel (the probe
      instances of csrc/ar_cluster.cu, library ar_cluster_probe) at config
      2 on the probe's recipe of weights, at the decode's N and weight
@@ -277,7 +288,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
      fp32 control above KPROBE_CONTROL_MIN (local_exchange's at N = 2,
      where each rank runs half the model; at N = 8 its output is rank 0's
      eighth, and the control is printed); full and the production kernel
-     timed in turns at B = 8. Then the per-stage timer at the
+     timed in turns at B = 8. Then the per-stage timer (its instance
+     runs row k on cluster k for T steps, `ar_probe.TIMED_FORM`) at the
      decode's layouts, config 2 (T = 2048) and deep_baseline (T = 1024),
      fp32 and bf16, unfused and fused 4, B = 8, on the main paths' random
      weights: the timed samples equal to the production launch's, the
@@ -447,6 +459,10 @@ TIMER_RATIO_MAX_C2_FP32 = 1.08
 CLUSTER_B, CLUSTER_SIZES_B = (1, 8, 16, 32), (1, 8)
 CLUSTER_T, CLUSTER_CHECK_T = 2048, 1024
 CLUSTER_N = (2, 4, 8, 16)
+# the cluster phase's per-row lengths: port_bench's offline_b8 frames;
+# a call of MANY_ROWS rows of MANY_ROWS_T steps at most takes two launches
+LENGTHS_FRAMES = (75, 86, 96, 107, 118, 129, 139, 150)
+MANY_ROWS, MANY_ROWS_T = ar_kernel.CLUSTER_MAX_ROWS + 1, 256
 # training at config 2 (its data config: B = 8, segment 8,000 samples, 320
 # of left context): a corpus of TRAIN_UTTS synthetic utterances of
 # TRAIN_SECONDS s; the card's first step held against the same code on the
@@ -2703,6 +2719,72 @@ def cluster_fits(mc, dtype: str, fused: int, limit: int):
     return occ, fits
 
 
+def cluster_lengths(mc, model, pp, tag: str, dtypes=("float32",)
+                    ) -> tuple[list, dict]:
+    """The cluster kernel on rows of their own lengths (LENGTHS_FRAMES x
+    hop), each of `dtypes`, unfused and fused=FUSED, on the decode's
+    layout: the checks that each row equals the padded launch's to the bit
+    within its length and is 0 past it, and {<dtype>_fused<W>: {"padded":
+    [ms, ms], "lengths": [ms, ms]}}, whole calls timed in turns."""
+    hop = int(np.prod(mc.upsample_factors))
+    lengths = [f * hop for f in LENGTHS_FRAMES]
+    B, T = len(lengths), max(lengths)
+    c = random_cond(mc, model, B, T, 29)
+    u = ar_kernel.uniform_noise(
+        (B, T), torch.Generator(device="cuda").manual_seed(29))
+    checks, ms = [], {}
+    for dtype in dtypes:
+        for W in (0, FUSED):
+            lay = decode.kernel_layout(mc, dtype, fused=W)
+            w = ar_kernel.kernel_weights(pp, mc, dtype, W, "cuda",
+                                         lay["cluster"])
+            outs, t = {}, {"padded": [], "lengths": []}
+            for k in ("padded", "lengths", "lengths", "padded"):
+                lens = lengths if k == "lengths" else None
+                t[k].append(event_ms(lambda: outs.setdefault(
+                    k, ar_kernel.generate(w, mc, c, noise=u, lengths=lens,
+                                          **lay))))
+            same = all(torch.equal(outs["lengths"][r, :n],
+                                   outs["padded"][r, :n])
+                       and not outs["lengths"][r, n:].any()
+                       for r, n in enumerate(lengths))
+            checks.append({"check": f"{tag}_{dtype}_fused{W}_"
+                           f"{layout_variant(mc, lay)}_lengths_equal_padded",
+                           "ok": same})
+            ms[f"{dtype}_fused{W}"] = t
+    return checks, ms
+
+
+def cluster_many_rows(mc, model, pp, tag: str) -> dict:
+    """One fp32 call of MANY_ROWS rows of random lengths in [1,
+    MANY_ROWS_T] on the decode's unfused layout, which the kernel runs as
+    two launches (CLUSTER_MAX_ROWS clusters, then one), the rows longest
+    first: the check that each row equals the same row of one of two
+    single-launch padded calls (the first half of the rows, the rest) to
+    the bit within its length and is 0 past it, and that `launches`
+    counted the call as two."""
+    B, T = MANY_ROWS, MANY_ROWS_T
+    c = random_cond(mc, model, B, T, 31)
+    u = ar_kernel.uniform_noise(
+        (B, T), torch.Generator(device="cuda").manual_seed(31))
+    lengths = np.random.default_rng(31).integers(1, T + 1, B).tolist()
+    lay = decode.kernel_layout(mc, "float32")
+    w = ar_kernel.kernel_weights(pp, mc, "float32", 0, "cuda",
+                                 lay["cluster"])
+    name = layout_variant(mc, lay)
+    before = ar_kernel.launches[name]
+    got = ar_kernel.generate(w, mc, c, noise=u, lengths=lengths, **lay)
+    two = ar_kernel.launches[name] - before
+    h = B // 2
+    want = torch.cat([ar_kernel.generate(w, mc, c[a:b].contiguous(),
+                                         noise=u[a:b].contiguous(), **lay)
+                      for a, b in ((0, h), (h, B))])
+    same = all(torch.equal(got[r, :n], want[r, :n]) and not got[r, n:].any()
+               for r, n in enumerate(lengths))
+    return {"check": f"{tag}_float32_{name}_{B}_rows_equal_padded",
+            "ok": same and two == 2, "launches": two}
+
+
 def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
     """The cluster kernel at config 2 and deep_baseline, fp32 and bf16,
     unfused and with the fused window (see phase 14 above). models:
@@ -2856,6 +2938,13 @@ def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
                         mc, dtype, n, resident, W),
                     "registers": regs.get(key), "occupancy": occs[W]}
             runs[f"{tag}_us_per_step"] = us
+        c2 = preset == "shallow_laplace_single"
+        more, runs[f"{preset}_lengths_ms"] = cluster_lengths(
+            mc, model, pp, preset,
+            ("float32", "bfloat16") if c2 else ("float32",))
+        checks += more
+        if c2:
+            checks.append(cluster_many_rows(mc, model, pp, preset))
     launches = dict(ar_kernel.launches)
     for d in checked.values():
         d["launches"] = launches.get(d["name"], 0)
@@ -3392,7 +3481,7 @@ def run(args, smi: str, builds: dict) -> int:
         "plain_ms": probe["plain_ms"], "bound_ms": probe["bound_ms"],
         "bound_by": probe["bound_by"], "library_ms": None})
     # the probe on the cluster kernel (its sweep's launches, one row per
-    # dtype) and the timed production instances (launches counted in the
+    # dtype) and the timed instances (launches counted in the
     # timer's run)
     for r in cluster_probe:
         timed = r["name"].endswith(",timed]")

@@ -263,8 +263,11 @@ def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
             wav = generate_segmented(pp, cfg.model, c_up, noise,
                                      segment_samples, device=dev, **layout)
         else:
+            # each row stops at its own length (the cluster kernel starts
+            # the longest first), so a batch in waves ends sooner
             wav = ar_kernel.generate(pp, cfg.model, c_up, noise=noise,
-                                     device=dev, **layout)
+                                     device=dev, lengths=n_samples,
+                                     **layout)
         with span("swt.decode.copy_back"):
             wav = wav.cpu().numpy()
             return [wav[i, : n_samples[i]] for i in range(len(utts))]

@@ -23,12 +23,15 @@ before launch (`no_resskip` where S > G/2, `split2` at an odd batch or on
 the cluster kernel, a preset whose resident rings do not fit one block),
 as the TPU tool prints FAILED; nothing runs in its place.
 
---timer runs the cluster kernel's timed production instance instead, at
+--timer runs the cluster kernel's timed instance instead, at
 the decode's layout, unfused and with the fused window --fused W, at the
 largest of --batches, for --dtype (or both dtypes with --dtype both): one
 JSON line per (dtype, form) with the untimed and timed us per step in
-turns, the timed samples' equality with the production launch's, and the
-stage table (`ar_probe.stage_times`). Needs CUDA.
+turns, the timed samples' equality with the production launch's, the
+timed instance's form (`form`: it runs row k on cluster k for T steps,
+where production reads each cluster's row and steps from the launch, so
+the stage table is of that form) and the stage table
+(`ar_probe.stage_times`). Needs CUDA.
 """
 
 from __future__ import annotations
@@ -167,7 +170,8 @@ def time_stages(pp, cfg, c_up, noise, dtype: str = "float32",
 
     def run(kind):
         if kind == "untimed":
-            ar_kernel.launch_cluster(args, dev, dtype, n, resident, fused)
+            ar_kernel.launch_cluster(args, dev, dtype, n, resident, fused,
+                                     B)
         else:
             ar_probe.launch_timed(args, timer, layout)
 
@@ -187,7 +191,7 @@ def time_stages(pp, cfg, c_up, noise, dtype: str = "float32",
                                         resident, fused),
             "us_untimed": us["untimed"], "us_timed": us["timed"],
             "ratio": sum(us["timed"]) / sum(us["untimed"]),
-            "equal": equal,
+            "equal": equal, "form": ar_probe.TIMED_FORM,
             "stages": ar_probe.stage_times(timer, 1e-3 * T * us["timed"][-1],
                                            T, fused)}
 

@@ -114,6 +114,21 @@
 // the batch (`ar_kernel.cluster_size`): with one block per SM, an H100's
 // GPCs hold only 7 clusters of 16 (112 of 132 SMs), 15 of 8. A batch
 // larger than the clusters the card holds at once runs in waves.
+// Rows of one batch may differ in length (a decode pads its utterances to
+// the longest): with `lengths`, row r runs lengths[r] steps and stops, and
+// its cluster frees its SMs for a cluster still waiting; with `order`,
+// cluster k runs row order[k], so that the wrapper can launch the longest
+// rows first and the last wave holds the shortest. A row's steps, inputs
+// and sums are those of the padded call, so its samples within its length
+// are the same to the bit; (B, T) stay the layout of every input and
+// output, and the kernel never writes past a row's length. Each cluster
+// reads its row and its steps from the kernel's parameters (`Params`
+// row_of, len_of), filled on the host at launch: indexed by the cluster,
+// they are the same for every thread and the compiler knows it. (Read
+// from device memory through a pointer, the bound made it treat the time
+// loop's exit as divergent, and a step took 2-3% longer on an H100.) A
+// launch holds kMaxRows clusters; `launch` runs a larger batch in
+// several launches.
 // No library kernel stands in for any part of the recurrence; fp32 FMA,
 // no tensor cores.
 //
@@ -158,6 +173,11 @@
 //   call it stores them and the time loop's cycles (from step 0's first
 //   read to the last draw) into p.timer, (B, N, kTimerSlots). The step's
 //   prologue (the input encoding) is in no kind: the rest.
+//   Unlike every other instance, the timed one runs cluster k on row k
+//   for T steps, and does not read its row and steps from the launch's
+//   parameters (`Params` row_of, len_of): on the production form the
+//   timer's own cost rose past chip_smoke.py's TIMER_RATIO_MAX_C2_FP32.
+//   So its stage table is of that in-order, padded form of the step.
 //   No barrier, fence or other memory operation is added. A product
 //   stage's count is thread 0's own pass (a slower warp shows in the next
 //   wait); a wait's is the cross-SM latency plus the slowest sender's
@@ -170,6 +190,7 @@
 #include <stddef.h>
 
 #include <utility>
+#include <vector>
 
 namespace cg = cooperative_groups;
 
@@ -187,6 +208,8 @@ constexpr int kMaxPass = 4;
 constexpr int kMaxFused = 16;
 constexpr int kMaxPassF = 8;
 constexpr int kMaxStages = 2 * kMaxLayers + 1;
+// clusters per launch (their rows and steps are kernel parameters)
+constexpr int kMaxRows = 512;
 constexpr int kMaxExchanges = 2 * kMaxLayers + 2;
 constexpr unsigned kFull = 0xffffffffu;
 // The entry points' own refusals; cudaError_t codes are >= 0.
@@ -194,7 +217,7 @@ constexpr int kErrLayers = -1, kErrClasses = -2, kErrSharedMemory = -3,
               kErrSplit = -4, kErrOccupancy = -5, kErrWidth = -6,
               kErrFused = -7, kErrAblation = -8, kErrSplit2 = -9,
               kErrResSkip = -10, kErrHead = -11, kErrChunk = -12,
-              kErrProbeForm = -13;
+              kErrProbeForm = -13, kErrRows = -14;
 
 // The probe's ablations: tools/kprobe.py's ABLATIONS in its order (as
 // csrc/ar_probe.cu numbers them), then the cluster's own.
@@ -257,6 +280,8 @@ struct Params {
   // cycles
   int chunk;
   long long* timer;
+  // cluster k of this launch: the row it runs and that row's steps
+  int row_of[kMaxRows], len_of[kMaxRows];
 };
 
 // The widths of one rank's slices.
@@ -641,7 +666,10 @@ ar_cluster_kernel(const Params p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int N = p.N;
   const int rank = (int)cluster.block_rank();
-  const int row = blockIdx.x / N;
+  // the timed instance runs row k on cluster k for T steps (see the
+  // header; the probe's entry refuses lengths and order)
+  const int row = kTimed ? (int)(blockIdx.x / N) : p.row_of[blockIdx.x / N];
+  const int steps = kTimed ? p.T : p.len_of[blockIdx.x / N];   // this row's
   const int tid = threadIdx.x;
   const int L = p.L, R = p.R, G = p.G, S = p.S, C = p.C, O = p.O;
   const int half = G / 2;
@@ -726,7 +754,7 @@ ar_cluster_kernel(const Params p) {
   const float* c_row = p.c_up + (size_t)row * p.T * C + rank * Cn;
   float c_in = 0.f, u_in = 0.f, x_in = 0.f;
   auto load_inputs = [&](int t) {
-    if (t >= p.T) return;
+    if (t >= steps) return;
     const size_t bt = (size_t)row * p.T + t;
     if (tid < Cn) c_in = c_row[(size_t)t * C + tid];
     if (tid < 32) u_in = p.noise[bt];
@@ -878,7 +906,7 @@ ar_cluster_kernel(const Params p) {
     else return rank_sum(x, N, ld);
   };
   #pragma unroll (Flags<A>::unroll)
-  for (int t = 0; t < p.T; ++t) {
+  for (int t = 0; t < steps; ++t) {
     const size_t bt = (size_t)row * p.T + t;
     const float c_t = c_in, u_t = u_in;
     load_inputs(t + 1);
@@ -1477,10 +1505,11 @@ namespace {
 template <typename Dispatch>
 int launch(Dispatch dispatch, int extra, int chunk, long long* timer,
     const float* c_up, const float* noise, const float* teacher, float* out,
-    const void* in_w, const void* in_b, const void* conv_b,
-    const void* res_b, const void* skip_b, const void* h1_b,
-    const void* h2_b, const void* stages, const int* dilations, int B,
-    int T, int L, int R, int G, int S, int C, int Q, int O, int N,
+    const int* lengths, const int* order, const void* in_w,
+    const void* in_b, const void* conv_b, const void* res_b,
+    const void* skip_b, const void* h1_b, const void* h2_b,
+    const void* stages, const int* dilations, int B, int T, int L, int R,
+    int G, int S, int C, int Q, int O, int N,
     int softmax, int greedy, int n_forced, int bf16, int resident,
     int fused, float log_b_min, float log_b_max, void* stream) {
   const int W = window(fused, L);
@@ -1537,7 +1566,26 @@ int launch(Dispatch dispatch, int extra, int chunk, long long* timer,
   e = (int)dispatch(W, nullptr, smem_bytes, 0, &clusters);
   if (e != 0) return e;
   if (clusters < 1) return kErrOccupancy;
-  return (int)dispatch(W, &p, smem_bytes, (cudaStream_t)stream, nullptr);
+  // order a permutation of the rows (each once), lengths in [0, T]
+  std::vector<char> seen(B, 0);
+  for (int b = 0; b < B; ++b) {
+    const int r = order ? order[b] : b;
+    if (r < 0 || r >= B || seen[r] ||
+        (lengths && (lengths[r] < 0 || lengths[r] > T)))
+      return kErrRows;
+    seen[r] = 1;
+  }
+  // kMaxRows clusters a launch, in the order given
+  for (int b0 = 0; b0 < B; b0 += kMaxRows) {
+    p.B = B - b0 < kMaxRows ? B - b0 : kMaxRows;
+    for (int k = 0; k < p.B; ++k) {
+      p.row_of[k] = order ? order[b0 + k] : b0 + k;
+      p.len_of[k] = lengths ? lengths[p.row_of[k]] : T;
+    }
+    e = (int)dispatch(W, &p, smem_bytes, (cudaStream_t)stream, nullptr);
+    if (e != 0) return e;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -1548,19 +1596,24 @@ int launch(Dispatch dispatch, int extra, int chunk, long long* timer,
 // window fused = W > 0 (`ar_cluster_fused_stages`), of the storage type
 // (fp32, or bf16 when bf16 != 0), as are the biases and in_w/in_b (conv_b
 // the fused window's folded bias when fused > 0); resident != 0 keeps the
-// weights in shared memory for the whole call.
+// weights in shared memory for the whole call. lengths (B steps, each in
+// [0, T]) and order (a permutation of the B rows, cluster k running row
+// order[k]) are host arrays, or null for T steps and row k; the samples
+// of a row past its length are not written.
 // Returns 0, one of the kErr* refusals (checked before anything runs: too
 // many layers, a class count the sampler cannot split over a warp, a
 // width N does not divide or an N the kernel does not take, a fused window
-// it cannot hold, a block's shared memory, or no cluster of N such blocks
-// fitting the card), or the cudaError_t of the attribute calls or the
-// launch.
+// it cannot hold, a block's shared memory, no cluster of N such blocks
+// fitting the card, a length out of range or an order that is no
+// permutation of the rows), or the cudaError_t
+// of the attribute calls or the launch.
 extern "C" int ar_cluster_generate(
     const float* c_up, const float* noise, const float* teacher, float* out,
-    const void* in_w, const void* in_b, const void* conv_b,
-    const void* res_b, const void* skip_b, const void* h1_b,
-    const void* h2_b, const void* stages, const int* dilations, int B,
-    int T, int L, int R, int G, int S, int C, int Q, int O, int N,
+    const int* lengths, const int* order, const void* in_w,
+    const void* in_b, const void* conv_b, const void* res_b,
+    const void* skip_b, const void* h1_b, const void* h2_b,
+    const void* stages, const int* dilations, int B, int T, int L, int R,
+    int G, int S, int C, int Q, int O, int N,
     int softmax, int greedy, int n_forced, int bf16, int resident,
     int fused, float log_b_min, float log_b_max, void* stream) {
   return launch(
@@ -1569,10 +1622,10 @@ extern "C" int ar_cluster_generate(
         return run_any<kAblFull, false>(bf16, resident, W, p, N, smem_bytes,
                                         s, clusters);
       },
-      0, 0, nullptr, c_up, noise, teacher, out, in_w, in_b, conv_b, res_b,
-                skip_b, h1_b, h2_b, stages, dilations, B, T, L, R, G, S,
-                C, Q, O, N, softmax, greedy, n_forced, bf16, resident,
-                fused, log_b_min, log_b_max, stream);
+      0, 0, nullptr, c_up, noise, teacher, out, lengths, order, in_w, in_b,
+      conv_b, res_b, skip_b, h1_b, h2_b, stages, dilations, B, T, L, R, G,
+      S, C, Q, O, N, softmax, greedy, n_forced, bf16, resident, fused,
+      log_b_min, log_b_max, stream);
 }
 
 #ifdef AR_CLUSTER_PROBE
@@ -1597,18 +1650,24 @@ cudaError_t run_ablation(int ablate, int bf16, int resident, const Params* p,
 // chunk: where no_cond refreshes its conditioning partials; timer: null,
 // or (B, N, kTimerSlots) int64 for the timed instance), on the arguments
 // of ar_cluster_generate. Refuses, before anything runs, what that entry
-// refuses and: an unknown ablation; split2; an ablation with the fused
-// window, the timer, the softmax head or a teacher; no_resskip unless
-// R = S = G/2; no_head with S/N < 2; an untimed call whose chunk is not a
-// multiple of 4 dividing T.
+// refuses and: lengths or order (its instances run every row for T
+// steps, in row order); more than kMaxRows rows (one launch: the timer's
+// slots are indexed by the launch's clusters); an unknown ablation;
+// split2; an ablation with the fused window, the timer, the softmax head
+// or a teacher; no_resskip unless R = S = G/2; no_head with S/N < 2; an
+// untimed call whose chunk is not a multiple of 4 dividing T.
 extern "C" int ar_cluster_probe(
     const float* c_up, const float* noise, const float* teacher, float* out,
-    const void* in_w, const void* in_b, const void* conv_b,
-    const void* res_b, const void* skip_b, const void* h1_b,
-    const void* h2_b, const void* stages, const int* dilations, int B,
-    int T, int L, int R, int G, int S, int C, int Q, int O, int N,
+    const int* lengths, const int* order, const void* in_w,
+    const void* in_b, const void* conv_b, const void* res_b,
+    const void* skip_b, const void* h1_b, const void* h2_b,
+    const void* stages, const int* dilations, int B, int T, int L, int R,
+    int G, int S, int C, int Q, int O, int N,
     int softmax, int greedy, int n_forced, int bf16, int resident,
-    int fused, float log_b_min, float log_b_max, int ablate, int chunk, long long* timer, void* stream) {
+    int fused, float log_b_min, float log_b_max, int ablate, int chunk,
+    long long* timer, void* stream) {
+  if (lengths || order) return kErrProbeForm;
+  if (B > kMaxRows) return kErrRows;
   if (ablate < 0 || ablate >= kNumAblations) return kErrAblation;
   if (ablate == kSplit2) return kErrSplit2;
   if (ablate != kAblFull && (fused || timer || softmax || n_forced))
@@ -1628,10 +1687,10 @@ extern "C" int ar_cluster_probe(
                             clusters,
                             std::make_integer_sequence<int, kNumAblations>());
       },
-      extra, chunk, timer, c_up, noise, teacher, out, in_w, in_b, conv_b, res_b,
-                skip_b, h1_b, h2_b, stages, dilations, B, T, L, R, G, S,
-                C, Q, O, N, softmax, greedy, n_forced, bf16, resident,
-                fused, log_b_min, log_b_max, stream);
+      extra, chunk, timer, c_up, noise, teacher, out, lengths, order, in_w,
+      in_b, conv_b, res_b, skip_b, h1_b, h2_b, stages, dilations, B, T, L,
+      R, G, S, C, Q, O, N, softmax, greedy, n_forced, bf16, resident, fused,
+      log_b_min, log_b_max, stream);
 }
 #endif  // AR_CLUSTER_PROBE
 
@@ -1673,9 +1732,13 @@ extern "C" const char* ar_cluster_error_string(int e) {
              "skip_channels / N >= 2";
     case kErrChunk:
       return "chunk must be a positive multiple of 4 that divides T";
+    case kErrRows:
+      return "lengths must lie in [0, T], order hold each row of [0, B) "
+             "once, and the probe take at most 512 rows";
     case kErrProbeForm:
       return "the ablations run on the unfused form of the Laplace head, "
-             "untimed and without a teacher; the timer on full only";
+             "untimed and without a teacher; the timer on full only; the "
+             "probe takes no lengths or order";
   }
   return cudaGetErrorString((cudaError_t)e);
 }

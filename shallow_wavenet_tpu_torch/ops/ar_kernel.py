@@ -14,16 +14,21 @@ fused window, `fused_weights`); `cluster` = N runs the function, unfused or
 fused, on `ar_cluster.cu` instead, one thread-block cluster of N SMs per
 batch row, every product split along its input dimension over the N ranks
 (`cluster_partition`). Softmax class ids are dequantized here, outside the
-kernel, with the same op on both versions.
+kernel, with the same op on both versions. `lengths` gives each row its own
+number of steps (a padded decode batch): every version computes each row's
+samples within its length as the padded call does, to the bit, and returns
+0 past it; the cluster kernel stops each row there and launches the longest
+rows first (`cluster_order`), so a batch that runs in waves ends sooner.
 
 On a CUDA tensor `generate` launches the kernel (one launch for the whole
-batch; the time loop runs inside it) or raises; on a CPU tensor it runs the
+batch, or for each CLUSTER_MAX_ROWS rows of it on the cluster kernel; the
+time loop runs inside it) or raises; on a CPU tensor it runs the
 plain version, `generate_plain`, which repeats the kernel's arithmetic,
 including its bf16 rounding points, with the same packed-ring recurrence
 (layer l owns ring rows [off_l, off_l + d_l), slot off_l + (t & (d_l - 1))).
 Where a ring is stored does not change the numbers, so the plain version
 keeps every ring in one tensor. `launches` counts kernel launches by
-variant.
+variant, `row_steps` the steps the rows ran against the padded ones.
 
 How the weights reach the kernel: `kernel_weights` casts them (bf16) and,
 for the fused window, forms its weight products as fp32 matmuls, then
@@ -49,6 +54,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import operator
 
 import torch
 
@@ -62,6 +68,13 @@ from shallow_wavenet_tpu_torch.utils.observability import span
 # kernel launches by variant (`variant`) since the last reset; callers
 # clear it to count a run
 launches: collections.Counter = collections.Counter()
+# rows' steps over `generate` calls since the last reset: "run", the steps
+# the rows ran (their lengths), and "padded", B x T; 1 - run / padded is
+# the share of a padded batch's steps that per-row lengths left out
+row_steps: collections.Counter = collections.Counter()
+# the cluster kernel's clusters per launch (kMaxRows in csrc/ar_cluster.cu):
+# a larger batch takes several launches of one call
+CLUSTER_MAX_ROWS = 512
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -388,6 +401,35 @@ def uniform_noise(shape, generator: torch.Generator):
     return u * (1.0 - 2e-7) + 1e-7
 
 
+def row_lengths(lengths, B: int, T: int, n_forced: int = 0) -> list:
+    """`generate`'s lengths as B Python ints, each in [max(1, n_forced),
+    T] (a row stops no earlier than its teacher-forced steps); raises
+    ValueError otherwise."""
+    try:
+        out = [operator.index(n) for n in lengths]
+    except TypeError as e:
+        raise ValueError(f"lengths must be integers: {e}") from None
+    low = max(1, n_forced)
+    if len(out) != B or any(not low <= n <= T for n in out):
+        raise ValueError(f"lengths must be {B} integers in [{low}, {T}] "
+                         f"(1, or the forced steps, to T), got {out}")
+    return out
+
+
+def cluster_order(lengths) -> list:
+    """The rows longest first, equal lengths in row order (a stable
+    argsort): cluster k of the cluster kernel runs row order[k]. The
+    clusters of a launch start in this order as SMs free up, so a batch
+    in waves runs its shortest rows last (on the offline mix, 8 rows of
+    75-150 frames on 7 clusters, no order of the rows ends sooner)."""
+    return sorted(range(len(lengths)), key=lambda r: -lengths[r])
+
+
+def _zero_tails(out, lengths) -> None:
+    for r, n in enumerate(lengths):
+        out[r, n:] = 0.0
+
+
 def _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
              unroll, dev, chunk, fused, dtype, cluster=0):
     _check_kind(dtype, fused, cluster)
@@ -452,7 +494,7 @@ def generate(pp, cfg: ModelConfig, c_up, noise=None,
              generator=None, unroll: int = 1, device=None, *,
              chunk: int = 64, stream: bool = False, fused: int = 0,
              dtype: str = "float32", cluster: int = 0,
-             weights_l2: bool = False):
+             weights_l2: bool = False, lengths=None):
     """AR generation; returns (B, T) fp32 on `device`.
 
     pp: plain params (models.wavenet.extract_plain_params), or the
@@ -483,23 +525,38 @@ def generate(pp, cfg: ModelConfig, c_up, noise=None,
     weights_l2: with cluster = N, stream the weights from L2 even where
     they fit in shared memory (`cluster_resident`), to time the two
     placements; the samples do not change.
+    lengths: None, or B host integers, the steps of each row, each in
+    [1, T] and no fewer than the teacher-forced steps (ValueError
+    otherwise): each row's samples within its length are the padded
+    call's, to the bit, and 0 past it. The cluster kernel stops each row
+    at its length and starts the longest rows first (`cluster_order`);
+    `ar_generate.cu` runs the padded rows; the plain version stops at the
+    longest.
     """
     with span("swt.ar.generate"):
         dev = resolve_device(device)
         args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup,
                         generator, unroll, dev, chunk, fused, dtype, cluster)
+        B, T = args[0].shape[:2]
+        if lengths is not None:
+            lengths = row_lengths(lengths, B, T, args[3])
         with span("swt.ar.launch"):
             if args[0].is_cuda and cluster:
                 raw = _launch_cluster(cfg, mode == "greedy", *args,
                                       dtype=dtype, n=cluster,
-                                      weights_l2=weights_l2, fused=fused)
+                                      weights_l2=weights_l2, fused=fused,
+                                      lengths=lengths)
             elif args[0].is_cuda:
                 raw = _launch(cfg, mode == "greedy", *args, dtype=dtype,
                               streamed=_streamed_mask(cfg, chunk, stream),
                               fused=fused)
+                if lengths is not None:
+                    _zero_tails(raw, lengths)
             else:
                 raw = _plain(cfg, mode == "greedy", *args, fused=fused,
-                             split=cluster)
+                             split=cluster, lengths=lengths)
+        row_steps["run"] += sum(lengths) if lengths is not None else B * T
+        row_steps["padded"] += B * T
         return _finish(cfg, raw)
 
 
@@ -508,7 +565,7 @@ def generate_plain(pp, cfg: ModelConfig, c_up, noise=None,
                    generator=None, unroll: int = 1, device=None, *,
                    chunk: int = 64, stream: bool = False, fused: int = 0,
                    dtype: str = "float32", chain: bool = False,
-                   split: int = 0, graph: bool = False):
+                   split: int = 0, graph: bool = False, lengths=None):
     """The plain PyTorch version of `generate`, on any device: one Python
     step per sample, the kernel's arithmetic in torch ops. Where the
     rings are stored (`stream`, `chunk`) changes nothing here.
@@ -542,14 +599,19 @@ def generate_plain(pp, cfg: ModelConfig, c_up, noise=None,
     term of the block, in layer order (`ar_cluster.cu`'s fused order). So
     split=1 is the order of chain=True alone, fused or not. Without
     `chain`, matmuls sum in their own order and split changes nothing.
+
+    lengths: as `generate`'s; the loop stops at the longest row.
     """
     dev = resolve_device(device)
     args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
                     unroll, dev, chunk, fused, dtype)
     if graph and dev.type != "cuda":
         raise ValueError("graph replay needs a CUDA device")
+    if lengths is not None:
+        lengths = row_lengths(lengths, *args[0].shape[:2], args[3])
     return _finish(cfg, _plain(cfg, mode == "greedy", *args, fused=fused,
-                               chain=chain, split=split, graph=graph))
+                               chain=chain, split=split, graph=graph,
+                               lengths=lengths))
 
 
 def _chain_sum(p, dim):
@@ -606,8 +668,9 @@ def split_sum(pairs, split: int = 0, chain: bool = False, owners=None):
 
 @torch.no_grad()
 def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
-           chain=False, split=0, graph=False):
+           chain=False, split=0, graph=False, lengths=None):
     B, T, C = c_up.shape
+    steps = T if lengths is None else max(lengths)
     dil = cfg.dilations
     L, R, G, S = (len(dil), cfg.residual_channels, cfg.gate_channels,
                   cfg.skip_channels)
@@ -646,7 +709,7 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
     rs_b = torch.cat([w["skip_b"], w["res_b"]], dim=-1)
     fb = torch.full((B,), float(cfg.quantize_channels // 2) if softmax
                     else 0.0, device=dev)
-    out = torch.empty(B, T, device=dev)
+    out = (torch.empty if lengths is None else torch.zeros)(B, T, device=dev)
 
     def step(x_in, c_t, u_t, read, write):
         """One sample: x_in the feedback input, c_t (B, C) and u_t (B,)
@@ -705,24 +768,27 @@ def _plain(cfg, greedy, c_up, noise, teacher, n_forced, w, fused=0,
         return torch.clamp(x, -1.0, 1.0)
 
     if graph:
-        return _replay(step, rings, out, fb, c_up, noise, teacher, n_forced,
-                       offs, dil)
-    for t in range(T):
-        slots = [offs[l] + (t & (dil[l] - 1)) for l in range(L)]
-        x = step(teacher[:, t] if t < n_forced else fb, c_up[:, t],
-                 noise[:, t], lambda l: rings[slots[l]],
-                 lambda l, h: rings.__setitem__(slots[l], h))
-        out[:, t] = x
-        fb = x
+        _replay(step, rings, out, fb, c_up, noise, teacher, n_forced, offs,
+                dil, steps)
+    else:
+        for t in range(steps):
+            slots = [offs[l] + (t & (dil[l] - 1)) for l in range(L)]
+            x = step(teacher[:, t] if t < n_forced else fb, c_up[:, t],
+                     noise[:, t], lambda l: rings[slots[l]],
+                     lambda l, h: rings.__setitem__(slots[l], h))
+            out[:, t] = x
+            fb = x
+    if lengths is not None:
+        _zero_tails(out, lengths)
     return out
 
 
 def _replay(step, rings, out, fb, c_up, noise, teacher, n_forced, offs,
-            dil):
-    """`_plain`'s loop as one captured step replayed T times: the step
-    index, its ring slots and the feedback live on the card, and the step
-    reads c_up, noise and teacher at its index (index_select) and writes
-    its ring rows and output column there (index_copy_)."""
+            dil, steps):
+    """`_plain`'s loop as one captured step replayed `steps` times: the
+    step index, its ring slots and the feedback live on the card, and the
+    step reads c_up, noise and teacher at its index (index_select) and
+    writes its ring rows and output column there (index_copy_)."""
     T = out.shape[1]
     dev = out.device
     t_dev = torch.zeros(1, dtype=torch.long, device=dev)
@@ -760,9 +826,8 @@ def _replay(step, rings, out, fb, c_up, noise, teacher, n_forced, offs,
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
         one()
-    for _ in range(T):
+    for _ in range(steps):
         g.replay()
-    return out
 
 
 def _lib() -> ctypes.CDLL:
@@ -859,7 +924,8 @@ def _cluster_lib() -> ctypes.CDLL:
     lib = _build.load("ar_cluster")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ints = ctypes.POINTER(i32)
-    lib.ar_cluster_generate.argtypes = ([ptr] * 12 + [ints] + [i32] * 16
+    lib.ar_cluster_generate.argtypes = ([ptr] * 4 + [ints] * 2 + [ptr] * 8
+                                        + [ints] + [i32] * 16
                                         + [f32, f32, ptr])
     lib.ar_cluster_generate.restype = i32
     lib.ar_cluster_smem_bytes.argtypes = [ints] + [i32] * 10
@@ -976,11 +1042,14 @@ def cluster_size(cfg: ModelConfig, dtype: str, device=None,
 
 
 def cluster_arguments(cfg, greedy, c_up, noise, teacher, n_forced, w,
-                      dtype, n, resident, fused, log_b=None):
+                      dtype, n, resident, fused, log_b=None, lengths=None):
     """The cluster kernel's C arguments for one call, its stream aside (as
     `ar_cluster_generate` takes them; the probe's entry takes the same),
     and the (B, T) output they write into. `w`: the kernel's tensors for
-    (dtype, fused, n); log_b: the Laplace clip (default the config's).
+    (dtype, fused, n); log_b: the Laplace clip (default the config's);
+    lengths: None for T steps of every row in row order, or `row_lengths`'
+    list: the rows then run in `cluster_order`, and the output is zeroed
+    first (a row is not written past its length).
     Raises ValueError where the packed stages are not the kernel's."""
     lib = _cluster_lib()
     B, T, C = c_up.shape
@@ -1004,10 +1073,14 @@ def cluster_arguments(cfg, greedy, c_up, noise, teacher, n_forced, w,
         raise ValueError(f"packed stage length "
                          f"{w['cluster_stages'].shape[-1]} is not the "
                          f"kernel's {want}")
-    out = torch.empty((B, T), dtype=torch.float32, device=c_up.device)
+    out = (torch.empty if lengths is None else torch.zeros)(
+        (B, T), dtype=torch.float32, device=c_up.device)
     softmax = cfg.head == "softmax"
     args = (c_up.data_ptr(), noise.data_ptr(),
             None if teacher is None else teacher.data_ptr(), out.data_ptr(),
+            *((None, None) if lengths is None else
+              ((ctypes.c_int * B)(*lengths),
+               (ctypes.c_int * B)(*cluster_order(lengths)))),
             *(w[k].data_ptr() for k in (
                 "in_w", "in_b", "conv_b", "res_b", "skip_b", "head1_b",
                 "head2_b", "cluster_stages")),
@@ -1020,9 +1093,10 @@ def cluster_arguments(cfg, greedy, c_up, noise, teacher, n_forced, w,
 
 
 def launch_cluster(args, device, dtype: str, n: int, resident: bool,
-                   fused: int) -> None:
-    """One launch of the cluster kernel on `cluster_arguments`' args (its
-    output is theirs), counted in `launches`; raises on a refusal or a
+                   fused: int, rows: int) -> None:
+    """One call of the cluster kernel on `cluster_arguments`' args (its
+    output is theirs) for a batch of `rows` rows, its launches (one per
+    CLUSTER_MAX_ROWS rows) counted in `launches`; raises on a refusal or a
     failed launch."""
     lib = _cluster_lib()
     with torch.cuda.device(device):
@@ -1033,14 +1107,17 @@ def launch_cluster(args, device, dtype: str, n: int, resident: bool,
     if err != 0:
         raise RuntimeError("ar_cluster launch failed: "
                            + lib.ar_cluster_error_string(err).decode())
-    launches[variant(dtype, False, fused, n, resident)] += 1
+    launches[variant(dtype, False, fused, n, resident)] += \
+        -(-rows // CLUSTER_MAX_ROWS)
 
 
 def _launch_cluster(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
-                    n, weights_l2, fused):
+                    n, weights_l2, fused, lengths=None):
     resident = (not weights_l2
                 and cluster_resident(cfg, dtype, n, c_up.device, fused))
     args, out = cluster_arguments(cfg, greedy, c_up, noise, teacher,
-                                  n_forced, w, dtype, n, resident, fused)
-    launch_cluster(args, c_up.device, dtype, n, resident, fused)
+                                  n_forced, w, dtype, n, resident, fused,
+                                  lengths=lengths)
+    launch_cluster(args, c_up.device, dtype, n, resident, fused,
+                   c_up.shape[0])
     return out

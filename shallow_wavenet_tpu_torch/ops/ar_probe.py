@@ -51,7 +51,12 @@ one block's shared memory.
 The timer (`timed_generate`): the cluster kernel's production instance
 with a clock read at each stage boundary, at any of the decode's layouts;
 `stage_times` turns its (B, N, 12) cycle counts into us per step per
-stage kind. `launches` counts kernel launches by variant.
+stage kind. It is the production step in one respect older: cluster k
+runs row k for T steps, where the production instance reads each
+cluster's row and steps from the launch (per-row lengths, longest rows
+first), so its stage table is of that in-order, padded form (TIMED_FORM);
+on a call without lengths its samples are the production launch's.
+`launches` counts kernel launches by variant.
 """
 
 from __future__ import annotations
@@ -93,6 +98,9 @@ STAGES = {
         "head products": 7, "head waits": 8, "head sums": 9, "draw": 10},
 }
 TIMER_SLOTS = 12
+# the timed instance's form, where it differs from production's
+TIMED_FORM = ("row k on cluster k, T steps each (production: each "
+              "cluster's row and steps from the launch)")
 
 # kernel launches by variant (`variant`) since the last reset; callers
 # clear it to count a run
@@ -598,7 +606,8 @@ def _cluster_probe_lib() -> ctypes.CDLL:
     lib = _build.load("ar_cluster_probe")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ar_cluster_probe.argtypes = (
-        [ptr] * 12 + [ctypes.POINTER(i32)] + [i32] * 16 + [f32, f32]
+        [ptr] * 4 + [ctypes.POINTER(i32)] * 2 + [ptr] * 8
+        + [ctypes.POINTER(i32)] + [i32] * 16 + [f32, f32]
         + [i32, i32, ptr, ptr])
     lib.ar_cluster_probe.restype = i32
     lib.ar_cluster_error_string.argtypes = [i32]
@@ -668,8 +677,9 @@ def timed_arguments(pp, cfg: ModelConfig, c_up, noise, dtype="float32",
 
 
 def launch_timed(args, timer, layout) -> None:
-    """One launch of the timed production instance on `timed_arguments`'
-    args, its cycles into `timer`, counted in `launches`."""
+    """One launch of the timed instance (the production step in
+    TIMED_FORM) on `timed_arguments`' args, its cycles into `timer`,
+    counted in `launches`."""
     dtype, n, resident, fused = layout
     _cluster_probe_call(args, "full", 0, timer, timer.device)
     launches[variant(dtype, "timed", "cluster", n, resident, fused)] += 1

@@ -15,6 +15,9 @@ the rings carry it on: held at TOL_BF16_SPLIT over a short teacher-forced
 call, where the fp32 version, the control, misses by more.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -143,6 +146,112 @@ def test_generate_cluster_on_cpu_is_the_plain_version():
     with pytest.raises(ValueError, match="fused=0"):
         ar_kernel.generate(w, pcfg, c, noise=noise, device="cpu",
                            cluster=8, fused=2)
+
+
+def _lengths(T):
+    """Rows of their own lengths, as a decode pads them: one as long as the
+    call, a short one, one in between, one of a single step."""
+    return [T, 17, T - 5, 1]
+
+
+@pytest.fixture(scope="module")
+def four_rows():
+    """The lengths tests' model and conditioning: 4 rows of T = 40."""
+    return _setup("laplace", F=4, B=4)
+
+
+@pytest.mark.parametrize("form", [
+    {"cluster": 8},                             # generate's CPU path
+    {"chain": True, "split": 4},                # the kernel's order
+    {"chain": True, "split": 4, "fused": 2}])
+def test_lengths_keep_each_row_of_the_padded_call(form, four_rows):
+    """With lengths, each row's samples within its length are the padded
+    call's to the bit, and 0 past it."""
+    cfg, pp, c_up = four_rows
+    B, T, _ = c_up.shape
+    noise = _noise((B, T), 5)
+    if "cluster" in form:
+        def run(**kw):
+            return ar_kernel.generate(
+                port_pp(pp), port_cfg(cfg), torch.from_numpy(c_up),
+                noise=torch.from_numpy(noise), device="cpu", **form,
+                **kw).numpy()
+    else:
+        def run(**kw):
+            return _plain(pp, cfg, c_up, noise, **form, **kw)
+    padded = run()
+    got = run(lengths=np.array(_lengths(T), np.int32))
+    for r, n in enumerate(_lengths(T)):
+        np.testing.assert_array_equal(got[r, :n], padded[r, :n])
+        assert not got[r, n:].any(), r
+
+
+def test_lengths_rows_do_not_depend_on_their_order(four_rows):
+    """A shuffled batch gives each row the same samples, in the kernel's
+    summation order; the cluster order is the rows longest first, equal
+    lengths in row order."""
+    cfg, pp, c_up = four_rows
+    B, T, _ = c_up.shape
+    noise = _noise((B, T), 6)
+    lengths = _lengths(T)
+    want = _plain(pp, cfg, c_up, noise, chain=True, split=4, lengths=lengths)
+    perm = [2, 0, 3, 1]
+    got = _plain(pp, cfg, c_up[perm], noise[perm], chain=True, split=4,
+                 lengths=[lengths[r] for r in perm])
+    np.testing.assert_array_equal(got, want[perm])
+    assert ar_kernel.cluster_order(lengths) == [0, 2, 1, 3]
+    assert ar_kernel.cluster_order([75, 86, 96, 107, 118, 129, 139, 150]) \
+        == [7, 6, 5, 4, 3, 2, 1, 0]
+    assert ar_kernel.cluster_order([3, 5, 5, 3]) == [1, 2, 0, 3]
+
+
+def test_lengths_none_runs_every_row_to_the_end(four_rows):
+    """lengths=None is the padded call, equal to every row at length T;
+    row_steps counts the steps run and the padded steps of each call."""
+    cfg, pp, c_up = four_rows
+    B, T, _ = c_up.shape
+    noise = torch.from_numpy(_noise((B, T), 7))
+    pcfg, ppp, c = port_cfg(cfg), port_pp(pp), torch.from_numpy(c_up)
+    ar_kernel.row_steps.clear()
+    a = ar_kernel.generate(ppp, pcfg, c, noise=noise, device="cpu")
+    assert ar_kernel.row_steps == {"run": B * T, "padded": B * T}
+    b = ar_kernel.generate(ppp, pcfg, c, noise=noise, device="cpu",
+                           lengths=[T] * B)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    ar_kernel.generate(ppp, pcfg, c, noise=noise, device="cpu",
+                       lengths=_lengths(T))
+    assert ar_kernel.row_steps == {"run": 2 * B * T + sum(_lengths(T)),
+                                   "padded": 3 * B * T}
+
+
+@pytest.mark.parametrize("lengths, kw, match", [
+    ([0, 1, 1, 1], {}, r"in \[1, 40\]"),
+    ([41, 1, 1, 1], {}, r"in \[1, 40\]"),
+    ([1, 1, 1], {}, "4 integers"),
+    ([1.0, 1, 1, 1], {}, "integers"),
+    ([40, 40, 40, 31], {"warmup": 32}, r"in \[32, 40\]"),
+    ([40, 40, 40, 39], {"warmup": 0}, r"in \[40, 40\]")])
+def test_lengths_refused(lengths, kw, match, four_rows):
+    """A length below 1, past T or below the teacher-forced steps, a
+    count other than B, or a non-integer raises ValueError."""
+    cfg, pp, c_up = four_rows
+    B, T, _ = c_up.shape
+    noise = torch.from_numpy(_noise((B, T), 8))
+    if kw:
+        kw["teacher"] = torch.from_numpy(_teacher("laplace", (B, T), 9))
+    for fn in (ar_kernel.generate, ar_kernel.generate_plain):
+        with pytest.raises(ValueError, match=match):
+            fn(port_pp(pp), port_cfg(cfg), torch.from_numpy(c_up),
+               noise=noise, device="cpu", lengths=lengths, **kw)
+
+
+def test_cluster_max_rows_is_the_kernels():
+    """The wrapper counts a call's launches by the kernel's clusters per
+    launch (kMaxRows in csrc/ar_cluster.cu)."""
+    src = (Path(ar_kernel.__file__).parents[1] / "csrc"
+           / "ar_cluster.cu").read_text()
+    got = re.search(r"constexpr int kMaxRows = (\d+);", src)
+    assert int(got.group(1)) == ar_kernel.CLUSTER_MAX_ROWS
 
 
 @pytest.mark.parametrize("n", [1, 2, 4, 8, 16])

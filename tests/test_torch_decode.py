@@ -21,8 +21,9 @@ from shallow_wavenet_tpu_torch.bin import decode
 from shallow_wavenet_tpu_torch.config import Config
 from shallow_wavenet_tpu_torch.data.dataset import Utterance
 from shallow_wavenet_tpu_torch.models.wavenet import (
-    WaveNet, params_from_flax, save_params_npz,
+    WaveNet, extract_plain_params, params_from_flax, save_params_npz,
 )
+from shallow_wavenet_tpu_torch.ops import ar_kernel
 
 from tests.test_model import randomize_head, tiny_cfg
 from tests.test_torch_generate import assert_same_samples
@@ -91,6 +92,32 @@ def test_decode_batch_segmented_equals_unsegmented():
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="segment-samples"):
         run(96)
+
+
+def test_decode_batch_rows_stop_at_their_lengths():
+    """decode_batch gives each row its utterance's length: the trimmed
+    waveforms are the padded call's to the bit, and on the offline mix's
+    frames (75-150, port_bench's offline_b8) the rows run 0.75 of the
+    padded steps."""
+    cfg = _cfg("laplace")
+    pcfg, model = _port_model(cfg, _state(cfg))
+    frames = (75, 86, 96, 107, 118, 129, 139, 150)
+    utts = [Utterance(np.zeros(0), f) for f in _feats(cfg, frames, seed=2)]
+    T = max(frames) * cfg.data.hop_length
+    noise = torch.from_numpy(np.random.default_rng(3).uniform(
+        1e-7, 1 - 1e-7, (len(frames), T)).astype(np.float32))
+    ar_kernel.row_steps.clear()
+    got = decode.decode_batch(model, pcfg, utts, noise=noise, device="cpu")
+    assert ar_kernel.row_steps["run"] / ar_kernel.row_steps["padded"] == 0.75
+    cond = torch.from_numpy(np.stack([np.pad(
+        u.feats, ((0, max(frames) - len(u.feats)), (0, 0))) for u in utts]))
+    padded = ar_kernel.generate(
+        extract_plain_params(model), pcfg.model,
+        model.upsample_cond(cond).detach(),
+        noise=noise, device="cpu",
+        **decode.kernel_layout(pcfg.model, "auto", "cpu")).numpy()
+    for g, p, f in zip(got, padded, frames):
+        np.testing.assert_array_equal(g, p[:f * cfg.data.hop_length])
 
 
 def test_decode_cli_writes_wavs_and_summary(tmp_path):
