@@ -22,7 +22,8 @@ stream opens, and the run goes on until each of them has come out.
 The check: every stream's emitted samples teacher-forced through the
 reference, each stream alone, with its conditioning upsampled block by
 block from haloed windows of its frames (`reference.upsample_blocks`) and
-its own uniforms, the widest sample gap against the cell's limit.
+its own uniforms, the widest gap against the cell's limit (the sample gap
+for the Laplace head, the CDF gap for the softmax head, `reference.judge`).
 """
 
 from __future__ import annotations
@@ -237,24 +238,28 @@ def run(ctx) -> Record:
 
     # the check: every stream's samples, its whole utterance upsampled at
     # once, teacher-forced through the reference with its own uniforms
-    gaps, control, block = [], [], bf * hop
+    check, gaps_of = reference.judge(mc)
+    gaps, control, fp8, block = [], [], [], bf * hop
     for s in streams.values():
         if not s["pieces"]:
             continue
         wav = np.concatenate(s["pieces"])
         n = len(wav)
         F = len(s["frames"])
-        c_up = reference.upsample_blocks(
-            w, mc, torch.from_numpy(s["frames"]).to(dev), bf)[:n]
+        frames = torch.from_numpy(s["frames"]).to(dev)
+        c_up = reference.upsample_blocks(w, mc, frames, bf)[:n]
         u = inputs.stream_uniforms(s["seed"], -(-F // bf), block)[:n]
         args = (w, mc, c_up, torch.from_numpy(u).to(dev),
                 torch.from_numpy(wav).to(dev))
-        gaps.append(float(reference.sample_gaps(*args).max()))
+        gaps.append(float(gaps_of(*args).max()))
         if ctx.readings:
-            control.append(float(reference.sample_gaps(
-                *args, control=True).max()))
+            control.append(float(gaps_of(*args, control=True).max()))
+            fp8.append(float(gaps_of(*args, c_low=reference.upsample_blocks(
+                w, mc, frames, bf, reference.fp8)[:n]).max()))
         n_blocks += len(s["pieces"])
-    limit = ctx.limits["max_sample_gap"]
+    limit = ctx.limits[check]
+    readings = {f"control.{check}": max(control, default=None),
+                f"control_fp8.{check}": max(fp8, default=None)}
     late = np.asarray(lateness) * 1e3
     step_ms = 1e3 * float(np.median([s["t1"] - s["t0"]
                                      for s in window_steps]))
@@ -265,7 +270,7 @@ def run(ctx) -> Record:
             f"step median {step_ms:.3f} ms; pushes late by median "
             f"{float(np.median(late)):.3f} ms, "
             f"p95 {float(np.percentile(late, 95)):.3f} ms, max "
-            f"{float(late.max()):.3f} ms; widest sample gap {max(gaps)!r}")
+            f"{float(late.max()):.3f} ms; {check} {max(gaps)!r}")
     facts = {"block_latency_s": lat, "steps": window_steps,
              "samples": sum(s["samples"] for s in window_steps),
              "frames": sum(s["samples"] for s in window_steps) // hop,
@@ -273,10 +278,9 @@ def run(ctx) -> Record:
              "model": mc,
              "idle_units": (launched["traced"], launched["untraced"],
                             ctx.seconds - overlap),
-             "readings": {"control.max_sample_gap": max(control,
-                                                        default=None)}}
+             "readings": readings}
     return Record(kind="live", window_s=ctx.seconds, facts=facts,
-                  checks=[("max_sample_gap", max(gaps), limit)],
+                  checks=[(check, max(gaps), limit)],
                   attempted=n_blocks,
                   failed=sum(g > limit for g in gaps),
                   memory_peak_bytes=peak, trace=tr)

@@ -11,8 +11,9 @@ Each batch's frames (standard normal, as normalized features) and
 uniforms are drawn from the seed and the batch's index. Batches run back
 to back until `--seconds` have passed; the batch in flight is finished and
 counted. The check: every utterance of every call, teacher-forced through
-the reference (`reference.sample_gaps`), its widest sample gap against the
-cell's limit.
+the reference, its widest gap against the cell's limit: the sample gap
+(`max_sample_gap`, `reference.sample_gaps`) for the Laplace head, the CDF
+gap (`max_cdf_gap`, `reference.cdf_gaps`) for the softmax head.
 """
 
 from __future__ import annotations
@@ -135,34 +136,39 @@ def run(ctx) -> Record:
 
     # the check, once the window has closed: every utterance teacher-forced
     # through the reference
-    gaps, control = [], []
+    check, gaps_of = reference.judge(mc)
+    gaps, control, fp8 = [], [], []
     for utts, noise, wavs in kept:
         from_frames = torch.from_numpy(np.stack([
             np.pad(u.feats, ((0, noise.shape[1] // hop - u.feats.shape[0]),
                              (0, 0))) for u in utts])).to(dev)
         c_up = reference.upsample(w, mc, from_frames)
+        if ctx.readings:
+            c_fp8 = reference.upsample(w, mc, from_frames, reference.fp8)
         for r, wav in enumerate(wavs):
             n = len(wav)
             args = (w, mc, c_up[r, :n], noise[r, :n],
                     torch.from_numpy(wav).to(dev))
-            gaps.append(float(reference.sample_gaps(*args).max()))
+            gaps.append(float(gaps_of(*args).max()))
             if ctx.readings:
-                control.append(float(reference.sample_gaps(
-                    *args, control=True).max()))
-    limit = ctx.limits["max_sample_gap"]
+                control.append(float(gaps_of(*args, control=True).max()))
+                fp8.append(float(gaps_of(*args, c_low=c_fp8[r, :n]).max()))
+    limit = ctx.limits[check]
+    readings = {f"control.{check}": max(control, default=None),
+                f"control_fp8.{check}": max(fp8, default=None)}
     facts = {
         "audio_s": sum(c["samples"] for c in window) / sr,
         "samples": sum(c["samples"] for c in window),
         "frames": sum(c["frames"] for c in window),
         "model": mc,
-        "readings": {"control.max_sample_gap": max(control, default=None)},
+        "readings": readings,
     }
     call_ms = 1e3 * float(np.median([c["t1"] - c["t0"] for c in window]))
     ctx.log(f"{len(window)} calls in {window_s:.4f} s; per call median "
-            f"{call_ms:.3f} ms; {facts['samples']} samples; widest sample gap "
+            f"{call_ms:.3f} ms; {facts['samples']} samples; {check} "
             f"{max(gaps)!r} over {len(gaps)} utterances")
     return Record(kind="offline", window_s=window_s, facts=facts,
-                  checks=[("max_sample_gap", max(gaps), limit)],
+                  checks=[(check, max(gaps), limit)],
                   attempted=len(gaps),
                   failed=sum(g > limit for g in gaps),
                   memory_peak_bytes=peak, trace=tr)

@@ -5,8 +5,9 @@ from port_bench import yardstick
 
 def roofline_pct(rec, kind: str):
     """Sum over the traced `ar_kernel.generate` calls of their least time
-    (`yardstick.ar_bound_ms` at each call's rows and steps, in its weight
-    dtype) over the device time of what they launched, in percent."""
+    (`yardstick.ar_bound_ms` at each call's rows and steps, the steps each
+    row ran where the call passed `lengths`, in its weight dtype) over the
+    device time of what they launched, in percent."""
     if rec.kind != kind or rec.trace is None:
         return None
     calls = [c for c in rec.trace.generate_calls if c["device_s"] > 0]
@@ -15,7 +16,7 @@ def roofline_pct(rec, kind: str):
     mc = rec.facts["model"]
     bound = sum(yardstick.ar_bound_ms(
         mc, *c["shape"], 2 if c["dtype"] == "bfloat16" else 4,
-        c["dtype"])[0] for c in calls)
+        c["dtype"], c["lengths"])[0] for c in calls)
     return 100.0 * bound / (1e3 * sum(c["device_s"] for c in calls))
 
 

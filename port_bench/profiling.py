@@ -56,7 +56,8 @@ class Trace:
     # device_s: the device time of the operations launched inside the
     # span, generate_s: of those launched inside its AR kernel calls
     generate_calls: list = field(default_factory=list)
-    # [{"device_s", "shape": (B, T), "dtype"}] per generate call
+    # [{"device_s", "shape": (B, T), "dtype", "lengths"}] per generate
+    # call; lengths: the rows' steps, None where the call passed none
 
 
 class Tracer:
@@ -77,8 +78,11 @@ class Tracer:
 
         def generate(pp, cfg, c_up, *args, **kw):
             with torch.profiler.record_function(GENERATE):
+                lengths = kw.get("lengths")
                 shapes.append((tuple(c_up.shape[:2]),
-                               kw.get("dtype", "float32")))
+                               kw.get("dtype", "float32"),
+                               None if lengths is None
+                               else [int(n) for n in lengths]))
                 return orig(pp, cfg, c_up, *args, **kw)
 
         ar_kernel_module.generate = generate
@@ -194,7 +198,7 @@ def reduce(events, span_names, shapes) -> Trace:
                                           zip(gen_rs, gen_dev)
                                           if a <= ga and gb <= b)}
                        for (a, b), d in zip(rs, device_in(rs))]
-    gen = [{"device_s": d, "shape": s[0], "dtype": s[1]}
+    gen = [{"device_s": d, "shape": s[0], "dtype": s[1], "lengths": s[2]}
            for d, s in zip(gen_dev, shapes)]
     return Trace(window_s=(w1 - w0) / 1e6, busy_s=busy / 1e6,
                  kernels=sum(1 for o in inside if o[4] == "kernel"),

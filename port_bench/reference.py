@@ -24,7 +24,11 @@ inverse CDF at the same uniform is the reference's sample. The widest gap
 between a program's sample and that one is the number compared: rounding
 in the program moves it by the rounding of one step, while an altered or
 misplaced sample, a wrong conditioning row or a wrong weight moves it by
-the sample's own scale.
+the sample's own scale. The softmax head's samples are classes: the
+program's samples are mapped back to class ids by the mu-law table, and
+the gap is how far the uniform lies outside the program's class's interval
+of the reference's CDF (`cdf_gaps`): compared as probabilities, not as
+sampled classes.
 """
 
 from __future__ import annotations
@@ -152,15 +156,23 @@ def _shift(x, d: int):
 
 
 def ar_outputs(w, mc, x_prev, c_up, rnd=fp32):
-    """The AR step's head outputs (mu, log b) at every position, fp32:
-    position t sees the feedback input x_prev[:, t] (the previous sample,
-    0.0 at t = 0) and the conditioning row c_up[:, t]. Every product's
-    inputs go through `rnd` (fp32: unchanged; `tf32` for the control),
-    its sums in fp32."""
+    """The AR step's head outputs at every position, fp32: (mu, log b)
+    for the Laplace head, the Q class logits for the softmax head.
+    Position t sees the feedback input x_prev[:, t] and the conditioning
+    row c_up[:, t]. The feedback is, by head: Laplace, the previous sample
+    (0.0 at t = 0) through the input projection; softmax, the previous
+    class id, whose row of the input embedding is the residual input (no
+    bias), at t = 0 the class Q // 2 (the mu-law class just above 0.0,
+    as the model's decode starts). Every product's inputs go through `rnd`
+    (fp32: unchanged; `tf32` for the control), its sums in fp32."""
     def mm(a, b):
         return torch.matmul(rnd(a), rnd(b))
 
-    h = x_prev[..., None] * w["input_proj/kernel"][0] + w["input_proj/bias"]
+    if mc["head"] == "softmax":
+        h = w["input_embed/embedding"][x_prev.long()]
+    else:
+        h = (x_prev[..., None] * w["input_proj/kernel"][0]
+             + w["input_proj/bias"])
     skip = 0.0
     for li, d in enumerate(dilations(mc)):
         k = w[f"layer{li}/conv/kernel"]
@@ -186,18 +198,101 @@ def laplace_sample(o, u, mc):
 
 
 @torch.no_grad()
-def sample_gaps(w, mc, c_up, noise, wav, control: bool = False):
+def sample_gaps(w, mc, c_up, noise, wav, control: bool = False,
+                c_low=None):
     """|program sample - reference sample| at every position of one row:
     c_up (T, C), noise (T,) and wav (T,) the program's samples, all on one
-    device, the reference teacher-forced with the program's samples. With
-    `control`, the control's reading in place of the program's: |TF32
-    reference sample - fp32 reference sample| on the same history."""
+    device, the reference teacher-forced with the program's samples. A
+    control's reading in place of the program's, on the same history:
+    `control` (True), the TF32 reference's sample; `c_low`, the fp32
+    reference's sample on that conditioning (the upsampler's fp8
+    control)."""
     x_prev = torch.cat([wav.new_zeros(1), wav[:-1]])[None]
     ref = laplace_sample(ar_outputs(w, mc, x_prev, c_up[None])[0], noise, mc)
     if control:
         wav = laplace_sample(ar_outputs(w, mc, x_prev, c_up[None], tf32)[0],
                              noise, mc)
+    elif c_low is not None:
+        wav = laplace_sample(ar_outputs(w, mc, x_prev, c_low[None])[0],
+                             noise, mc)
     return (wav - ref).abs()
+
+
+def mulaw_table(q: int) -> torch.Tensor:
+    """The Q waveform values of the softmax head's classes, float64: class
+    k's bin centre y = (k + 1/2) 2 / Q - 1 on the companded scale, expanded
+    by the inverse mu-law, x = sign(y) ((1 + mu)^|y| - 1) / mu, mu = Q - 1."""
+    mu = q - 1
+    y = (torch.arange(q, dtype=torch.float64) + 0.5) * (2.0 / q) - 1.0
+    return torch.sign(y) * ((1.0 + mu) ** y.abs() - 1.0) / mu
+
+
+def class_ids(wav, q: int):
+    """(ids, off): the class of each sample of `wav`, the nearest entry
+    of `mulaw_table(q)`, and whether the sample lies more than 1e-6 from
+    every entry (no class gives it: entries lie at least 1.7e-4 apart)."""
+    table = mulaw_table(q).to(wav.device)
+    dist = (wav.double()[:, None] - table[None]).abs()
+    best, ids = dist.min(dim=-1)
+    return ids, best > 1e-6
+
+
+def softmax_cdf(logits):
+    """The fp32 CDF over the classes: softmax times upper-triangular ones
+    (the op the model's inverse-CDF sampler names)."""
+    q = logits.shape[-1]
+    i = torch.arange(q, device=logits.device)
+    ones = (i[:, None] <= i[None, :]).float()
+    return torch.matmul(torch.softmax(logits.float(), dim=-1), ones)
+
+
+def cdf_class(cdf, u):
+    """The class the inverse CDF gives at uniform u: #{k : cdf[k] < u},
+    at most Q - 1."""
+    ids = (cdf < u[..., None]).sum(dim=-1)
+    return ids.clamp(max=cdf.shape[-1] - 1)
+
+
+@torch.no_grad()
+def cdf_gaps(w, mc, c_up, noise, wav, control=False, c_low=None):
+    """The softmax head's gap at every position of one row: c_up (T, C),
+    noise (T,) and wav (T,) the program's (dequantized) samples, all on
+    one device, the reference teacher-forced with the program's classes.
+    For class k at uniform u the gap is max(0, CDF[k-1] - u, u - CDF[k])
+    (CDF[-1] = 0) under the reference's fp32 CDF: 0 where u lies in k's
+    interval, the CDF's rounding at a bin edge, and on the scale of a
+    class's probability for a wrong class, weight or conditioning row. A
+    sample that is no class's value reads 1. `control` (True) puts the
+    TF32 reference's class at u in the program's place; `c_low`, the fp32
+    reference's class on that conditioning (the upsampler's fp8 control);
+    both judged by the same fp32 CDF."""
+    q = mc["quantize_channels"]
+    ids, off = class_ids(wav, q)
+    x_prev = torch.cat([ids.new_full((1,), q // 2), ids[:-1]])[None]
+    cdf = softmax_cdf(ar_outputs(w, mc, x_prev, c_up[None])[0])
+    if control:
+        ids = cdf_class(softmax_cdf(ar_outputs(w, mc, x_prev, c_up[None],
+                                               tf32)[0]), noise)
+    elif c_low is not None:
+        ids = cdf_class(softmax_cdf(ar_outputs(w, mc, x_prev,
+                                               c_low[None])[0]), noise)
+    hi = cdf.gather(-1, ids[:, None])[:, 0]
+    lo = torch.where(ids > 0, cdf.gather(-1, (ids - 1).clamp(min=0)[:, None])
+                     [:, 0], torch.zeros_like(hi))
+    gap = torch.maximum(lo - noise, noise - hi).clamp(min=0.0)
+    if not control and c_low is None:
+        gap = torch.where(off, torch.ones_like(gap), gap)
+    return gap
+
+
+def judge(mc):
+    """(the compared number's name, its per-position gaps) for the model's
+    head: `max_cdf_gap` and `cdf_gaps` for softmax, `max_sample_gap` and
+    `sample_gaps` for Laplace. Both gap functions take the same arguments,
+    the controls' (`control`, `c_low`) included."""
+    if mc["head"] == "softmax":
+        return "max_cdf_gap", cdf_gaps
+    return "max_sample_gap", sample_gaps
 
 
 # ---------------------------------------------------------------------------

@@ -24,12 +24,20 @@ TINY_MODEL = {
 }
 
 
-def tiny_config() -> dict:
+# the softmax head at small widths: R 32, G 64, S 32, C 32, 2 x 4 layers,
+# 256 mu-law classes
+TINY_SOFTMAX = dict(TINY_MODEL, n_stacks=2, stack_size=4,
+                    residual_channels=32, gate_channels=64, skip_channels=32,
+                    cond_channels=32, head="softmax")
+
+
+def tiny_config(model=None, name="tiny") -> dict:
     cfg = json.loads((harness.ROOT / "configs" /
                       "shallow_laplace_single.json").read_text())
-    cfg["name"] = "tiny"
+    cfg["name"] = name
     c = cfg["config"]
-    c["model"] = dict(TINY_MODEL)
+    c["name"] = name
+    c["model"] = dict(TINY_MODEL if model is None else model)
     c["data"].update(hop_length=4, sample_rate=200, segment_length=64,
                      batch_size=4, n_mels=6)
     c["train"].update(steps_per_call=2)
@@ -49,6 +57,12 @@ MIXES = {
                    "utt_seconds": 1.0, "trace_groups": 1},
 }
 
+# the tiny softmax cells: (cell, mix, limits)
+SOFTMAX_CELLS = {"offline": ("tiny_softmax_offline", "tiny_offline",
+                             {"max_cdf_gap": 1e-5}),
+                 "live": ("tiny_softmax_live", "tiny_live",
+                          {"max_cdf_gap": 1e-5})}
+
 LIMITS = {"offline": {"max_sample_gap": 1e-5},
           "live": {"max_sample_gap": 1e-5},
           "train": {"data_rows_off": 0, "loss_gap": 1e-3, "grad_gap": 2e-2,
@@ -62,6 +76,12 @@ def make_root(path: Path) -> Path:
     for d in ("configs", "mixes", "workloads"):
         (path / d).mkdir()
     (path / "configs" / "tiny.json").write_text(json.dumps(tiny_config()))
+    (path / "configs" / "tiny_softmax.json").write_text(json.dumps(
+        tiny_config(TINY_SOFTMAX, "tiny_softmax")))
+    for cell, mix, limits in SOFTMAX_CELLS.values():
+        (path / "workloads" / f"{cell}.json").write_text(json.dumps(
+            {"config": "tiny_softmax", "traffic": mix, "chips": 1,
+             "why": "test", "limits": limits}))
     for name, mix in MIXES.items():
         (path / "mixes" / f"{name}.json").write_text(json.dumps(mix))
         kind = mix["generator"]

@@ -155,3 +155,102 @@ def test_stream_samples_meet_block_upsampling():
     u = torch.from_numpy(inputs.stream_uniforms(77, 3, 64))[:len(wav)]
     gaps = reference.sample_gaps(w, mc, c_up[:len(wav)], u, wav)
     assert len(wav) == 41 * 4 and float(gaps.max()) < 1e-5
+
+
+def tiny_softmax():
+    from shallow_wavenet_tpu_torch.config import Config
+    from port_bench.tests.conftest import TINY_SOFTMAX
+    cfg = Config.from_dict(tiny_config(TINY_SOFTMAX)["config"])
+    mc = dict(TINY_SOFTMAX)
+    return cfg, mc, inputs.weights(mc, 5, torch.device("cpu"))
+
+
+def test_the_mulaw_table_is_the_models():
+    from shallow_wavenet_tpu_torch.ops.mulaw import (
+        mulaw_dequantize, mulaw_quantize)
+    got = mulaw_dequantize(torch.arange(256))
+    table = reference.mulaw_table(256)
+    assert float((got.double() - table).abs().max()) < 1e-7
+    ids, off = reference.class_ids(got, 256)
+    assert torch.equal(ids, torch.arange(256)) and not off.any()
+    # the decode starts from class Q // 2, the class just above 0.0
+    assert torch.equal(mulaw_quantize(torch.zeros(1)), torch.tensor([128]))
+    assert 0 < float(table[128]) < 1e-4
+
+
+def _softmax_run():
+    from shallow_wavenet_tpu_torch.models.wavenet import extract_plain_params
+    from shallow_wavenet_tpu_torch.ops import ar_kernel
+    cfg, mc, w = tiny_softmax()
+    model = load_model(cfg, w, "cpu")
+    frames = torch.randn(2, 11, mc["aux_channels"],
+                         generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        c_up = model.upsample_cond(frames)
+    noise = inputs.uniforms(c_up.shape[:2], torch.Generator().manual_seed(4))
+    wav = ar_kernel.generate(extract_plain_params(model), cfg.model, c_up,
+                             noise=noise, device="cpu")
+    return mc, w, c_up, noise, wav
+
+
+def test_the_softmax_judge_meets_the_plain_generator():
+    """The port's plain generate, free running on the softmax head: every
+    CDF gap at most 1e-6."""
+    mc, w, c_up, noise, wav = _softmax_run()
+    assert reference.judge(mc) == ("max_cdf_gap", reference.cdf_gaps)
+    for r in range(2):
+        gaps = reference.cdf_gaps(w, mc, c_up[r], noise[r], wav[r])
+        assert gaps.shape == wav[r].shape and float(gaps.max()) <= 1e-6
+
+
+def test_the_softmax_controls_read_their_class_flips():
+    """A control's class differs from the fp32 reference's only where the
+    uniform falls between their two CDFs (at a card's sizes, a few hundred
+    positions in a million; at this size, none), and reads there the CDFs'
+    distance. With each uniform put between the two CDFs at the edge where
+    they differ most, every position flips: the TF32 control and the fp8
+    upsampler's read that distance, about 1e-5, where the program reads 0
+    on its own uniforms."""
+    mc, w, c_up, noise, wav = _softmax_run()
+    frames = torch.randn(2, 11, mc["aux_channels"],
+                         generator=torch.Generator().manual_seed(3))
+    c_fp8 = reference.upsample(w, mc, frames, reference.fp8)
+    for r, (how, c_low) in enumerate([("tf32", None), ("fp8", c_fp8[1])]):
+        ids, _ = reference.class_ids(wav[r], 256)
+        x_prev = torch.cat([torch.tensor([128]), ids[:-1]])[None]
+        a = reference.softmax_cdf(reference.ar_outputs(
+            w, mc, x_prev, c_up[r:r + 1])[0])
+        b = reference.softmax_cdf(reference.ar_outputs(
+            w, mc, x_prev, c_up[r:r + 1], reference.tf32)[0]
+            if how == "tf32" else reference.ar_outputs(
+                w, mc, x_prev, c_low[None])[0])
+        d = (a - b)[:, :-1].abs()
+        k = d.argmax(dim=-1, keepdim=True)
+        u = (a.gather(-1, k) + b.gather(-1, k))[:, 0] / 2
+        gaps = reference.cdf_gaps(w, mc, c_up[r], u, wav[r],
+                                  control=how == "tf32", c_low=c_low)
+        assert float(gaps.min()) > 0.4 * float(d.max(dim=-1).values.min())
+        assert float(gaps.max()) > 1e-6
+
+
+def test_a_moved_class_and_an_off_table_sample_are_caught():
+    mc, w, c_up, noise, wav = _softmax_run()
+    ids, off = reference.class_ids(wav[0], 256)
+    assert not off.any()
+    t = wav.shape[1] // 2
+    # the class at t moved by one, to the side away from its uniform
+    cdf = reference.softmax_cdf(reference.ar_outputs(
+        w, mc, torch.cat([torch.tensor([128]), ids[:-1]])[None],
+        c_up[:1])[0])[t]
+    k = int(ids[t])
+    lo = float(cdf[k - 1]) if k else 0.0
+    step = 1 if float(noise[0, t]) < (lo + float(cdf[k])) / 2 else -1
+    moved = wav[0].clone()
+    moved[t] = reference.mulaw_table(256)[k + step].float()
+    gaps = reference.cdf_gaps(w, mc, c_up[0], noise[0], moved)
+    assert float(gaps[t]) >= 1e-3
+    # a sample that is no class's value reads 1
+    bad = wav[0].clone()
+    bad[t] += 3e-5
+    assert float(reference.cdf_gaps(w, mc, c_up[0], noise[0],
+                                    bad)[t]) == 1.0

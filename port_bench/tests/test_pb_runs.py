@@ -27,15 +27,19 @@ def run(root, kind, seed=7, trace=False, readings=False, seconds=0.4):
                             device="cpu", readings=readings)
 
 
-@pytest.mark.parametrize("kind", ["offline", "live", "train"])
+@pytest.mark.parametrize("kind", ["offline", "live", "train",
+                                  "softmax_offline", "softmax_live"])
 def test_a_cell_added_as_files_runs(tiny_root, kind):
+    path = kind.split("_")[-1]
     out = run(tiny_root, kind, seed=2 ** 31 + 3)
     assert out["correct"] and out["failed"] == 0 and out["attempted"] > 0
-    assert set(out["metrics"]) == {"setup_s", E2E[kind]}
+    assert set(out["metrics"]) == {"setup_s", E2E[path]}
     assert list(out)[-1] == "checks"
+    assert set(out["checks"]) == set(harness.load_json(
+        tiny_root, "workloads", f"tiny_{kind}")["limits"])
     traced = run(tiny_root, kind, trace=True)
     assert traced["correct"]
-    assert f"mfu_pct.{kind}" in traced["metrics"]
+    assert f"mfu_pct.{path}" in traced["metrics"]
     assert "window_s" in traced["device"]
 
 
@@ -61,19 +65,59 @@ def test_the_control_is_not_correct(tiny_root, kind):
                    for k, lim in limits.items())
 
 
-@pytest.mark.parametrize("kind", ["offline", "live"])
+@pytest.mark.parametrize("kind", ["offline", "live", "softmax_offline",
+                                  "softmax_live"])
+def test_both_heads_read_both_controls(tiny_root, kind):
+    """The decode generators read the TF32 and the fp8-upsampler controls
+    under the head's own number, whichever the head."""
+    out = run(tiny_root, kind, readings=True)
+    (check,) = out["checks"]
+    read = out["readings"]
+    assert set(read) == {f"control.{check}", f"control_fp8.{check}"}
+    assert all(v >= 0.0 for v in read.values())
+    if check == "max_sample_gap":
+        # the fp8 upsampler moves every Laplace sample a little
+        assert read[f"control_fp8.{check}"] > 0.0
+
+
+@pytest.mark.parametrize("kind", ["offline", "live", "softmax_offline",
+                                  "softmax_live"])
 def test_an_altered_sample_is_not_correct(tiny_root, kind, monkeypatch):
     from shallow_wavenet_tpu_torch.ops import ar_kernel
     orig = ar_kernel.generate
 
     def altered(*a, **kw):
         out = orig(*a, **kw)
-        out[0, out.shape[1] // 2] += 0.05
+        # within the row's own length, which the decode trims it to
+        n = out.shape[1] if kw.get("lengths") is None else kw["lengths"][0]
+        out[0, n // 2] += 0.05
         return out
 
     monkeypatch.setattr(ar_kernel, "generate", altered)
     out = run(tiny_root, kind)
     assert not out["correct"] and out["failed"] > 0
+
+
+@pytest.mark.parametrize("kind", ["softmax_offline", "softmax_live"])
+def test_a_moved_class_is_not_correct(tiny_root, kind, monkeypatch):
+    """Every fifth sample of the first row one class up (down at the top
+    class), a valid class's value: the CDF gap catches it."""
+    from port_bench import reference
+    from shallow_wavenet_tpu_torch.ops import ar_kernel
+    orig = ar_kernel.generate
+    table = reference.mulaw_table(256).float()
+
+    def moved(*a, **kw):
+        out = orig(*a, **kw)
+        ids, _ = reference.class_ids(out[0, ::5], 256)
+        ids = torch.where(ids < 255, ids + 1, ids - 1)
+        out[0, ::5] = table.to(out.device)[ids]
+        return out
+
+    monkeypatch.setattr(ar_kernel, "generate", moved)
+    out = run(tiny_root, kind)
+    assert not out["correct"] and out["failed"] > 0
+    assert out["checks"]["max_cdf_gap"]["value"] > 1e-3
 
 
 def test_a_step_that_keeps_its_state_is_not_correct(tiny_root, monkeypatch):

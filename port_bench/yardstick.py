@@ -17,6 +17,10 @@ PEAK_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12         # bf16 on the tensor cores, dense
 PEAK_BYTES = 3.35e12             # HBM3 bytes per second
 PEAKS = {"float32": PEAK_FP32_FLOPS, "bfloat16": PEAK_BF16_FLOPS}
+# the most a kernel can keep on the card between steps: 50 MiB of L2 and,
+# on each of the 132 SMs, 256 KiB of L1 / shared memory and 256 KiB of
+# registers (121,634,816 bytes)
+ON_CHIP_BYTES = 50 * 2 ** 20 + 132 * (256 + 256) * 2 ** 10
 
 
 def dilations(mc) -> list[int]:
@@ -54,14 +58,23 @@ def ar_weight_count(mc) -> int:
 
 
 def ar_bound_ms(mc, B: int, T: int, weight_bytes: int = 4,
-                dtype: str = "float32") -> tuple[float, str]:
-    """Least time (ms) of one AR kernel call of B rows and T steps: its
-    operations over the peak of `dtype`, or c_up + noise + out (fp32) and
-    the weights read once over the memory rate, whichever is larger.
-    Returns (ms, "operations" or "bytes")."""
+                dtype: str = "float32", lengths=None) -> tuple[float, str]:
+    """Least time (ms) of one AR kernel call of B rows and T steps, or of
+    rows that run `lengths` steps each (at most T): its operations over
+    the peak of `dtype`, or its bytes over the memory rate, whichever is
+    larger. The operations and the per-step streams (c_up, noise, out,
+    fp32) count the steps the rows run; the weights are read once, and
+    the part of them beyond what the card can hold on chip
+    (`ON_CHIP_BYTES`) once more for each step of the longest row after
+    its first, since no kernel can keep it there. Returns (ms,
+    "operations" or "bytes")."""
     C = mc["cond_channels"]
-    flops = 2.0 * ar_step_macs(mc) * B * T
-    nbytes = 4.0 * (B * T * C + 2 * B * T) + weight_bytes * ar_weight_count(mc)
+    steps = B * T if lengths is None else sum(lengths)
+    longest = T if lengths is None else max(lengths)
+    w_bytes = weight_bytes * ar_weight_count(mc)
+    flops = 2.0 * ar_step_macs(mc) * steps
+    nbytes = (4.0 * (steps * C + 2 * steps) + w_bytes
+              + (longest - 1) * max(0, w_bytes - ON_CHIP_BYTES))
     t_ops, t_bytes = flops / PEAKS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                        else "bytes")
