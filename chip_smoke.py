@@ -302,6 +302,30 @@ Every phase line carries `t`, the script's seconds so far. Then the
 they ran), the card's nvidia-smi line, the kernels' JSON line and, last,
 {"ok": true, "device": {...}}. Without CUDA, or outside the repo, it exits
 nonzero before printing any result.
+
+  16. sd_wide (after the cluster phase): the speaker-dependent vocoder
+     (port_bench's tamamori_sd_arctic: 30 layers, R 512, G 1024, S 256,
+     C 32, 256-class softmax) on the layout the decode picks ("auto": the
+     cluster kernel's wide form, `ar_cluster[N16,wide]`, fp32), B = SD_B,
+     T = SD_T (past the receptive field, so every global ring is written
+     and read): the class ids teacher-forced, and free running (sample and
+     greedy), each step's class judged under port_bench's plain reference
+     (fp32, TF32 off) fed the same class inputs: sampling, the CDF gap at
+     the step's uniform (`reference.cdf_gaps`'s), greedy, the probability
+     gap to the argmax, at most SD_GAP for the kernel and for the plain
+     version (`split=16, chain=True`; the kernel sums each dot with fp32
+     FMAs and the plain version rounds each product first, so the two can
+     draw different classes where a uniform falls within that rounding of
+     a CDF edge: flips counted), and the TF32 control's classes above
+     SD_GAP (the judge can fail). To the bit, the wide form against the
+     streamed form (`ar_cluster[N16,l2]`, the same operations in the same
+     order) at deep_baseline's widths, which both take, free running with
+     per-row lengths (global rings for dilations 128-512 there); the
+     rings' bytes by place (`ar_kernel.ring_bytes`); the plain version's
+     time for the teacher-forced call, and the wide form's time at B = 2
+     and 8 beside its bound (`yardstick.ar_bound_ms`: the weights beyond
+     the chip read every step). Its row in the kernels line carries the
+     widest gap (`max_gap`). `--only sd_wide` runs phases 1 and 16 alone.
 """
 
 from __future__ import annotations
@@ -324,6 +348,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from port_bench import reference, yardstick
 from shallow_wavenet_tpu_torch.bin import (
     as_oracle, decode, dma_probe, feature_extract, kfuse, kprobe, mcd_eval,
     pitch_eval,
@@ -332,7 +357,7 @@ from shallow_wavenet_tpu_torch.bin import noise_shaping as shaping
 from shallow_wavenet_tpu_torch.bin import run as recipe
 from shallow_wavenet_tpu_torch.bin import train as train_cli
 from shallow_wavenet_tpu_torch.bin.common import load_stats, load_utterances
-from shallow_wavenet_tpu_torch.config import get_config
+from shallow_wavenet_tpu_torch.config import Config, get_config
 from shallow_wavenet_tpu_torch.data import hdf5_io
 from shallow_wavenet_tpu_torch.data.audio_io import read_wav, write_wav
 from shallow_wavenet_tpu_torch.data.dataset import (
@@ -463,6 +488,18 @@ CLUSTER_N = (2, 4, 8, 16)
 # a call of MANY_ROWS rows of MANY_ROWS_T steps at most takes two launches
 LENGTHS_FRAMES = (75, 86, 96, 107, 118, 129, 139, 150)
 MANY_ROWS, MANY_ROWS_T = ar_kernel.CLUSTER_MAX_ROWS + 1, 256
+# the wide form (phase sd_wide): rows and steps of its checks (T past the
+# receptive field, 3,070 samples), the widest gap its classes may read
+# under the plain reference's fp32 softmax (fp32 rounding of the CDF at a
+# bin edge is about 1e-7 for 256 classes, a wrong class reads on the scale
+# of its probability; port_bench's sd_offline_b8 limit), the rows and
+# lengths of the to-the-bit check at deep_baseline, and the timed batches
+SD_B, SD_T = 2, 4096
+SD_GAP = 1e-5
+SD_DEEP_LENGTHS = (4096, 3500, 3100, 2048, 1500, 1024, 700, 300)
+SD_TIME_B = (2, 8)
+SD_CONFIG = Path(__file__).resolve().parent / "port_bench" / "configs" / \
+    "tamamori_sd_arctic.json"
 # training at config 2 (its data config: B = 8, segment 8,000 samples, 320
 # of left context): a corpus of TRAIN_UTTS synthetic utterances of
 # TRAIN_SECONDS s; the card's first step held against the same code on the
@@ -559,9 +596,9 @@ def smi_line() -> str:
 
 def registers(ptxas_log: str) -> dict:
     """{"fp32|bf16,unfused|fused": registers} of the AR kernel,
-    {"ar_cluster,fp32|bf16[,fused],smem|l2": registers} of the cluster
-    kernel (unfused or with the fused window, weights resident or streamed
-    from L2) and
+    {"ar_cluster,fp32|bf16[,fused],smem|l2|wide": registers} of the
+    cluster kernel (unfused or with the fused window, weights resident or
+    streamed from L2, or its wide form) and
     {"ar_probe,fp32|bf16,<ablation>": registers} of the probe kernel, and
     {"ar_cluster_probe,fp32|bf16[,fused],smem|l2,<ablation>|timed":
     registers} of the cluster kernel's probe instances, and
@@ -585,11 +622,13 @@ def registers(ptxas_log: str) -> dict:
                 key = (f"ar_probe,{dtype},"
                        f"{ar_probe.ABLATIONS[int(probe.group(1))]}")
             elif "ar_cluster_kernel" in entry:
-                res, fused, abl, timed = re.search(
-                    r"Lb([01])ELb([01])ELi(\d+)ELb([01])E", entry).groups()
+                res, fused, abl, timed, wide = re.search(
+                    r"Lb([01])ELb([01])ELi(\d+)ELb([01])E(Lb1E)?",
+                    entry).groups()
                 key = (f"ar_cluster,{dtype},"
                        + ("fused," if fused == "1" else "")
-                       + ("smem" if res == "1" else "l2"))
+                       + ("wide" if wide else "smem" if res == "1"
+                          else "l2"))
                 if abl != "0" or timed == "1":
                     key = ("ar_cluster_probe" + key[len("ar_cluster"):]
                            + "," + ("timed" if timed == "1" else
@@ -3339,9 +3378,166 @@ def phase_cluster_probe(smi: str, regs: dict, models: dict) -> list:
     return rows
 
 
+def sd_classes(mc, out):
+    """The softmax head's class ids of dequantized samples."""
+    return mulaw_quantize(out, mc.quantize_channels).long()
+
+
+def sd_gaps(w, mcd, x_prev, c_up, noise, outs, greedy: bool):
+    """The gap of each (B, T) sample set of `outs` and, last, of the TF32
+    control, under port_bench's plain reference (fp32, TF32 off) at the
+    same inputs: x_prev each step's class input, c_up the conditioning.
+    Sampling, the CDF gap of class k at uniform u, max(0, CDF[k-1] - u,
+    u - CDF[k]) under the reference's fp32 CDF (`reference.cdf_gaps`'s);
+    greedy, the probability gap max(p) - p[k]. A sample that is no class's
+    value reads 1. The control's class is the TF32 reference's at u (its
+    argmax, greedy), judged by the same fp32 softmax."""
+    q = mcd["quantize_channels"]
+    with torch.no_grad():
+        logits = reference.ar_outputs(w, mcd, x_prev, c_up)
+        tf32 = reference.ar_outputs(w, mcd, x_prev, c_up, reference.tf32)
+    if greedy:
+        p = torch.softmax(logits, dim=-1)
+
+        def gap(k):
+            return p.max(dim=-1).values - p.gather(-1, k[..., None])[..., 0]
+        control = tf32.argmax(dim=-1)
+    else:
+        cdf = reference.softmax_cdf(logits)
+
+        def gap(k):
+            hi = cdf.gather(-1, k[..., None])[..., 0]
+            lo = torch.where(k > 0, cdf.gather(-1, (k - 1).clamp(min=0)[
+                ..., None])[..., 0], torch.zeros_like(hi))
+            return torch.maximum(lo - noise, noise - hi).clamp(min=0.0)
+        control = reference.cdf_class(reference.softmax_cdf(tf32), noise)
+    gaps = []
+    for out in outs:
+        ids, off = reference.class_ids(out.reshape(-1), q)
+        g = gap(ids.view(out.shape))
+        gaps.append(torch.where(off.view(out.shape), torch.ones_like(g), g))
+    return gaps + [gap(control)]
+
+
+def phase_sd_wide(smi: str, seed: int) -> dict:
+    """Phase 16 (above): the wide form at the speaker-dependent vocoder's
+    widths against the plain reference and the plain version, and to the
+    bit against the streamed form at deep_baseline's. Returns the kernels
+    line's row."""
+    tree = json.loads(SD_CONFIG.read_text())["config"]
+    mc, mcd = Config.from_dict(tree).model, tree["model"]
+    layout = decode.kernel_layout(mc)
+    require(layout.get("wide") and layout["cluster"] == 16
+            and layout["dtype"] == "float32",
+            f"the decode's layout (auto) at the vocoder's widths: {layout}")
+    model = random_model(mc, seed)
+    pp = extract_plain_params(model)
+    # the reference's weights: the same tensors under their flax names
+    w = {k.replace(".", "/"): v for k, v in model.state_dict().items()}
+    B, T, q = SD_B, SD_T, mc.quantize_channels
+    c_up = random_cond(mc, model, B, T, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    noise = ar_kernel.uniform_noise((B, T), g)
+    ids = torch.randint(0, q, (B, T), generator=g, device="cuda").float()
+    plain_kw = dict(chain=True, split=layout["cluster"])
+    checks = []
+
+    def held(name, x_prev, k, p, greedy=False):
+        gk, gp, gc = (float(v.max()) for v in sd_gaps(
+            w, mcd, x_prev, c_up, noise, (k, p), greedy))
+        checks.append({"check": name, "gap": "prob" if greedy else "cdf",
+                       "max_gap": gk, "plain_max_gap": gp,
+                       "control_max_gap": gc, "limit": SD_GAP,
+                       "flips_vs_plain": int((sd_classes(mc, k)
+                                              != sd_classes(mc, p)).sum()),
+                       "ok": gk <= SD_GAP and gp <= SD_GAP})
+
+    ar_kernel.launches.clear()
+    ar_kernel.ring_bytes.clear()
+    k = ar_kernel.generate(pp, mc, c_up, noise=noise, teacher=ids, **layout)
+    p, plain_ms = host_ms(lambda: plain_version(pp, mc, c_up, noise=noise,
+                                                teacher=ids, **plain_kw))
+    held("teacher_forced", ids, k, p)
+    for mode in ("sample", "greedy"):
+        k = ar_kernel.generate(pp, mc, c_up, noise=noise, mode=mode,
+                               **layout)
+        # the kernel's own classes as the inputs of the plain version and
+        # the reference: the silence class at t = 0, then each step's draw
+        own = torch.cat([torch.full_like(k[:, :1], q // 2),
+                         sd_classes(mc, k)[:, :-1].float()], dim=1)
+        held(f"free_{mode}", own, k,
+             plain_version(pp, mc, c_up, noise=noise, mode=mode,
+                           teacher=own, **plain_kw),
+             greedy=mode == "greedy")
+    # the judge's power: the TF32 control's classes fail it
+    control = max(c["control_max_gap"] for c in checks)
+    checks.append({"check": "tf32_control_fails", "control_max_gap":
+                   control, "limit": SD_GAP, "ok": control > SD_GAP})
+    name = ar_kernel.variant("float32", False, 0, layout["cluster"], False,
+                             wide=True)
+    launched = dict(ar_kernel.launches)
+    rings = dict(ar_kernel.ring_bytes)
+    shared, glob = ar_kernel.cluster_rings(mc, layout["cluster"], "float32",
+                                           wide=True)
+    require(set(launched) == {name} and launched[name] == 3,
+            f"the wide form's launches: {launched}")
+    require(rings == {"shared": 3 * B * shared * mc.residual_channels * 4,
+                      "global": 3 * B * glob * mc.residual_channels * 4},
+            f"ring bytes {rings} for {shared} shared, {glob} global rows")
+    # to the bit against the streamed form at deep_baseline's widths
+    dmc = get_config("deep_baseline").model
+    dmodel = random_model(dmc, seed + 2)
+    dpp = extract_plain_params(dmodel)
+    DB, DT = len(SD_DEEP_LENGTHS), max(SD_DEEP_LENGTHS)
+    dc = random_cond(dmc, dmodel, DB, DT, seed + 3)
+    dn = ar_kernel.uniform_noise((DB, DT), g)
+    streamed = ar_kernel.generate(dpp, dmc, dc, noise=dn, cluster=16,
+                                  weights_l2=True, lengths=SD_DEEP_LENGTHS)
+    wide = ar_kernel.generate(dpp, dmc, dc, noise=dn, cluster=16, wide=True,
+                              lengths=SD_DEEP_LENGTHS)
+    dshared, dglob = ar_kernel.cluster_rings(dmc, 16, "float32", wide=True)
+    bits = float((wide - streamed).abs().max())
+    checks.append({"check": "deep_wide_vs_streamed_free_sample",
+                   "max_abs_err": bits, "limit": 0.0, "ok": bits == 0.0,
+                   "shared_rows": dshared, "global_rows": dglob,
+                   "lengths": list(SD_DEEP_LENGTHS)})
+    times = []
+    for b in SD_TIME_B:
+        cb = random_cond(mc, model, b, T, seed + b)
+        nb = ar_kernel.uniform_noise((b, T), g)
+        wk = ar_kernel.kernel_weights(pp, mc, "float32", 0, "cuda",
+                                      layout["cluster"])
+        ms = cuda_ms(lambda: ar_kernel.generate(wk, mc, cb, noise=nb,
+                                                **layout), 2)
+        bound_ms, bound_by = yardstick.ar_bound_ms(mcd, b, T)
+        times.append({"B": b, "T": T, "ms": ms, "us_per_step": 1e3 * ms / T,
+                      "bound_ms": bound_ms, "bound_by": bound_by})
+    emit("sd_wide", nvidia_smi=smi, layout=layout, variant=name, B=B, T=T,
+         checks=checks, plain_ms=plain_ms, launches=launched,
+         ring_bytes=rings,
+         shared_rows=shared, global_rows=glob,
+         smem_bytes=ar_kernel.cluster_smem_bytes(
+             mc, "float32", layout["cluster"], False, wide=True),
+         clusters_at_once=ar_kernel.max_active_clusters(
+             mc, "float32", layout["cluster"], False, wide=True),
+         times=times)
+    for c in checks:
+        require(c["ok"], f"sd_wide: {c}")
+    # the kernels line's row: B = SD_B rows of T steps, as the plain
+    # version's teacher-forced call
+    return {"name": name, "launches": launched[name], "max_abs_err": None,
+            "max_gap": max(c["max_gap"] for c in checks if "max_gap" in c),
+            "ms": times[0]["ms"], "plain_ms": plain_ms,
+            "bound_ms": times[0]["bound_ms"],
+            "bound_by": times[0]["bound_by"]}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--only", choices=("sd_wide",), default=None,
+                   help="run the toolchain and build phases and this phase "
+                        "alone")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3372,6 +3568,12 @@ def run(args, smi: str, builds: dict) -> int:
          libs=sorted(str(v.relative_to(Path(__file__).resolve().parent))
                      for v in libs.values()),
          registers=regs, building=sorted(builds["nvcc"]))
+    if args.only == "sd_wide":
+        phase_sd_wide(smi, args.seed)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     cfg = get_config("shallow_laplace_single")
     model = random_model(cfg.model, args.seed)
@@ -3412,6 +3614,7 @@ def run(args, smi: str, builds: dict) -> int:
                                                  smi)
     held = phase_cluster(smi, regs, {cfg.name: (cfg.model, model, pp),
                                      dcfg.name: (dcfg.model, dmodel, dpp)})
+    sd_wide = phase_sd_wide(smi, args.seed)
     phase_kfuse(smi)
     libs, regs = finish_builds(builds, ("ar_probe", "ring_probe",
                                         "ar_cluster_probe"))
@@ -3451,6 +3654,10 @@ def run(args, smi: str, builds: dict) -> int:
                        check_plain_ms=fused_check["plain_ms"]))
     kernels += [row(d, "ar_cluster.cu", r)
                 for d, r in zip(deep_fused, (":368", ":742"))]
+    # its wide form, on the speaker-dependent vocoder's main path: judged
+    # by the classes' gaps (max_gap), launches counted in sd_wide
+    kernels.append(row(sd_wide, "ar_cluster.cu", ":560",
+                       max_gap=sd_wide["max_gap"], counted_in="sd_wide"))
     # its other template instances, on no main path on an H100: launches
     # counted in the cluster phase
     kernels += [row(d, "ar_cluster.cu",

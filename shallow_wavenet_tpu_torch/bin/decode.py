@@ -14,10 +14,12 @@ a failed launch raises. The cluster kernel (`csrc/ar_cluster.cu`, a
 cluster of N SMs per row, each reading 1/N of the weights) comes first,
 unfused and with --fused W, the fused window; the one-SM-per-row kernel
 (`csrc/ar_generate.cu`) is the fallback where no cluster fits the model,
-dtype and window. Where no layout fits the fused window W at all, --fused
-is dropped with a warning and the unfused layouts are tried, as the JAX
-tier ladder does (`decode_layout`); where none of those fits either, the
-decode raises.
+dtype and window. After the fp32 layouts of both, before any bf16 one,
+the cluster kernel's wide form (fp32, unfused) takes models that no other
+fp32 layout holds. Where no layout fits the fused window W at all,
+--fused is dropped with a warning and the unfused layouts are tried, as
+the JAX tier ladder does (`decode_layout`); where none of those fits
+either, the decode raises.
 
 `--f0-factor F` (world features only) moves the log-F0 conditioning by
 ln F on voiced frames before synthesis (`shift_f0`): pitch transposition
@@ -108,12 +110,18 @@ def load_model_state(cfg: Config, workdir: str, device=None
 # one-SM-per-row kernel, where streaming moves
 # the rings of the layers whose dilation is a >1 multiple of the chunk from
 # shared to global memory. The fp32 layouts of one kernel give identical
-# samples.
+# samples. Last of the fp32 layouts, the cluster kernel's wide form
+# (cluster=WIDE: unfused; gate width up to 2048, the rings of the large
+# dilations in global memory, the weights streamed in tiles), for models
+# that no fp32 layout above holds (the speaker-dependent vocoder's R 512,
+# G 1024): after them, so that every model one of them fits keeps it.
+WIDE = "wide"
 KERNEL_LAYOUTS = (
     ("float32", False, 64, True),
     ("float32", False, 64, False),
     ("float32", True, 64, False),
     ("float32", True, 32, False),
+    ("float32", False, 64, WIDE),
     ("bfloat16", False, 64, True),
     ("bfloat16", False, 64, False),
     ("bfloat16", True, 64, False),
@@ -135,16 +143,24 @@ def kernel_layout(model_cfg, kernel_dtype: str = "auto", device=None,
     the fused window when fused > 0) fits a block. On the CPU, where the
     plain version has no such limits, the first of that dtype. A streamed
     layout that streams no layer is the resident one and is skipped;
-    cluster=False skips the cluster layouts. Returns the generate()
-    keywords {"dtype", "stream", "chunk", "fused", "cluster"} (cluster: N,
-    or 0 for ar_generate). Raises NoLayoutError (a ValueError) when none
-    fits."""
+    cluster=False skips the cluster layouts; the wide form, only on a
+    card, takes no fused window. Returns the generate() keywords {"dtype",
+    "stream", "chunk", "fused", "cluster"} (cluster: N, or 0 for
+    ar_generate), and "wide": True for the wide form. Raises NoLayoutError
+    (a ValueError) when none fits."""
     dev = resolve_device(device)
     if kernel_dtype not in ("auto", *ar_kernel.DTYPES):
         raise ValueError(f"unknown kernel dtype {kernel_dtype!r}")
     limit = ar_kernel.smem_limit(dev) if dev.type == "cuda" else None
     for dtype, stream, chunk, clustered in KERNEL_LAYOUTS:
         if kernel_dtype not in ("auto", dtype):
+            continue
+        if clustered == WIDE:
+            n = (ar_kernel.cluster_size(model_cfg, dtype, dev, 0, wide=True)
+                 if cluster and not fused and dev.type == "cuda" else 0)
+            if n:
+                return {"dtype": dtype, "stream": False, "chunk": chunk,
+                        "fused": 0, "cluster": n, "wide": True}
             continue
         if clustered:
             n = (ar_kernel.cluster_size(model_cfg, dtype, dev, fused)
@@ -195,10 +211,14 @@ def warn_waves(model_cfg, layout: dict, batch_size: int, device=None
     if not n or dev.type != "cuda":
         return 1
     fused = layout["fused"]
-    at_once = ar_kernel.max_active_clusters(
-        model_cfg, dtype, n,
-        ar_kernel.cluster_resident(model_cfg, dtype, n, dev, fused), dev,
-        fused)
+    if layout.get("wide"):
+        at_once = ar_kernel.max_active_clusters(model_cfg, dtype, n, False,
+                                                dev, fused, wide=True)
+    else:
+        at_once = ar_kernel.max_active_clusters(
+            model_cfg, dtype, n,
+            ar_kernel.cluster_resident(model_cfg, dtype, n, dev, fused),
+            dev, fused)
     waves = -(-batch_size // at_once)
     if waves > 1:
         log.warning("--batch-size %d is more than the %d clusters of %d "

@@ -11,8 +11,9 @@ for each kernel of the old source, its instruction count on both sides
 and whether they are identical (the first differing positions if not),
 then both sides' registers per kernel. A kernel is matched by its name
 from `ar_cluster_kernel` on, with the probe's production template
-arguments (`Li0ELb0E`, kAblFull and untimed) removed. Exits 1 unless every
-kernel is identical. Needs nvcc and cuobjdump (the CUDA toolkit), no card.
+arguments (`Li0ELb0E`, kAblFull and untimed) and the wide form's (`Lb0E`,
+off) removed. Exits 1 unless every kernel is identical. Needs nvcc and
+cuobjdump (the CUDA toolkit), no card.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from shallow_wavenet_tpu_torch.ops import _build
 
 
 def _key(name: str) -> str:
-    return re.sub(r"Li0ELb0E", "", name[name.index("ar_cluster_kernel"):])
+    return re.sub(r"Li0ELb0E(Lb0E)?", "",
+                  name[name.index("ar_cluster_kernel"):])
 
 
 def sass(lib: Path) -> dict:

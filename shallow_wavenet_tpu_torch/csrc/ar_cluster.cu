@@ -110,6 +110,32 @@
 // step's count may be odd), with the bytes of each exchange of a step in
 // `xbytes`.
 //
+// The wide form (kWide; unfused, fp32; the last layout the decode tries,
+// for models whose rings and weights no other form holds): the gate width
+// up to 2048 (kMaxPassW passes of the tap lanes), the rings of the large
+// dilations in a global ring and the weights streamed in tiles. At the
+// speaker-dependent vocoder's widths (R 512, G 1024, S 256, 256 classes,
+// 30 layers) a row's rings are 6.3 MB and its fp32 weights 178 MB, beyond
+// the 50 MB L2, so every step reads them from HBM: the step is bound by
+// the bytes each SM pulls and by the chain, not by the operations.
+// - Rings (`pack_rings_wide`): the small dilations' rings stay in shared
+//   memory; a global layer writes its h slice to the global ring (B,
+//   grows, R), and since its tap-0 row of step t + 1 was written d >= 2
+//   steps earlier, every rank copies its slices of those rows for step
+//   t + 1 with cp.async during step t (`xprev`, double-buffered by step
+//   parity), off the chain.
+// - Weights: the packed stages of the streamed form (`pack_cluster`), read
+//   as tiles of whole rows (`wide_tiles`: per layer its tap rows, its
+//   conditioning rows, its skip|res rows; then the head) through kSlots
+//   slots of kTileBytes in shared memory. Thread 0 keeps kSlots tiles in
+//   flight, each one bulk copy (the TMA) completing on its slot's
+//   mbarrier, and refills a slot once every thread has passed the block
+//   barrier after its last read; the step's tile sequence repeats, so the
+//   next step's first tiles load during this step's last ones.
+// - Every product's chains, exchanges and sums are the streamed form's,
+//   in the same order, so `split=N, chain=True` of the plain version is
+//   its arithmetic too; only where the operands come from differs.
+//
 // The wrapper picks N from the model, the dtype and the card, never from
 // the batch (`ar_kernel.cluster_size`): with one block per SM, an H100's
 // GPCs hold only 7 clusters of 16 (112 of 132 SMs), 15 of 8. A batch
@@ -211,13 +237,24 @@ constexpr int kMaxStages = 2 * kMaxLayers + 1;
 // clusters per launch (their rows and steps are kernel parameters)
 constexpr int kMaxRows = 512;
 constexpr int kMaxExchanges = 2 * kMaxLayers + 2;
+// the wide form (kWide, below): passes over at most 2G = 2048 tap lanes;
+// the weight pipeline's slots in shared memory and the bytes of each; a
+// rank's budget of ring rows in shared memory; weight tiles per step
+constexpr int kMaxPassW = 8;
+constexpr int kSlots = 4;
+constexpr int kTileBytes = 32768;
+constexpr int kWideRingBytes = 16384;
+constexpr int kMaxTiles = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 // The entry points' own refusals; cudaError_t codes are >= 0.
 constexpr int kErrLayers = -1, kErrClasses = -2, kErrSharedMemory = -3,
               kErrSplit = -4, kErrOccupancy = -5, kErrWidth = -6,
               kErrFused = -7, kErrAblation = -8, kErrSplit2 = -9,
               kErrResSkip = -10, kErrHead = -11, kErrChunk = -12,
-              kErrProbeForm = -13, kErrRows = -14;
+              kErrProbeForm = -13, kErrRows = -14, kErrWide = -15;
+// `resident` of the entry points, past 0 (weights streamed a stage at a
+// time from L2): resident in shared memory, or the wide form
+constexpr int kResidentForm = 1, kWideForm = 2;
 
 // The probe's ablations: tools/kprobe.py's ABLATIONS in its order (as
 // csrc/ar_probe.cu numbers them), then the cluster's own.
@@ -282,6 +319,15 @@ struct Params {
   long long* timer;
   // cluster k of this launch: the row it runs and that row's steps
   int row_of[kMaxRows], len_of[kMaxRows];
+  // the wide form: the global ring (B, grows, R) and each layer's place
+  // (goff: its rows there, -1 where its ring is in shared memory; gidx:
+  // its index among the n_glob global layers, glayer the inverse); the
+  // weight tiles of one step (toff, tlen: elements of a rank's stages)
+  // and the rows of each kind of tile
+  void* gring;
+  int grows, n_glob, n_tiles, tap_rows, v_rows, rs_rows;
+  int goff[kMaxLayers], gidx[kMaxLayers], glayer[kMaxLayers];
+  int toff[kMaxTiles], tlen[kMaxTiles];
 };
 
 // The widths of one rank's slices.
@@ -346,10 +392,14 @@ __host__ __device__ inline Stages fused_stages(int L, int R, int G, int S,
 // of `elem` bytes), its weights (resident: every stage; streamed: two
 // stage buffers), then fp32 scratch at the float offsets below. W is the
 // fused window (0: unfused); `extra`, the probe's own floats (no_cond's
-// conditioning partials). The only statement of the layout, used by the
-// kernel to carve it and by the host to size it.
+// conditioning partials). The wide form (`wide`): `rows` are the rings
+// kept in shared memory, followed (at byte `xprev`) by the tap-0 rows of
+// the n_glob global layers for two steps; the weights are kSlots tiles;
+// the mbarriers are two and one per slot. The only statement of the
+// layout, used by the kernel to carve it and by the host to size it.
 struct SmemLayout {
   size_t ring_bytes, weight_bytes;
+  size_t xprev;         // the wide form's tap-0 rows, bytes from the start
   size_t recv_each;     // floats per parity of the receive buffer
   size_t bar, recv, h, c, z, skip, a1, o, fb, cb, rsb, h1b, h2b, inw, inb,
       u, ccs;
@@ -360,10 +410,15 @@ __host__ __device__ inline SmemLayout smem_layout(int rows, int L, int R,
                                                   int G, int S, int C,
                                                   int O, int N, int elem,
                                                   bool resident, int W,
-                                                  int extra = 0) {
+                                                  int extra = 0,
+                                                  bool wide = false,
+                                                  int n_glob = 0) {
   const Split s = split_of(R, G, S, C, N);
   SmemLayout m;
   m.ring_bytes = ((size_t)rows * s.Rn * elem + 15) / 16 * 16;
+  m.xprev = m.ring_bytes;
+  if (wide)
+    m.ring_bytes += ((size_t)2 * n_glob * s.Rn * elem + 15) / 16 * 16;
   size_t welems, r;
   if (W) {
     const Stages st = fused_stages(L, R, G, S, C, O, N, W, nullptr, nullptr);
@@ -376,11 +431,13 @@ __host__ __device__ inline SmemLayout smem_layout(int rows, int L, int R,
     r = 2 * (size_t)G;                             // (N, G/N) float2
     if ((size_t)(S + R) > r) r = S + R;            // (N, S/N + R/N)
   }
+  if (wide) welems = (size_t)kSlots * (kTileBytes / elem);
   m.weight_bytes = (welems * elem + 15) / 16 * 16;
   if ((size_t)N * O > r) r = (size_t)N * O;        // (N, O); S/N * N = S
   m.recv_each = (r + 3) / 4 * 4;
   size_t n = 0;
-  m.bar = n;   n += 4;               // two mbarriers (8 bytes each)
+  m.bar = n;                         // two mbarriers (8 bytes each); wide:
+  n += wide ? 4 + 2 * kSlots : 4;    // one more per weight slot
   m.recv = n;  n += 2 * m.recv_each;               // two parities
   m.h = n;     n += s.Rn;            // this rank's slice of h
   m.c = n;     n += s.Cn;            // its slice of c_t
@@ -409,6 +466,85 @@ void pack_rings(const int* dil, int L, int* off, int* rows) {
     off[l] = *rows;
     *rows += dil[l];
   }
+}
+
+// The wide form's rings. A layer keeps its ring in shared memory when its
+// dilation is at most the largest d for which a rank's slice of the rings
+// of every layer of dilation <= d fits kWideRingBytes (dilation 1 always:
+// its row is read the step after it is written); the others' rings go to
+// the global ring, (B, grows, R), where each tap-0 row is known a step
+// ahead. Fills off (shared rows), goff (global rows, -1 where shared),
+// gidx (index among the global layers, -1 where shared) and glayer (the
+// global layers in order).
+void pack_rings_wide(const int* dil, int L, int Rn, int elem, int* off,
+                     int* goff, int* gidx, int* glayer, int* rows,
+                     int* grows, int* n_glob) {
+  int keep = 1;
+  for (int k = 0; k < L; ++k) {
+    long long bytes = 0;
+    for (int l = 0; l < L; ++l)
+      if (dil[l] <= dil[k]) bytes += (long long)dil[l] * Rn * elem;
+    if (bytes <= kWideRingBytes && dil[k] > keep) keep = dil[k];
+  }
+  *rows = *grows = *n_glob = 0;
+  for (int l = 0; l < L; ++l) {
+    if (dil[l] <= keep) {
+      off[l] = *rows;
+      *rows += dil[l];
+      goff[l] = gidx[l] = -1;
+    } else {
+      off[l] = 0;
+      goff[l] = *grows;
+      *grows += dil[l];
+      gidx[l] = *n_glob;
+      glayer[(*n_glob)++] = l;
+    }
+  }
+}
+
+// The wide form's weight tiles of one step, in the order the kernel reads
+// them from a rank's packed stages (`stage_stride` apart, as streamed):
+// per layer, its tap rows (tap_rows rows of 2G elements a tile), its
+// conditioning rows (v_rows of G), its skip|res rows (rs_rows of S + R);
+// then the head's stage whole (H1 and H2 rows, rounded up to 8). Each
+// kind takes as many whole rows as one tile of kTileBytes holds. Fills
+// off/len unless null; returns the count.
+struct Tiles {
+  int tap_rows, v_rows, rs_rows;
+};
+
+inline Tiles wide_tile_rows(int G, int S, int R, int elem) {
+  const int te = kTileBytes / elem;
+  return {te / (2 * G), te / G, te / (S + R)};
+}
+
+int wide_tiles(int L, int R, int G, int S, int C, int O, int N, int elem,
+               int* off, int* len) {
+  const Split s = split_of(R, G, S, C, N);
+  const Tiles t = wide_tile_rows(G, S, R, elem);
+  const int stride = stage_stride(R, G, S, C, O, N);
+  int n = 0;
+  auto put = [&](int at, int elems) {
+    if (off && n < kMaxTiles) {
+      off[n] = at;
+      len[n] = elems;
+    }
+    ++n;
+  };
+  for (int l = 0; l < L; ++l) {
+    const int base = l * stride;
+    for (int r0 = 0; r0 < s.Rn; r0 += t.tap_rows)
+      put(base + r0 * 2 * G, (s.Rn - r0 < t.tap_rows ? s.Rn - r0
+                                                     : t.tap_rows) * 2 * G);
+    for (int q0 = 0; q0 < s.Cn; q0 += t.v_rows)
+      put(base + 2 * s.Rn * G + q0 * G,
+          (s.Cn - q0 < t.v_rows ? s.Cn - q0 : t.v_rows) * G);
+    for (int j0 = 0; j0 < s.Hn; j0 += t.rs_rows)
+      put(base + (2 * s.Rn + s.Cn) * G + j0 * (S + R),
+          (s.Hn - j0 < t.rs_rows ? s.Hn - j0 : t.rs_rows) * (S + R));
+  }
+  put(L * stride, (s.Sn * (S + O) + 7) / 8 * 8);
+  return n;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -553,6 +689,17 @@ __device__ __forceinline__ void cp_async_wait0() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// One bulk copy (the TMA's non-tensor form) of `bytes` from global memory
+// into this block's shared memory at `dst`, completing on mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Starts the copy of one stage (`stride` elements) into shared memory.
 template <typename W>
 __device__ __forceinline__ void copy_stage(W* dst, const W* src, int stride,
@@ -656,12 +803,15 @@ __device__ __forceinline__ float own_sum(const float* x, int n, int ld,
 
 // One block per SM (rows and ranks on their own SMs), as ar_generate.cu.
 // kFused: the fused window (p.fused = W); A, kTimed: the probe's ablation
-// and timer; see the header.
+// and timer; kWide: the wide form (unfused, weights streamed); see the
+// header.
 template <typename W, bool kResident, bool kFused, int A = kAblFull,
-          bool kTimed = false>
+          bool kTimed = false, bool kWide = false>
 __global__ void __launch_bounds__(kThreads, 1)
 ar_cluster_kernel(const Params p) {
   using F = Flags<A>;
+  // passes of the block over the 2G tap lanes
+  constexpr int P = kWide ? kMaxPassW : kMaxPass;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int N = p.N;
@@ -679,8 +829,10 @@ ar_cluster_kernel(const Params p) {
   const int Wf = kFused ? p.fused : 0;
 
   const SmemLayout m = smem_layout(p.rows, L, R, G, S, C, O, N, sizeof(W),
-                                   kResident, Wf, F::no_cond ? L * G : 0);
+                                   kResident, Wf, F::no_cond ? L * G : 0,
+                                   kWide, p.n_glob);
   W* ring = reinterpret_cast<W*>(smem);
+  W* xprev = reinterpret_cast<W*>(smem + m.xprev);   // the wide form's
   W* wsm = reinterpret_cast<W*>(smem + m.ring_bytes);
   float* f = reinterpret_cast<float*>(smem + m.ring_bytes + m.weight_bytes);
   const unsigned bar0 = smem_u32(f + m.bar);   // buffer b's: bar0 + 8 b
@@ -774,9 +926,59 @@ ar_cluster_kernel(const Params p) {
     // every stage: copied once, never read from L2 again
     const size_t n_st = (size_t)p.total;
     for (size_t i = tid; i < n_st; i += kThreads) wsm[i] = stages[i];
-  } else {
+  } else if constexpr (!kWide) {
     copy_stage(wsm, stages, kFused ? p.slen[0] : stride, tid);  // stage 0
   }
+  // The wide form's weight pipeline: the call's tile n (the step's tiles,
+  // p.toff / p.tlen, over and over) lands in slot n % kSlots, on that
+  // slot's mbarrier (tbar0 + 8 slot). Every thread waits for tile tc;
+  // thread 0 refills a slot with the tile kSlots later once every thread
+  // has passed a block barrier after its last read of it (`tile_done`),
+  // and issues no tile past the call's last (`left`).
+  const unsigned tbar0 = bar0 + 16;
+  constexpr int kTileElems = kTileBytes / (int)sizeof(W);
+  unsigned tc = 0, next_n = 0;   // tiles consumed; the next one to issue
+  int next_k = 0;                // its index in the step's tiles
+  long long left = kWide ? (long long)steps * p.n_tiles : 0;
+  auto tile_issue = [&]() {
+    const unsigned slot = next_n % kSlots;
+    const unsigned bytes = (unsigned)p.tlen[next_k] * sizeof(W);
+    mbar_arm(tbar0 + 8 * slot, bytes);
+    bulk_load(smem_u32(wsm + (size_t)slot * kTileElems),
+              stages + p.toff[next_k], bytes, tbar0 + 8 * slot);
+    next_k = next_k + 1 == p.n_tiles ? 0 : next_k + 1;
+    ++next_n;
+    --left;
+  };
+  auto tile_wait = [&]() -> const W* {
+    const unsigned slot = tc % kSlots;
+    mbar_wait(tbar0 + 8 * slot, (tc / kSlots) & 1u);
+    return wsm + (size_t)slot * kTileElems;
+  };
+  auto tile_done = [&]() {
+    if (tid == 0 && left > 0) tile_issue();
+    ++tc;
+  };
+  // The wide form's tap-0 rows of step t's global layers, copied by
+  // cp.async into xprev[t & 1] during step t - 1 (each was written d >= 2
+  // steps before), each rank its own slices.
+  W* gring = static_cast<W*>(p.gring);
+  auto prefetch = [&](int t) {
+    if (t >= steps) return;
+    const int cpl = Rn * (int)sizeof(W) / 16;     // 16-byte copies a row
+    char* dst = reinterpret_cast<char*>(xprev + (size_t)(t & 1) * p.n_glob
+                                                    * Rn);
+    for (int i = tid; i < p.n_glob * cpl; i += kThreads) {
+      const int g = i / cpl, q = i - g * cpl;
+      const int l = p.glayer[g];
+      const W* src = gring + ((size_t)row * p.grows + p.goff[l]
+                              + (t & (p.dil[l] - 1))) * R + rank * Rn;
+      cp_async16(dst + ((size_t)g * Rn * sizeof(W) + 16 * q),
+                 reinterpret_cast<const char*>(src) + 16 * q);
+    }
+    cp_async_commit();
+  };
+  if constexpr (kWide) prefetch(0);
   // The exchanges of a step, in order, unfused: per layer, reduce-scatter
   // 1 on receive buffer 0 and 2 on buffer 1; then the head's
   // reduce-scatter on buffer 0 and the gather on buffer 1. Fused: the
@@ -797,6 +999,8 @@ ar_cluster_kernel(const Params p) {
   if (tid == 0) {
     mbar_init(bar0, 1);
     mbar_init(bar0 + 8, 1);
+    if constexpr (kWide)
+      for (int s = 0; s < kSlots; ++s) mbar_init(tbar0 + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_arm(bar0, kFused ? p.xbytes[0] : rs1_bytes);
     mbar_arm(bar0 + 8, kFused ? p.xbytes[1 % p.n_exch] : rs2_bytes);
@@ -804,11 +1008,14 @@ ar_cluster_kernel(const Params p) {
   // every block of the cluster runs, its mbarriers armed, before the first
   // DSMEM store
   cluster.sync();
+  if constexpr (kWide)   // the first tiles
+    if (tid == 0)
+      for (int s = 0; s < kSlots && left > 0; ++s) tile_issue();
   unsigned phase = 0;   // bit b: the parity of buffer b's next phase
   // Each thread's destinations (an owner's receive slot and mbarrier, in
   // the cluster's address space), the same at every layer and step.
-  unsigned tap_dst[kMaxPass], tap_bar[kMaxPass], rs_dst[kMaxPass],
-      rs_bar[kMaxPass], head_dst[kMaxPass], head_bar[kMaxPass];
+  unsigned tap_dst[P], tap_bar[P], rs_dst[kMaxPass], rs_bar[kMaxPass],
+      head_dst[kMaxPass], head_bar[kMaxPass];
   // fused: (owner << 16 | column) of each tap lane's gate column, and
   // (owner << 16 | slot) of each fused projection output, the slot in one
   // rank's part of the owner's receive buffer
@@ -840,6 +1047,18 @@ ar_cluster_kernel(const Params p) {
                                  + n % Sn),
                         F::local ? rank : ho);
     head_bar[ps] = mapa(bar0, F::local ? rank : ho);
+  }
+  if constexpr (kWide) {
+    // the wide form's further tap lanes (as above, unfused)
+    #pragma unroll
+    for (int ps = kMaxPass; ps < P; ++ps) {
+      const int i = tid + ps * kThreads;
+      const int g = i >> 1, j = g < half ? g : g - half;
+      const int owner = min(j / Hn, N - 1);
+      const int col = (g < half ? 0 : Hn) + j % Hn;
+      tap_dst[ps] = mapa(smem_u32(recv + 2 * (rank * 2 * Hn + col)), owner);
+      tap_bar[ps] = mapa(bar0, owner);
+    }
   }
   if constexpr (kFused) {
     #pragma unroll
@@ -887,6 +1106,8 @@ ar_cluster_kernel(const Params p) {
   auto stage_weights = [&](int s) -> const W* {
     if constexpr (kResident) {
       return wsm + stage_at(s);
+    } else if constexpr (kWide) {
+      return tile_wait();   // the head: one tile (`tile_done` after it)
     } else {
       const int next = s + 1 == n_stages ? 0 : s + 1;
       copy_stage(wsm + (size_t)((st + 1) & 1) * stride,
@@ -910,6 +1131,10 @@ ar_cluster_kernel(const Params p) {
     const size_t bt = (size_t)row * p.T + t;
     const float c_t = c_in, u_t = u_in;
     load_inputs(t + 1);
+    if constexpr (kWide) {
+      cp_async_wait0();   // this step's tap-0 rows (the barrier below
+      prefetch(t + 1);    // shows them to every thread); the next step's
+    }
     // -- this rank's slices: encoded input, conditioning frame; zero skip
     const float x_t = fb[0];
     if (p.softmax) {
@@ -1098,15 +1323,72 @@ ar_cluster_kernel(const Params p) {
       }
     } else {
     for (int l = 0; l < L; ++l) {
-      const W* w = stage_weights(l);
+      const W* w = nullptr;   // the wide form reads tiles instead
+      if constexpr (!kWide) w = stage_weights(l);
       mark(kWeights);
       W* slot = ring + ((size_t)p.off[l] + (t & (p.dil[l] - 1))) * Rn;
+      // the wide form: a global layer's ring row is written to the global
+      // ring, its tap-0 row read from xprev
+      const W* xs = slot;
+      if constexpr (kWide) {
+        if (p.goff[l] >= 0) {
+          slot = gring + ((size_t)row * p.grows + p.goff[l]
+                          + (t & (p.dil[l] - 1))) * R + rank * Rn;
+          xs = xprev + ((size_t)(t & 1) * p.n_glob + p.gidx[l]) * Rn;
+        }
+      }
       // tap partials: lane pair (g, tap) runs tap's chain over this rank's
       // rows (tap 0 on x[t - d], tap 1 on h), the even lane also the
       // conditioning's chain over its rows of V; the even lane adds the
       // taps and stores (taps, conditioning) into the owner of column g
       // (2G is a multiple of 32, so whole warps run each pass)
       float2* rb = reinterpret_cast<float2*>(recv);
+      if constexpr (kWide) {
+        // the same chains, tile by tile: the tap rows, then the
+        // conditioning rows
+        float acc[P], cond[P];
+        #pragma unroll
+        for (int ps = 0; ps < P; ++ps) acc[ps] = cond[ps] = 0.f;
+        for (int r0 = 0; r0 < Rn; r0 += p.tap_rows) {
+          const W* wt = tile_wait();
+          const int nr = min(p.tap_rows, Rn - r0);
+          #pragma unroll
+          for (int ps = 0; ps < P; ++ps) {
+            const int i = tid + ps * kThreads;
+            if (i >= 2 * G) break;
+            #pragma unroll 4
+            for (int r = 0; r < nr; ++r) {
+              const float x = (i & 1) ? h[r0 + r] : to_f(xs[r0 + r]);
+              acc[ps] = fmaf(x, to_f(wt[(size_t)r * 2 * G + i]), acc[ps]);
+            }
+          }
+          __syncthreads();
+          tile_done();
+        }
+        for (int q0 = 0; q0 < Cn; q0 += p.v_rows) {
+          const W* v = tile_wait();
+          const int nq = min(p.v_rows, Cn - q0);
+          #pragma unroll
+          for (int ps = 0; ps < P; ++ps) {
+            const int i = tid + ps * kThreads;
+            if (i >= 2 * G) break;
+            if (!(i & 1))
+              for (int q = 0; q < nq; ++q)
+                cond[ps] = fmaf(c[q0 + q], to_f(v[(size_t)q * G + (i >> 1)]),
+                                cond[ps]);
+          }
+          __syncthreads();
+          tile_done();
+        }
+        #pragma unroll
+        for (int ps = 0; ps < P; ++ps) {
+          const int i = tid + ps * kThreads;
+          if (i >= 2 * G) break;
+          const float other = __shfl_xor_sync(kFull, acc[ps], 1);
+          if (!(i & 1))
+            st_async(tap_dst[ps], acc[ps] + other, cond[ps], tap_bar[ps]);
+        }
+      } else {
       #pragma unroll
       for (int ps = 0; ps < kMaxPass; ++ps) {
         const int i = tid + ps * kThreads;
@@ -1141,6 +1423,7 @@ ar_cluster_kernel(const Params p) {
         }
         const float other = __shfl_xor_sync(kFull, acc, 1);
         if (!tap) st_async(tap_dst[ps], acc + other, cond, tap_bar[ps]);
+      }
       }
       mark(kTapProducts);
       received(0, l + 1 < L ? rs1_bytes : head_bytes);
@@ -1191,6 +1474,33 @@ ar_cluster_kernel(const Params p) {
       }
       // skip|res partials over this rank's rows of z, into their owners
       float* rq = recv + m.recv_each;
+      if constexpr (kWide) {
+        // the same chains, tile by tile
+        float acc[kMaxPass];
+        #pragma unroll
+        for (int ps = 0; ps < kMaxPass; ++ps) acc[ps] = 0.f;
+        for (int j0 = 0; j0 < Hn; j0 += p.rs_rows) {
+          const W* wsr = tile_wait();
+          const int nj = min(p.rs_rows, Hn - j0);
+          #pragma unroll
+          for (int ps = 0; ps < kMaxPass; ++ps) {
+            const int n = tid + ps * kThreads;
+            if (n >= S + R) break;
+            #pragma unroll 4
+            for (int j = 0; j < nj; ++j)
+              acc[ps] = fmaf(z[j0 + j], to_f(wsr[(size_t)j * (S + R) + n]),
+                             acc[ps]);
+          }
+          __syncthreads();
+          tile_done();
+        }
+        #pragma unroll
+        for (int ps = 0; ps < kMaxPass; ++ps) {
+          const int n = tid + ps * kThreads;
+          if (n >= S + R) break;
+          st_async(rs_dst[ps], acc[ps], rs_bar[ps]);
+        }
+      } else {
       const W* wsr = w + (size_t)(2 * Rn + Cn) * G;
       #pragma unroll
       for (int ps = 0; ps < kMaxPass; ++ps) {
@@ -1201,6 +1511,7 @@ ar_cluster_kernel(const Params p) {
         for (int j = 0; j < Hn; ++j)
           acc = fmaf(z[j], to_f(wsr[(size_t)j * (S + R) + n]), acc);
         st_async(rs_dst[ps], acc, rs_bar[ps]);
+      }
       }
       mark(kRsProducts);
       received(1, l + 1 < L ? rs2_bytes : gather_bytes);
@@ -1286,6 +1597,7 @@ ar_cluster_kernel(const Params p) {
       }
       __syncthreads();
       mark(kHeadSums);
+      if constexpr (kWide) tile_done();   // the head's tile is read
     }
     // -- one draw per row, by warp 0 of every rank (the same draw; under
     // local_exchange each rank's own)
@@ -1330,11 +1642,13 @@ ar_cluster_kernel(const Params p) {
   cluster.sync();
 }
 
-// One kernel instance: storage type, weight placement, form, and the
-// probe's ablation and timer (production: kAblFull, untimed).
-template <typename W, bool kResident, bool kFused, int A, bool kTimed>
+// One kernel instance: storage type, weight placement, form, the probe's
+// ablation and timer (production: kAblFull, untimed), and the wide form.
+template <typename W, bool kResident, bool kFused, int A, bool kTimed,
+          bool kWide = false>
 cudaError_t prepare(size_t smem_bytes) {
-  const auto kernel = ar_cluster_kernel<W, kResident, kFused, A, kTimed>;
+  const auto kernel =
+      ar_cluster_kernel<W, kResident, kFused, A, kTimed, kWide>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
   if (e != cudaSuccess) return e;
@@ -1361,11 +1675,14 @@ cudaLaunchConfig_t launch_config(int blocks, int N, size_t smem_bytes,
 
 // With p null, cudaOccupancyMaxActiveClusters for clusters of N blocks
 // into *clusters; else the launch of p on `stream`.
-template <typename W, bool kResident, bool kFused, int A, bool kTimed>
+template <typename W, bool kResident, bool kFused, int A, bool kTimed,
+          bool kWide = false>
 cudaError_t run(const Params* p, int N, size_t smem_bytes,
                 cudaStream_t stream, int* clusters) {
-  const auto kernel = ar_cluster_kernel<W, kResident, kFused, A, kTimed>;
-  cudaError_t e = prepare<W, kResident, kFused, A, kTimed>(smem_bytes);
+  const auto kernel =
+      ar_cluster_kernel<W, kResident, kFused, A, kTimed, kWide>;
+  cudaError_t e =
+      prepare<W, kResident, kFused, A, kTimed, kWide>(smem_bytes);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
   if (p == nullptr) {
@@ -1396,14 +1713,24 @@ cudaError_t run_of(int bf16, int resident, const Params* p, int N,
 }
 
 // The instance of (bf16, resident, fused) under ablation A and timer
-// kTimed. The ablations are unfused only, the timer is on kAblFull only,
-// and split2 has no instance (the probe's entry refuses them first).
+// kTimed; resident == kWideForm the wide form (fp32, unfused, untimed:
+// `check_wide` and the probe's entry refuse the rest). The ablations are
+// unfused only, the timer is on kAblFull only, and split2 has no instance
+// (the probe's entry refuses them first).
 template <int A, bool kTimed>
 cudaError_t run_any(int bf16, int resident, int fused, const Params* p,
                     int N, size_t smem_bytes, cudaStream_t s,
                     int* clusters) {
   if constexpr (A == kSplit2 || (kTimed && A != kAblFull)) {
     return cudaErrorInvalidValue;
+  } else if constexpr (A == kAblFull && !kTimed) {
+    if (resident == kWideForm)
+      return run<float, false, false, kAblFull, false, true>(
+          p, N, smem_bytes, s, clusters);
+    return fused ? run_of<A, kTimed, true>(bf16, resident, p, N,
+                                           smem_bytes, s, clusters)
+                 : run_of<A, kTimed, false>(bf16, resident, p, N,
+                                            smem_bytes, s, clusters);
   } else if constexpr (A != kAblFull) {
     return run_of<A, false, false>(bf16, resident, p, N, smem_bytes, s,
                                    clusters);
@@ -1422,11 +1749,13 @@ cudaError_t max_active_any(int bf16, int resident, int fused, int N,
 }
 
 // The shape refusals shared by every entry point; W, the fused window (0:
-// unfused), is clamped to L by the caller.
-int check_shape(int L, int R, int G, int S, int C, int N, int W) {
+// unfused), is clamped to L by the caller; `wide`, the wide form, takes
+// kMaxPassW passes of the tap lanes.
+int check_shape(int L, int R, int G, int S, int C, int N, int W,
+                bool wide = false) {
   if (L < 1 || L > kMaxLayers) return kErrLayers;
-  if (2 * G > kMaxPass * kThreads || S + R > kMaxPass * kThreads
-      || C > N * kThreads)
+  if (2 * G > (wide ? kMaxPassW : kMaxPass) * kThreads
+      || S + R > kMaxPass * kThreads || C > N * kThreads)
     return kErrWidth;
   if (N < 2 || N > kMaxCluster || (N & (N - 1)) != 0 || G % 16 != 0
       || R % N != 0 || (G / 2) % N != 0 || C % N != 0 || S % N != 0)
@@ -1439,6 +1768,48 @@ int check_shape(int L, int R, int G, int S, int C, int N, int W) {
 
 int window(int fused, int L) { return fused < L ? fused : L; }
 
+// The wide form's own refusals, after check_shape's: fp32 and unfused; a
+// tap row, a conditioning row, a skip|res row and the head's stage each
+// within one tile; 16-byte aligned tiles and ring slices (S + R and R/N
+// multiples of 4); at most kMaxTiles tiles a step.
+int check_wide(int L, int R, int G, int S, int C, int O, int N, int bf16,
+               int W) {
+  if (bf16 || W) return kErrWide;
+  const Split s = split_of(R, G, S, C, N);
+  const int te = kTileBytes / 4;
+  if ((S + R) % 4 || s.Rn % 4 || 2 * G > te || S + R > te
+      || (s.Sn * (S + O) + 7) / 8 * 8 > te)
+    return kErrWide;
+  if (wide_tiles(L, R, G, S, C, O, N, 4, nullptr, nullptr) > kMaxTiles)
+    return kErrWide;
+  return 0;
+}
+
+// Every shape refusal of a form (resident: 0, kResidentForm or
+// kWideForm).
+int check_form(int L, int R, int G, int S, int C, int O, int N, int bf16,
+               int resident, int W) {
+  const bool wide = resident == kWideForm;
+  const int e = check_shape(L, R, G, S, C, N, W, wide);
+  if (e != 0 || !wide) return e;
+  return check_wide(L, R, G, S, C, O, N, bf16, W);
+}
+
+// The ring rows one block keeps in shared memory (*rows) and its row keeps
+// in the global ring (*grows), and the number of global layers, for a form.
+void ring_rows(const int* dilations, int L, int R, int N, int elem,
+               int resident, int* rows, int* grows, int* n_glob) {
+  int off[kMaxLayers], goff[kMaxLayers], gidx[kMaxLayers],
+      glayer[kMaxLayers];
+  if (resident == kWideForm) {
+    pack_rings_wide(dilations, L, R / N, elem, off, goff, gidx, glayer, rows,
+                    grows, n_glob);
+  } else {
+    pack_rings(dilations, L, off, rows);
+    *grows = *n_glob = 0;
+  }
+}
+
 }  // namespace
 
 // Bytes of shared memory one block needs for this layout: weights resident
@@ -1450,13 +1821,31 @@ extern "C" long long ar_cluster_smem_bytes(const int* dilations, int L,
                                            int N, int bf16, int resident,
                                            int fused) {
   const int W = window(fused, L);
-  const int e = check_shape(L, R, G, S, C, N, W);
+  const int e = check_form(L, R, G, S, C, O, N, bf16, resident, W);
   if (e != 0) return e;
-  int off[kMaxLayers], rows;
-  pack_rings(dilations, L, off, &rows);
+  int rows, grows, n_glob;
+  ring_rows(dilations, L, R, N, bf16 ? 2 : 4, resident, &rows, &grows,
+            &n_glob);
   return (long long)smem_layout(rows, L, R, G, S, C, O, N, bf16 ? 2 : 4,
-                                resident != 0, W)
+                                resident == kResidentForm, W, 0,
+                                resident == kWideForm, n_glob)
       .bytes;
+}
+
+// The ring rows of one batch row of this form: those split over the
+// cluster's shared memory (*shared_rows) and those in the global ring
+// (*global_rows: the wide form's; the wrapper allocates B x global_rows x
+// R zeros). Returns a kErr* refusal or 0.
+extern "C" int ar_cluster_rings(const int* dilations, int L, int R, int G,
+                                int S, int C, int O, int N, int bf16,
+                                int resident, int* shared_rows,
+                                int* global_rows) {
+  const int e = check_form(L, R, G, S, C, O, N, bf16, resident, 0);
+  if (e != 0) return e;
+  int n_glob;
+  ring_rows(dilations, L, R, N, bf16 ? 2 : 4, resident, shared_rows,
+            global_rows, &n_glob);
+  return 0;
 }
 
 // Elements of one stage of a rank's packed weights, unfused (the wrapper
@@ -1511,9 +1900,10 @@ int launch(Dispatch dispatch, int extra, int chunk, long long* timer,
     const void* stages, const int* dilations, int B, int T, int L, int R,
     int G, int S, int C, int Q, int O, int N,
     int softmax, int greedy, int n_forced, int bf16, int resident,
-    int fused, float log_b_min, float log_b_max, void* stream) {
+    int fused, float log_b_min, float log_b_max, void* ring, void* stream) {
   const int W = window(fused, L);
-  int e = check_shape(L, R, G, S, C, N, W);
+  const bool wide = resident == kWideForm;
+  int e = check_form(L, R, G, S, C, O, N, bf16, resident, W);
   if (e != 0) return e;
   if (softmax && (Q % 32 != 0 || Q > 32 * kMaxPerLane)) return kErrClasses;
   Params p;
@@ -1550,10 +1940,24 @@ int launch(Dispatch dispatch, int extra, int chunk, long long* timer,
   p.log_b_min = log_b_min; p.log_b_max = log_b_max;
   p.chunk = chunk; p.timer = timer;
   for (int l = 0; l < L; ++l) p.dil[l] = dilations[l];
-  pack_rings(dilations, L, p.off, &p.rows);
+  p.gring = ring;
+  p.grows = p.n_glob = p.n_tiles = 0;
+  if (wide) {
+    pack_rings_wide(dilations, L, R / N, 4, p.off, p.goff, p.gidx, p.glayer,
+                    &p.rows, &p.grows, &p.n_glob);
+    if (p.grows > 0 && ring == nullptr) return kErrWide;
+    const Tiles t = wide_tile_rows(G, S, R, 4);
+    p.tap_rows = t.tap_rows;
+    p.v_rows = t.v_rows;
+    p.rs_rows = t.rs_rows;
+    p.n_tiles = wide_tiles(L, R, G, S, C, O, N, 4, p.toff, p.tlen);
+  } else {
+    pack_rings(dilations, L, p.off, &p.rows);
+  }
   const size_t smem_bytes = smem_layout(p.rows, L, R, G, S, C, O, N,
-                                        bf16 ? 2 : 4, resident != 0, W,
-                                        extra)
+                                        bf16 ? 2 : 4,
+                                        resident == kResidentForm, W, extra,
+                                        wide, p.n_glob)
                                 .bytes;
   int device = 0, smem_max = 0;
   e = (int)cudaGetDevice(&device);
@@ -1595,8 +1999,11 @@ int launch(Dispatch dispatch, int extra, int chunk, long long* timer,
 // (N, L + 1, stride) unfused (`stage_stride`), (N, total) with the fused
 // window fused = W > 0 (`ar_cluster_fused_stages`), of the storage type
 // (fp32, or bf16 when bf16 != 0), as are the biases and in_w/in_b (conv_b
-// the fused window's folded bias when fused > 0); resident != 0 keeps the
-// weights in shared memory for the whole call. lengths (B steps, each in
+// the fused window's folded bias when fused > 0); resident: 0
+// streams the weights from L2 a stage at a time, kResidentForm keeps them
+// in shared memory for the whole call, kWideForm runs the wide form, whose
+// global ring `ring` is B x global_rows x R zeros (`ar_cluster_rings`;
+// null elsewhere). lengths (B steps, each in
 // [0, T]) and order (a permutation of the B rows, cluster k running row
 // order[k]) are host arrays, or null for T steps and row k; the samples
 // of a row past its length are not written.
@@ -1615,7 +2022,7 @@ extern "C" int ar_cluster_generate(
     const void* stages, const int* dilations, int B, int T, int L, int R,
     int G, int S, int C, int Q, int O, int N,
     int softmax, int greedy, int n_forced, int bf16, int resident,
-    int fused, float log_b_min, float log_b_max, void* stream) {
+    int fused, float log_b_min, float log_b_max, void* ring, void* stream) {
   return launch(
       [&](int W, const Params* p, size_t smem_bytes, cudaStream_t s,
           int* clusters) {
@@ -1625,7 +2032,7 @@ extern "C" int ar_cluster_generate(
       0, 0, nullptr, c_up, noise, teacher, out, lengths, order, in_w, in_b,
       conv_b, res_b, skip_b, h1_b, h2_b, stages, dilations, B, T, L, R, G,
       S, C, Q, O, N, softmax, greedy, n_forced, bf16, resident, fused,
-      log_b_min, log_b_max, stream);
+      log_b_min, log_b_max, ring, stream);
 }
 
 #ifdef AR_CLUSTER_PROBE
@@ -1655,7 +2062,8 @@ cudaError_t run_ablation(int ablate, int bf16, int resident, const Params* p,
 // slots are indexed by the launch's clusters); an unknown ablation;
 // split2; an ablation with the fused window, the timer, the softmax head
 // or a teacher; no_resskip unless R = S = G/2; no_head with S/N < 2; an
-// untimed call whose chunk is not a multiple of 4 dividing T.
+// untimed call whose chunk is not a multiple of 4 dividing T; the wide
+// form.
 extern "C" int ar_cluster_probe(
     const float* c_up, const float* noise, const float* teacher, float* out,
     const int* lengths, const int* order, const void* in_w,
@@ -1666,7 +2074,7 @@ extern "C" int ar_cluster_probe(
     int softmax, int greedy, int n_forced, int bf16, int resident,
     int fused, float log_b_min, float log_b_max, int ablate, int chunk,
     long long* timer, void* stream) {
-  if (lengths || order) return kErrProbeForm;
+  if (lengths || order || resident == kWideForm) return kErrProbeForm;
   if (B > kMaxRows) return kErrRows;
   if (ablate < 0 || ablate >= kNumAblations) return kErrAblation;
   if (ablate == kSplit2) return kErrSplit2;
@@ -1690,7 +2098,7 @@ extern "C" int ar_cluster_probe(
       extra, chunk, timer, c_up, noise, teacher, out, lengths, order, in_w,
       in_b, conv_b, res_b, skip_b, h1_b, h2_b, stages, dilations, B, T, L,
       R, G, S, C, Q, O, N, softmax, greedy, n_forced, bf16, resident, fused,
-      log_b_min, log_b_max, stream);
+      log_b_min, log_b_max, nullptr, stream);
 }
 #endif  // AR_CLUSTER_PROBE
 
@@ -1709,9 +2117,15 @@ extern "C" const char* ar_cluster_error_string(int e) {
              "residual_channels, gate_channels / 2, cond_channels and "
              "skip_channels; gate_channels must be a multiple of 16";
     case kErrWidth:
-      return "gate_channels must be <= 512, skip_channels + "
-             "residual_channels <= 1024 and cond_channels <= 256 x the "
-             "cluster size";
+      return "gate_channels must be <= 512 (1024 in the wide form), "
+             "skip_channels + residual_channels <= 1024 and cond_channels "
+             "<= 256 x the cluster size";
+    case kErrWide:
+      return "the wide form runs fp32 and unfused, with a tap row (2 x "
+             "gate_channels), skip_channels + residual_channels and the "
+             "head's rows of one rank within 32 KB, skip_channels + "
+             "residual_channels and residual_channels / N multiples of 4, "
+             "at most 1024 weight tiles a step, and a global ring";
     case kErrOccupancy:
       return "occupancy: no cluster of this many blocks with this shared "
              "memory fits the card";

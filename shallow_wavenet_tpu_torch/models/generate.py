@@ -43,7 +43,7 @@ def generate_fast(pp: dict, cfg: ModelConfig, c_up, noise=None,
 def generate_segmented(pp: dict, cfg: ModelConfig, c_up, noise,
                        seg_len: int, device=None, *, chunk: int = 64,
                        dtype: str = "float32", stream: bool = False,
-                       fused: int = 0, cluster: int = 0):
+                       fused: int = 0, cluster: int = 0, wide: bool = False):
     """Generate (B, T) in kernel calls of at most seg_len output samples.
 
     Ring state is not carried between calls: each segment after the first
@@ -51,7 +51,7 @@ def generate_segmented(pp: dict, cfg: ModelConfig, c_up, noise,
     inputs from the previous segment's samples, which rebuilds every ring
     exactly (layer l's horizon is the prefix sum of dilations < M). The
     output is therefore identical to one unsegmented call. chunk, dtype,
-    stream, fused and cluster pass to every kernel call; the kernel's
+    stream, fused, cluster and wide pass to every kernel call; the kernel's
     weights are made once (`ar_kernel.kernel_weights`) for all of them.
     """
     B, T, _ = c_up.shape
@@ -60,7 +60,7 @@ def generate_segmented(pp: dict, cfg: ModelConfig, c_up, noise,
         raise ValueError(f"seg_len must exceed the warm-start length {M}")
     pp = ar_kernel.kernel_weights(pp, cfg, dtype, fused, device, cluster)
     kw = dict(device=device, chunk=chunk, dtype=dtype, stream=stream,
-              fused=fused, cluster=cluster)
+              fused=fused, cluster=cluster, wide=wide)
     segs = []
     for s in range(0, T, seg_len):
         e = min(s + seg_len, T)
@@ -82,7 +82,8 @@ def generate_segmented(pp: dict, cfg: ModelConfig, c_up, noise,
 
 def generate_dp(pp: dict, cfg: ModelConfig, c_up, noise, devices=None, *,
                 mode: str = "sample", chunk: int = 64, dtype: str = "float32",
-                stream: bool = False, fused: int = 0, cluster: int = 0):
+                stream: bool = False, fused: int = 0, cluster: int = 0,
+                wide: bool = False):
     """The rows of (B, T) generation split over `devices` (torch devices or
     their names; one may repeat; None: every visible CUDA device, raising
     without CUDA): shard i, rows [i B/n, (i+1) B/n), is one
@@ -95,7 +96,7 @@ def generate_dp(pp: dict, cfg: ModelConfig, c_up, noise, devices=None, *,
 
     noise: (B, T) uniforms, required, so that the split cannot change
     which uniform a row draws. B must be divisible by len(devices). The
-    layout keywords (chunk, dtype, stream, fused, cluster) pass to every
+    layout keywords (chunk, dtype, stream, fused, cluster, wide) pass to every
     call. A kernel's rows are independent of the batch, so each row
     equals the single call's; on the CPU, the plain version's products
     at another batch size may sum in another order."""
@@ -118,5 +119,5 @@ def generate_dp(pp: dict, cfg: ModelConfig, c_up, noise, devices=None, *,
         outs.append(ar_kernel.generate(
             weights[dev], cfg, c_up[rows].to(dev), noise=noise[rows].to(dev),
             mode=mode, device=dev, chunk=chunk, dtype=dtype, stream=stream,
-            fused=fused, cluster=cluster))
+            fused=fused, cluster=cluster, wide=wide))
     return torch.cat([o.cpu() for o in outs])

@@ -13,7 +13,10 @@ residual recurrence into the gate inputs within blocks of W layers (the
 fused window, `fused_weights`); `cluster` = N runs the function, unfused or
 fused, on `ar_cluster.cu` instead, one thread-block cluster of N SMs per
 batch row, every product split along its input dimension over the N ranks
-(`cluster_partition`). Softmax class ids are dequantized here, outside the
+(`cluster_partition`); with `wide`, its wide form (the gate width up to
+2048, the rings of the large dilations in a global ring, the weights
+streamed in tiles: for models whose rings and weights no other form
+holds). Softmax class ids are dequantized here, outside the
 kernel, with the same op on both versions. `lengths` gives each row its own
 number of steps (a padded decode batch): every version computes each row's
 samples within its length as the padded call does, to the bit, and returns
@@ -28,7 +31,8 @@ including its bf16 rounding points, with the same packed-ring recurrence
 (layer l owns ring rows [off_l, off_l + d_l), slot off_l + (t & (d_l - 1))).
 Where a ring is stored does not change the numbers, so the plain version
 keeps every ring in one tensor. `launches` counts kernel launches by
-variant, `row_steps` the steps the rows ran against the padded ones.
+variant, `row_steps` the steps the rows ran against the padded ones,
+`ring_bytes` where the launches' rings live.
 
 How the weights reach the kernel: `kernel_weights` casts them (bf16) and,
 for the fused window, forms its weight products as fp32 matmuls, then
@@ -72,6 +76,11 @@ launches: collections.Counter = collections.Counter()
 # the rows ran (their lengths), and "padded", B x T; 1 - run / padded is
 # the share of a padded batch's steps that per-row lengths left out
 row_steps: collections.Counter = collections.Counter()
+# bytes of ring rows over the cluster kernel's launches since the last
+# reset, by where they live: "shared" (the cluster's shared memory) and
+# "global" (the wide form's global ring); every row of a launch counts its
+# rings once
+ring_bytes: collections.Counter = collections.Counter()
 # the cluster kernel's clusters per launch (kMaxRows in csrc/ar_cluster.cu):
 # a larger batch takes several launches of one call
 CLUSTER_MAX_ROWS = 512
@@ -108,16 +117,18 @@ def _streamed_mask(cfg: ModelConfig, chunk: int, stream: bool):
 
 
 def variant(dtype: str, streamed: bool, fused: int = 0, cluster: int = 0,
-            resident: bool = True) -> str:
+            resident: bool = True, wide: bool = False) -> str:
     """The kernel variant's name, as `launches` counts it: `ar_generate[...]`,
     or with cluster = N `ar_cluster[...,N<N>]`, tagged `l2` where the
-    cluster kernel streams its weights from L2 (`ar_cluster[fused4,N8,l2]`:
-    the fused window W = 4 on clusters of 8)."""
+    cluster kernel streams its weights from L2 a stage at a time
+    (`ar_cluster[fused4,N8,l2]`: the fused window W = 4 on clusters of 8)
+    and `wide` for its wide form (`ar_cluster[N16,wide]`)."""
     if cluster:
         tags = [t for t, on in (("bf16", dtype == "bfloat16"),
                                 (f"fused{fused}", fused > 0),
                                 (f"N{cluster}", True),
-                                ("l2", not resident)) if on]
+                                ("l2", not resident and not wide),
+                                ("wide", wide)) if on]
         return f"ar_cluster[{','.join(tags)}]"
     tags = [t for t, on in (("bf16", dtype == "bfloat16"),
                             ("stream", streamed),
@@ -494,7 +505,7 @@ def generate(pp, cfg: ModelConfig, c_up, noise=None,
              generator=None, unroll: int = 1, device=None, *,
              chunk: int = 64, stream: bool = False, fused: int = 0,
              dtype: str = "float32", cluster: int = 0,
-             weights_l2: bool = False, lengths=None):
+             weights_l2: bool = False, lengths=None, wide: bool = False):
     """AR generation; returns (B, T) fp32 on `device`.
 
     pp: plain params (models.wavenet.extract_plain_params), or the
@@ -518,13 +529,19 @@ def generate(pp, cfg: ModelConfig, c_up, noise=None,
     order); 0 is the unfused form.
     cluster: N > 0 launches `ar_cluster.cu` (clusters of N blocks, one per
     row, unfused or with the fused window; `stream` and `chunk` do not
-    apply: its rings are resident), equal to cluster=0 in exact arithmetic,
+    apply: its rings are in shared memory, but in the wide form's global
+    ring), equal to cluster=0 in exact arithmetic,
     not to the bit; on the CPU, the plain version with split=N. 0 launches
     `ar_generate.cu`. A launch the cluster kernel refuses (cluster size,
     fused window, shared memory, occupancy) raises.
     weights_l2: with cluster = N, stream the weights from L2 even where
     they fit in shared memory (`cluster_resident`), to time the two
     placements; the samples do not change.
+    wide: with cluster = N, launch the cluster kernel's wide form (fp32,
+    unfused; gate width up to 2048; the rings of the large dilations in a
+    zeroed global ring made for the call, `swt.ar.rings`; the weights
+    streamed in tiles): the same samples as the streamed form, to the bit,
+    where both take the model. On the CPU nothing changes.
     lengths: None, or B host integers, the steps of each row, each in
     [1, T] and no fewer than the teacher-forced steps (ValueError
     otherwise): each row's samples within its length are the padded
@@ -545,7 +562,7 @@ def generate(pp, cfg: ModelConfig, c_up, noise=None,
                 raw = _launch_cluster(cfg, mode == "greedy", *args,
                                       dtype=dtype, n=cluster,
                                       weights_l2=weights_l2, fused=fused,
-                                      lengths=lengths)
+                                      lengths=lengths, wide=wide)
             elif args[0].is_cuda:
                 raw = _launch(cfg, mode == "greedy", *args, dtype=dtype,
                               streamed=_streamed_mask(cfg, chunk, stream),
@@ -926,7 +943,7 @@ def _cluster_lib() -> ctypes.CDLL:
     ints = ctypes.POINTER(i32)
     lib.ar_cluster_generate.argtypes = ([ptr] * 4 + [ints] * 2 + [ptr] * 8
                                         + [ints] + [i32] * 16
-                                        + [f32, f32, ptr])
+                                        + [f32, f32, ptr, ptr])
     lib.ar_cluster_generate.restype = i32
     lib.ar_cluster_smem_bytes.argtypes = [ints] + [i32] * 10
     lib.ar_cluster_smem_bytes.restype = ctypes.c_longlong
@@ -936,6 +953,8 @@ def _cluster_lib() -> ctypes.CDLL:
     lib.ar_cluster_stage_stride.restype = i32
     lib.ar_cluster_fused_stages.argtypes = [i32] * 8 + [ints] * 2
     lib.ar_cluster_fused_stages.restype = i32
+    lib.ar_cluster_rings.argtypes = [ints] + [i32] * 9 + [ints] * 2
+    lib.ar_cluster_rings.restype = i32
     lib.ar_cluster_error_string.argtypes = [i32]
     lib.ar_cluster_error_string.restype = ctypes.c_char_p
     return lib
@@ -946,39 +965,69 @@ def _cluster_refusal(lib, err: int) -> ValueError:
                       + lib.ar_cluster_error_string(err).decode())
 
 
+# the cluster kernel's forms, as its entry points take them (`resident`)
+_STREAMED, _RESIDENT, _WIDE = 0, 1, 2
+
+
+def _form(resident: bool, wide: bool) -> int:
+    return _WIDE if wide else _RESIDENT if resident else _STREAMED
+
+
 def _cluster_shape(cfg: ModelConfig, n: int, dtype: str, resident: bool,
-                   fused: int):
+                   fused: int, wide: bool = False):
     L = len(cfg.dilations)
     return ((ctypes.c_int * L)(*cfg.dilations), L, cfg.residual_channels,
             cfg.gate_channels, cfg.skip_channels, cfg.cond_channels,
-            _head_width(cfg), n, int(dtype == "bfloat16"), int(resident),
-            fused)
+            _head_width(cfg), n, int(dtype == "bfloat16"),
+            _form(resident, wide), fused)
 
 
 def cluster_smem_bytes(cfg: ModelConfig, dtype: str, n: int,
-                       resident: bool, fused: int = 0) -> int:
+                       resident: bool, fused: int = 0,
+                       wide: bool = False) -> int:
     """Shared memory one block of the cluster kernel needs, with its weights
     resident in shared memory or streamed from L2, unfused or with the
-    fused window W = fused, from the kernel's own layout function (builds
-    the kernel's library). Raises ValueError on a shape the kernel
-    refuses."""
+    fused window W = fused, or in the wide form (`wide`; `resident` then
+    does not apply), from the kernel's own layout function (builds the
+    kernel's library). Raises ValueError on a shape the kernel refuses."""
     lib = _cluster_lib()
     b = lib.ar_cluster_smem_bytes(*_cluster_shape(cfg, n, dtype, resident,
-                                                  fused))
+                                                  fused, wide))
     if b < 0:
         raise _cluster_refusal(lib, b)
     return b
 
 
+def cluster_rings(cfg: ModelConfig, n: int, dtype: str,
+                  wide: bool = False) -> tuple[int, int]:
+    """(ring rows one batch row keeps in the cluster's shared memory, ring
+    rows it keeps in the wide form's global ring), from the kernel's own
+    rule (builds its library for the wide form): every row in shared
+    memory but in the wide form, which keeps only its small dilations'
+    there (`pack_rings_wide`). Raises ValueError on a shape the kernel
+    refuses."""
+    if not wide:
+        return sum(cfg.dilations), 0
+    lib = _cluster_lib()
+    rows, grows = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.ar_cluster_rings(*_cluster_shape(cfg, n, dtype, False, 0,
+                                               wide)[:-1],
+                               ctypes.byref(rows), ctypes.byref(grows))
+    if err < 0:
+        raise _cluster_refusal(lib, err)
+    return rows.value, grows.value
+
+
 def max_active_clusters(cfg: ModelConfig, dtype: str, n: int,
-                        resident: bool, device=None, fused: int = 0) -> int:
+                        resident: bool, device=None, fused: int = 0,
+                        wide: bool = False) -> int:
     """cudaOccupancyMaxActiveClusters for clusters of n blocks of this
     layout on the CUDA `device`: the rows the card runs at once."""
     lib = _cluster_lib()
     count = ctypes.c_int(0)
     with torch.cuda.device(resolve_device(device)):
         err = lib.ar_cluster_max_active(
-            *_cluster_shape(cfg, n, dtype, resident, fused),
+            *_cluster_shape(cfg, n, dtype, resident, fused, wide),
             ctypes.byref(count))
     if err < 0:
         raise _cluster_refusal(lib, err)
@@ -1009,7 +1058,7 @@ FILL_SHARE = 0.9
 
 
 def cluster_size(cfg: ModelConfig, dtype: str, device=None,
-                 fused: int = 0) -> int:
+                 fused: int = 0, wide: bool = False) -> int:
     """The cluster size for this model, dtype and fused window (0:
     unfused) on `device`, never from the batch. Of `cluster_sizes(cfg)`
     whose block fits the card's shared memory (weights resident, else
@@ -1017,13 +1066,27 @@ def cluster_size(cfg: ModelConfig, dtype: str, device=None,
     byte counts and occupancy query, for this window): the largest that
     fills the card (N x max active clusters >= FILL_SHARE x SMs), so that a
     batch as large as the card's clusters leaves no SM idle; else the
-    largest that fits. On the CPU, the largest that divides the widths. 0
-    when none does."""
+    largest that fits. With `wide`, of the wide form (unfused), simply the
+    largest that fits: each SM there streams 1/N of weights that stay off
+    the chip, so the larger N, the fewer bytes each SM pulls a step. On
+    the CPU, the largest that divides the widths. 0 when none does."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         sizes = cluster_sizes(cfg)
         return sizes[0] if sizes else 0
     limit, fits = smem_limit(dev), []
+    if wide:
+        for n in cluster_sizes(cfg):
+            try:
+                if cluster_smem_bytes(cfg, dtype, n, False, fused,
+                                      wide=True) > limit:
+                    continue
+            except ValueError:   # a shape the wide form cannot take
+                continue
+            if max_active_clusters(cfg, dtype, n, False, dev, fused,
+                                   wide=True) >= 1:
+                return n
+        return 0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for n in cluster_sizes(cfg):
         try:
@@ -1042,14 +1105,16 @@ def cluster_size(cfg: ModelConfig, dtype: str, device=None,
 
 
 def cluster_arguments(cfg, greedy, c_up, noise, teacher, n_forced, w,
-                      dtype, n, resident, fused, log_b=None, lengths=None):
-    """The cluster kernel's C arguments for one call, its stream aside (as
-    `ar_cluster_generate` takes them; the probe's entry takes the same),
-    and the (B, T) output they write into. `w`: the kernel's tensors for
-    (dtype, fused, n); log_b: the Laplace clip (default the config's);
-    lengths: None for T steps of every row in row order, or `row_lengths`'
-    list: the rows then run in `cluster_order`, and the output is zeroed
-    first (a row is not written past its length).
+                      dtype, n, resident, fused, log_b=None, lengths=None,
+                      wide=False):
+    """The cluster kernel's C arguments for one call, its global ring and
+    stream aside (as `ar_cluster_generate` takes them; the probe's entry
+    takes the same), and the (B, T) output they write into. `w`: the
+    kernel's tensors for (dtype, fused, n); log_b: the Laplace clip
+    (default the config's); lengths: None for T steps of every row in row
+    order, or `row_lengths`' list: the rows then run in `cluster_order`,
+    and the output is zeroed first (a row is not written past its length);
+    wide: the wide form (`resident` does not apply).
     Raises ValueError where the packed stages are not the kernel's."""
     lib = _cluster_lib()
     B, T, C = c_up.shape
@@ -1087,37 +1152,52 @@ def cluster_arguments(cfg, greedy, c_up, noise, teacher, n_forced, w,
             (ctypes.c_int * L)(*cfg.dilations), B, T, L,
             cfg.residual_channels, cfg.gate_channels, cfg.skip_channels, C,
             cfg.quantize_channels, O, n, int(softmax), int(greedy),
-            n_forced, int(dtype == "bfloat16"), int(resident), fused,
+            n_forced, int(dtype == "bfloat16"), _form(resident, wide), fused,
             *(log_b or (cfg.log_b_min, cfg.log_b_max)))
     return args, out
 
 
 def launch_cluster(args, device, dtype: str, n: int, resident: bool,
-                   fused: int, rows: int) -> None:
+                   fused: int, rows: int, ring=None,
+                   wide: bool = False) -> None:
     """One call of the cluster kernel on `cluster_arguments`' args (its
     output is theirs) for a batch of `rows` rows, its launches (one per
-    CLUSTER_MAX_ROWS rows) counted in `launches`; raises on a refusal or a
-    failed launch."""
+    CLUSTER_MAX_ROWS rows) counted in `launches`; ring: the wide form's
+    zeroed global ring, (rows, global ring rows, R) (`cluster_rings`), or
+    None; raises on a refusal or a failed launch."""
     lib = _cluster_lib()
     with torch.cuda.device(device):
         err = lib.ar_cluster_generate(
-            *args, torch.cuda.current_stream().cuda_stream)
+            *args, None if ring is None else ring.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     if err < 0:
         raise _cluster_refusal(lib, err)
     if err != 0:
         raise RuntimeError("ar_cluster launch failed: "
                            + lib.ar_cluster_error_string(err).decode())
-    launches[variant(dtype, False, fused, n, resident)] += \
+    launches[variant(dtype, False, fused, n, resident, wide)] += \
         -(-rows // CLUSTER_MAX_ROWS)
 
 
 def _launch_cluster(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
-                    n, weights_l2, fused, lengths=None):
-    resident = (not weights_l2
+                    n, weights_l2, fused, lengths=None, wide=False):
+    resident = (not wide and not weights_l2
                 and cluster_resident(cfg, dtype, n, c_up.device, fused))
     args, out = cluster_arguments(cfg, greedy, c_up, noise, teacher,
                                   n_forced, w, dtype, n, resident, fused,
-                                  lengths=lengths)
-    launch_cluster(args, c_up.device, dtype, n, resident, fused,
-                   c_up.shape[0])
+                                  lengths=lengths, wide=wide)
+    B = c_up.shape[0]
+    shared_rows, global_rows = cluster_rings(cfg, n, dtype, wide)
+    ring = None
+    if wide:
+        # the wide form's global ring: zeros, so that a layer's steps
+        # t < d read zeros, as from a fresh shared ring
+        with span("swt.ar.rings"):
+            ring = torch.zeros((B, global_rows, cfg.residual_channels),
+                               dtype=DTYPES[dtype], device=c_up.device)
+    launch_cluster(args, c_up.device, dtype, n, resident, fused, B,
+                   ring=ring, wide=wide)
+    row_bytes = B * cfg.residual_channels * DTYPES[dtype].itemsize
+    ring_bytes["shared"] += shared_rows * row_bytes
+    ring_bytes["global"] += global_rows * row_bytes
     return out

@@ -330,7 +330,9 @@ def test_ladder_puts_the_cluster_layouts_first(monkeypatch):
     """Within each dtype the cluster layout comes first, then the old
     kernel's three, in their order; every fp32 layout comes before any
     bf16 one, so "auto" never lowers the precision while an fp32 layout
-    fits. On the CPU the first layout is the fp32 cluster layout, at the
+    fits, the cluster kernel's wide form last of the fp32 ones, so that
+    every model another fp32 layout fits keeps it. On the CPU the first
+    layout is the fp32 cluster layout, at the
     largest size that divides the widths, --fused too (cluster=False keeps
     cluster 0). On a card (sizes stand in for the kernels' own), a model
     with no fp32 cluster size takes the old kernel's fp32 layout, and bf16
@@ -338,9 +340,10 @@ def test_ladder_puts_the_cluster_layouts_first(monkeypatch):
     c2 = get_config("shallow_laplace_single").model
     deep = get_config("deep_baseline").model
     clustered = [lay[3] for lay in decode.KERNEL_LAYOUTS]
-    assert clustered == ([True] + [False] * 3) * 2
+    assert clustered == ([True] + [False] * 3 + [decode.WIDE]
+                         + [True] + [False] * 3)
     assert [lay[0] for lay in decode.KERNEL_LAYOUTS] == (
-        ["float32"] * 4 + ["bfloat16"] * 4)
+        ["float32"] * 5 + ["bfloat16"] * 4)
     for mc in (c2, deep):
         assert decode.kernel_layout(mc, "auto", "cpu") == {
             "dtype": "float32", "stream": False, "chunk": 64, "fused": 0,
@@ -360,9 +363,9 @@ def test_ladder_puts_the_cluster_layouts_first(monkeypatch):
         ar_kernel, "smem_bytes", lambda cfg, dtype, stream, chunk, fused:
         fp32_bytes[0] if dtype == "float32" else 1000)
 
-    def size(cfg, dtype, dev, fused=0):
+    def size(cfg, dtype, dev, fused=0, wide=False):
         asked.append(dtype)
-        return 8 if dtype == "bfloat16" else 0
+        return 8 if dtype == "bfloat16" and not wide else 0
 
     monkeypatch.setattr(ar_kernel, "cluster_size", size)
     old_fp32 = {"dtype": "float32", "stream": False, "chunk": 64,
@@ -373,7 +376,8 @@ def test_ladder_puts_the_cluster_layouts_first(monkeypatch):
     assert asked == ["float32"]
     assert decode.kernel_layout(c2, "float32") == old_fp32
     assert decode.kernel_layout(c2, "bfloat16") == bf16_cluster
-    # no fp32 layout fits: auto takes the bf16 cluster layout
+    # no fp32 layout fits, the wide form's neither: auto takes the bf16
+    # cluster layout
     fp32_bytes[0] = 3000
     assert decode.kernel_layout(c2) == bf16_cluster
 

@@ -124,8 +124,9 @@ def test_kernel_layout_order_and_refusal(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(ar_kernel, "smem_limit", lambda dev: 2000)
     monkeypatch.setattr(ar_kernel, "smem_bytes", fake_bytes)
+    # no cluster size fits, the wide form's neither
     monkeypatch.setattr(ar_kernel, "cluster_size",
-                        lambda cfg, dtype, dev, fused=0: 0)
+                        lambda cfg, dtype, dev, fused=0, wide=False: 0)
     assert decode.kernel_layout(deep) == {"dtype": "float32", "stream": True,
                                           "chunk": 32, "fused": 0,
                                           "cluster": 0}

@@ -207,8 +207,10 @@ def test_fused_ladder_drops_the_window(monkeypatch, caplog, world_decode,
         m.setattr(ar_kernel, "smem_bytes",
                   lambda cfg, dtype, stream, chunk, fused: fits[fused])
         sizes = {0: 8, 4: 0}
+        # no size of the cluster kernel's wide form fits either
         m.setattr(ar_kernel, "cluster_size",
-                  lambda cfg, dtype, dev, fused=0: sizes[fused])
+                  lambda cfg, dtype, dev, fused=0, wide=False:
+                  0 if wide else sizes[fused])
         with pytest.raises(decode.NoLayoutError, match="fused=4"):
             decode.kernel_layout(c2, fused=4)
         with caplog.at_level(logging.WARNING, logger="decode"):
