@@ -322,10 +322,11 @@ nonzero before printing any result.
      order) at deep_baseline's widths, which both take, free running with
      per-row lengths (global rings for dilations 128-512 there); the
      rings' bytes by place (`ar_kernel.ring_bytes`); the plain version's
-     time for the teacher-forced call, and the wide form's time at B = 2
-     and 8 beside its bound (`yardstick.ar_bound_ms`: the weights beyond
-     the chip read every step). Its row in the kernels line carries the
-     widest gap (`max_gap`). `--only sd_wide` runs phases 1 and 16 alone.
+     time for the teacher-forced call, and the wide form's time at B = 2,
+     7 (one wave of 7 clusters) and 8 (two waves) beside its bound
+     (`yardstick.ar_bound_ms`: the weights beyond the chip read every
+     step). Its row in the kernels line carries the widest gap
+     (`max_gap`). `--only sd_wide` runs phases 1 and 16 alone.
 """
 
 from __future__ import annotations
@@ -497,7 +498,7 @@ MANY_ROWS, MANY_ROWS_T = ar_kernel.CLUSTER_MAX_ROWS + 1, 256
 SD_B, SD_T = 2, 4096
 SD_GAP = 1e-5
 SD_DEEP_LENGTHS = (4096, 3500, 3100, 2048, 1500, 1024, 700, 300)
-SD_TIME_B = (2, 8)
+SD_TIME_B = (2, 7, 8)
 SD_CONFIG = Path(__file__).resolve().parent / "port_bench" / "configs" / \
     "tamamori_sd_arctic.json"
 # training at config 2 (its data config: B = 8, segment 8,000 samples, 320

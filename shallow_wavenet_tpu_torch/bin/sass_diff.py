@@ -3,7 +3,8 @@ of another version of the source (e.g. a parent commit's), instruction for
 instruction, mangled names aside.
 
     git show <commit>:shallow_wavenet_tpu_torch/csrc/ar_cluster.cu > old.cu
-    python3 -m shallow_wavenet_tpu_torch.bin.sass_diff old.cu [--out DIR]
+    python3 -m shallow_wavenet_tpu_torch.bin.sass_diff old.cu \
+        [--out DIR] [--probe]
 
 Builds both with the production flags (`ops._build.NVCC_FLAGS`, ptxas's
 register report on), disassembles them with `cuobjdump -sass` and prints,
@@ -12,8 +13,10 @@ and whether they are identical (the first differing positions if not),
 then both sides' registers per kernel. A kernel is matched by its name
 from `ar_cluster_kernel` on, with the probe's production template
 arguments (`Li0ELb0E`, kAblFull and untimed) and the wide form's (`Lb0E`,
-off) removed. Exits 1 unless every kernel is identical. Needs nvcc and
-cuobjdump (the CUDA toolkit), no card.
+off) removed. With `--probe`, the probe library's instances instead (both
+sources built with its flags, `-DAR_CLUSTER_PROBE`; a few minutes). Exits
+1 unless every kernel is identical. Needs nvcc and cuobjdump (the CUDA
+toolkit), no card.
 """
 
 from __future__ import annotations
@@ -57,14 +60,18 @@ def main(argv=None) -> int:
     p.add_argument("--out", type=Path, default=None,
                    help="directory for the builds and logs (default: a "
                         "temporary one)")
+    p.add_argument("--probe", action="store_true",
+                   help="compare the probe library's instances")
     args = p.parse_args(argv)
+    flags = _build.LIBRARIES["ar_cluster_probe" if args.probe
+                             else "ar_cluster"][1]
     with tempfile.TemporaryDirectory() as tmp:
         out = args.out or Path(tmp)
         out.mkdir(parents=True, exist_ok=True)
         srcs = {"old": args.old, "new": _build.CSRC / "ar_cluster.cu"}
         procs = {k: subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, *_build.LOG_FLAGS, "-o",
-             str(out / f"{k}.so"), str(src)],
+            [_build._nvcc(), *_build.NVCC_FLAGS, *flags, *_build.LOG_FLAGS,
+             "-o", str(out / f"{k}.so"), str(src)],
             stdout=open(out / f"{k}.log", "w"), stderr=subprocess.STDOUT)
             for k, src in srcs.items()}
         if any(proc.wait() for proc in procs.values()):

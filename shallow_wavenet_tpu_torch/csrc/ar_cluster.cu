@@ -132,6 +132,13 @@
 //   mbarrier, and refills a slot once every thread has passed the block
 //   barrier after its last read; the step's tile sequence repeats, so the
 //   next step's first tiles load during this step's last ones.
+// - What bounds the step is not the tile stream (on an H100: 375 us a step
+//   at 2 clusters and at 7 alike; with no tile loaded or waited for, 348
+//   us; with no per-tile barrier either, 334 us; with no product of a tap
+//   or skip|res tile, 338 us): the rest is the exchange and owner chain.
+//   Asking the L2 for each tile 4 to 65 tiles ahead of its load
+//   (cp.async.bulk.prefetch.L2) made the step 5% longer at 2 clusters and
+//   6-40% longer at 7, so there is no such run-ahead.
 // - Every product's chains, exchanges and sums are the streamed form's,
 //   in the same order, so `split=N, chain=True` of the plain version is
 //   its arithmetic too; only where the operands come from differs.
@@ -641,16 +648,26 @@ __device__ __forceinline__ void mbar_arm(unsigned bar, unsigned bytes) {
       : "memory");
 }
 // Waits for the phase of `parity` to complete; the stores it counted, from
-// any block of the cluster, are then visible. A wait that never ends is a
-// fault of the exchange: trap, rather than hang the card.
+// any block of the cluster, are then visible. kCta acquires at this
+// block's scope alone, which is enough where only this block's own bulk
+// copies complete the phase (the wide form's weight slots). A wait that
+// never ends is a fault of the exchange: trap, rather than hang the card.
+template <bool kCta = false>
 __device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
   for (long long spin = 0;; ++spin) {
     unsigned done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if constexpr (kCta)
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.acquire.cta.shared::cta.b64 p, [%1], "
+          "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    else
+      asm volatile(
+          "{\n .reg .pred p;\n"
+          " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
+          "[%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done) : "r"(bar), "r"(parity) : "memory");
     if (done) return;
     if (spin > (1ll << 24)) __trap();
   }
@@ -934,7 +951,9 @@ ar_cluster_kernel(const Params p) {
   // slot's mbarrier (tbar0 + 8 slot). Every thread waits for tile tc;
   // thread 0 refills a slot with the tile kSlots later once every thread
   // has passed a block barrier after its last read of it (`tile_done`),
-  // and issues no tile past the call's last (`left`).
+  // and issues no tile past the call's last (`left`). Only this block's
+  // bulk copies complete a slot's phase, so the wait acquires at the
+  // block's scope.
   const unsigned tbar0 = bar0 + 16;
   constexpr int kTileElems = kTileBytes / (int)sizeof(W);
   unsigned tc = 0, next_n = 0;   // tiles consumed; the next one to issue
@@ -952,7 +971,7 @@ ar_cluster_kernel(const Params p) {
   };
   auto tile_wait = [&]() -> const W* {
     const unsigned slot = tc % kSlots;
-    mbar_wait(tbar0 + 8 * slot, (tc / kSlots) & 1u);
+    mbar_wait<true>(tbar0 + 8 * slot, (tc / kSlots) & 1u);
     return wsm + (size_t)slot * kTileElems;
   };
   auto tile_done = [&]() {
