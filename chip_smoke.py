@@ -84,7 +84,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
      the kernel's samples over the first 4096 steps, and the segmented
      decode;
   9. deep fused: the deep main path with fused=4, fp32 and bf16, on the
-     layouts kernel_layout(..., fused=4) picks (the cluster kernel): fp32
+     layouts choose_layout(..., fused=4) picks (the cluster kernel): fp32
      held at 1e-5 over the first 1024 steps, bf16 to the bit against
      `chain=True, split=N` over twice the largest dilation, with the fp32
      control; then the decode's unfused and fused layouts timed in turns
@@ -117,7 +117,8 @@ Phases, each printing one JSON line; any failure exits nonzero:
      after a warm-up group, and over 8 single steps (K = 1), samples/s
      (B x 8,320 per update), peak memory, kernels per update and their
      device time over one group (torch.profiler), the bound from the
-     code's FLOPs (`train_flops`) at the fp32 and the dense bf16 peaks;
+     code's FLOPs (`yardstick.train_flops`) at the fp32 and the dense bf16
+     peaks;
      resume from the step-32 checkpoint in a workdir of its own: the next
      group draws the straight run's batches 33..40 and ends on its
      step-40 loss, to the bit; then the trained weights, restored by
@@ -203,7 +204,7 @@ Phases, each printing one JSON line; any failure exits nonzero:
   10e. stream_pool: models.streaming.StreamPool at config 2, fp32
      unfused on the decode's layout (the cluster kernel), 80 ms blocks,
      at 1 and 8 streams, at the card's clusters for the layout
-     (max_active_clusters) and at one more (two waves, warned once):
+     (clusters_at_once) and at one more (two waves, warned once):
      per steady step wall ms (mean, p95), the launches' CUDA-event ms,
      the rest and its host split by call, launches per step and the
      streams' audio-s per wall-s; the first, a middle and the last
@@ -332,6 +333,7 @@ nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import logging
@@ -389,9 +391,6 @@ from shallow_wavenet_tpu_torch.utils.observability import (
 )
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
-PEAK_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
-PEAK_BF16_FLOPS = 989e12         # bf16 on the tensor cores, dense
-PEAK_BYTES = 3.35e12             # HBM3
 TOL_TEACHER = 1e-5               # Laplace teacher-forced, kernel vs plain
 # Laplace free-running, kernel vs plain: the two sum in other orders, so
 # they differ by fp32 rounding (~1e-6) at every step; this random-weight
@@ -579,8 +578,8 @@ T0 = time.perf_counter()
 
 
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, "t": time.perf_counter() - T0, **kw}),
-          flush=True)
+    print(json.dumps({"phase": phase, "t": time.perf_counter() - T0, **kw},
+                     default=dataclasses.asdict), flush=True)
 
 
 def require(ok: bool, what: str):
@@ -785,37 +784,21 @@ def random_cond(mc, model, B: int, T: int, seed: int):
         return model.upsample_cond(cond)[:, :T].contiguous()
 
 
-def bound(mc, B: int, T: int, pp, weight_bytes: int = 4, fused: int = 0
-          ) -> tuple[float, str]:
-    """Least time (ms) for one generate call: the multiply-adds of every
-    step over the peak of their type (fp32; bf16 products with fp32 sums,
-    weight_bytes = 2, over the dense bf16 tensor-core rate), or c_up +
-    noise + out (fp32) + weights (weight_bytes each) over the memory rate,
-    whichever is larger. Rings
-    are the kernel's own state and are not counted. The fused window adds
-    its P products: (G/2) x G weights, read and multiplied once per step,
-    for every pair of layers j < m of a block."""
-    L, R, G = len(mc.dilations), mc.residual_channels, mc.gate_channels
-    S, C = mc.skip_channels, mc.cond_channels
-    O = mc.quantize_channels if mc.head == "softmax" else 2
-    extra = sum((G // 2) * G * len(b) * (len(b) - 1) // 2
-                for b in ar_kernel.fused_blocks(L, fused)) if fused else 0
-    macs = (L * (2 * R * G + C * G + (G // 2) * (S + R)) + S * S + S * O
-            + extra)
-    flops = 2.0 * macs * B * T
-    nbytes = (4.0 * (B * T * C + 2 * B * T)
-              + weight_bytes * (sum(v.numel() for v in pp.values()) + extra))
-    peak = PEAK_BF16_FLOPS if weight_bytes == 2 else PEAK_FP32_FLOPS
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
-                                       else "bytes")
+def bound(mc, B: int, T: int, dtype: str = "float32") -> tuple[float, str]:
+    """The benchmark's least time (ms) of one AR kernel call of B rows and
+    T steps of the model `mc`, and what bounds it
+    (`yardstick.ar_bound_ms`: the unfused model's operations or bytes,
+    weights of `dtype`, whatever the layout that ran)."""
+    return yardstick.ar_bound_ms(dataclasses.asdict(mc), B, T,
+                                 ar_kernel.DTYPES[dtype].itemsize, dtype)
 
 
 def phase_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
     """Both AR kernels at config 2 against one set of plain outputs:
     ar_generate (cluster 0) and the cluster kernel at the decode's N."""
     B, T = B_CHECK, T_CHECK
-    N = decode.kernel_layout(mc, "float32")["cluster"]
+    chosen = ar_kernel.choose_layout(mc, "float32")
+    N = chosen.cluster
     c_up = random_cond(mc, model, B, T, seed)
     g = torch.Generator(device="cuda").manual_seed(seed)
     noise = ar_kernel.uniform_noise((B, T), g)
@@ -845,26 +828,27 @@ def phase_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
     p_ids = mulaw_quantize(plain_version(
         pps, mcs, c_up, noise=noise, teacher=ids), q)
     times = {}
-    for n in (0, N):
+    for layout in (ar_kernel.Layout(), chosen):
+        n = layout.cluster
         tag = "" if n == 0 else f"cluster{n}_"
         # (a) Laplace, teacher-forced
         k = ar_kernel.generate(pp, mc, c_up, noise=noise, teacher=teacher,
-                               cluster=n)
+                               layout=layout)
         record(f"{tag}laplace_teacher_forced", err(k, p_tf), TOL_TEACHER)
         # (b) Laplace, free-running
         for mode in ("sample", "greedy"):
             k = ar_kernel.generate(pp, mc, c_up, noise=noise, mode=mode,
-                                   cluster=n)
+                                   layout=layout)
             record(f"{tag}laplace_free_{mode}", err(k, p_free[mode]),
                    TOL_FREE)
             require(bool(torch.isfinite(k).all()),
                     f"finite kernel output {tag}{mode}")
-        wk = ar_kernel.kernel_weights(pp, mc, "float32", 0, "cuda", n)
-        times[n] = cuda_ms(lambda: ar_kernel.generate(
-            wk, mc, c_up, noise=noise, cluster=n))
+        wk = ar_kernel.kernel_weights(pp, mc, layout, "cuda")
+        times[n] = cuda_ms(lambda: ar_kernel.generate(wk, mc, c_up,
+                                                      noise=noise))
         # (c) softmax head at config-2 widths, teacher-forced: class ids
         k = mulaw_quantize(ar_kernel.generate(pps, mcs, c_up, noise=noise,
-                                              teacher=ids, cluster=n), q)
+                                              teacher=ids, layout=layout), q)
         d = (k.long() - p_ids.long()).abs()
         flips = float((d != 0).float().mean())
         checks.append({"check": f"{tag}softmax_teacher_forced_ids",
@@ -872,8 +856,8 @@ def phase_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
                        "flip_share": flips, "limit_share": 0.01,
                        "ok": int(d.max()) <= 1 and flips < 0.01})
         # (d) segmented against unsegmented, both on the kernel
-        full = ar_kernel.generate(pp, mc, c_up, noise=noise, cluster=n)
-        seg = generate_segmented(pp, mc, c_up, noise, 2048, cluster=n)
+        full = ar_kernel.generate(pp, mc, c_up, noise=noise, layout=layout)
+        seg = generate_segmented(pp, mc, c_up, noise, 2048, layout=layout)
         record(f"{tag}segmented_2048_vs_unsegmented", err(seg, full), 0.0)
     launched = dict(ar_kernel.launches)
     # time per call across batch sizes: one block per row
@@ -893,7 +877,7 @@ def phase_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
         require(c["ok"], f"kernel vs plain: {c}")
     result["max_abs_err"] = next(c["max_abs_err"] for c in checks
                                  if c["check"] == "laplace_teacher_forced")
-    result["bound_ms"], result["bound_by"] = bound(mc, B, T, pp)
+    result["bound_ms"], result["bound_by"] = bound(mc, B, T)
     return result
 
 
@@ -905,15 +889,6 @@ def utterances(mc, seed: int, lo: int, hi: int):
         (f, mc.aux_channels)).astype(np.float32)) for f in frames]
 
 
-def layout_variant(mc, layout: dict) -> str:
-    """The `launches` name of the kernel variant a decode layout runs."""
-    n = layout["cluster"]
-    resident = bool(n) and ar_kernel.cluster_resident(mc, layout["dtype"],
-                                                      n, "cuda")
-    return ar_kernel.variant(layout["dtype"], layout["stream"],
-                             layout["fused"], n, resident)
-
-
 def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
                     unfused: dict | None = None) -> dict:
     """The config-2 main path (`main_path`), or with the fused window
@@ -921,10 +896,10 @@ def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
     on the cluster kernel."""
     phase = "fused_main_path" if fused else "main_path"
     mc, hop = cfg.model, cfg.data.hop_length
-    want = decode.kernel_layout(mc, "auto", fused=fused)
-    require(want["cluster"] > 1 and want["fused"] == fused,
+    want = ar_kernel.choose_layout(mc, "auto", fused=fused)
+    require(want.cluster > 1 and want.fused == fused,
             f"{phase}: the decode's layout {want}")
-    name = layout_variant(mc, want)
+    name = want.name
     frames, utts = utterances(mc, seed + 7, 75, 150)
     names = [f"utt{i}.wav" for i in range(len(utts))]
     with tempfile.TemporaryDirectory() as tmp:
@@ -936,8 +911,9 @@ def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
         launched = dict(ar_kernel.launches)
         require(launched.get(name, 0) >= 1 and set(launched) == {name},
                 f"the {phase} launched {name}: {launched}")
-        require(summary["kernel"] == want and want["dtype"] == "float32"
-                and not want["stream"], f"{phase} layout {summary['kernel']}")
+        require(summary["kernel"] == dataclasses.asdict(want)
+                and want.dtype == "float32" and not want.stream,
+                f"{phase} layout {summary['kernel']}")
         written = json.loads((Path(tmp) / "decode_summary.json").read_text())
         require(written == summary, "decode_summary.json written")
         pcm = []
@@ -963,11 +939,10 @@ def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
         c_up.shape[:2], torch.Generator(device="cuda").manual_seed(seed))
 
     # the kernel's weights made once, so that a timed call is its launch
-    w = ar_kernel.kernel_weights(pp, mc, want["dtype"], want["fused"],
-                                 "cuda", want["cluster"])
+    w = ar_kernel.kernel_weights(pp, mc, want, "cuda")
 
     def gen(c, n):
-        return ar_kernel.generate(w, mc, c, noise=n, **want)
+        return ar_kernel.generate(w, mc, c, noise=n)
 
     out = gen(c_up, noise)
     require(bool(torch.isfinite(out).all()), f"{phase} output finite")
@@ -989,7 +964,7 @@ def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
         pp, mc, cp, noise=npl, teacher=own_feedback(out)[:, :Tp],
         fused=fused))
     max_err = err(plain, out[:, :Tp])
-    bound_ms, bound_by = bound(mc, B, Tp, pp, 4, fused)
+    bound_ms, bound_by = bound(mc, B, Tp)
     emit(f"{phase}_vs_plain", variant=name, B=B, T=Tp, full_T=T,
          full_call_ms=full_ms, max_abs_err=max_err, limit=TOL_TEACHER,
          kernel_ms=ms, us_per_step=1e3 * ms / Tp, plain_ms=plain_ms,
@@ -1002,7 +977,7 @@ def phase_main_path(cfg, model, pp, seed: int, smi: str, fused: int = 0,
     seg = decode.decode_batch(
         model, cfg, utts, segment_samples=SEGMENT,
         generator=torch.Generator(device="cuda").manual_seed(seed),
-        layout=summary["kernel"])
+        layout=want)
     seg_wall = time.perf_counter() - t0
     seg_launches = ar_kernel.launches[name]
     seg_err = max(float(np.abs(w - wav[i, :n]).max())
@@ -1032,12 +1007,12 @@ def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
     """ar_generate's deep layouts, the decode's fallback (cluster=False),
     unfused and fused."""
     B, T = DEEP_B, DEEP_T
-    lay32 = decode.kernel_layout(mc, "float32", cluster=False)
-    laybf = decode.kernel_layout(mc, "bfloat16", cluster=False)
-    lay32f, laybff = (decode.kernel_layout(mc, dt, fused=FUSED,
-                                           cluster=False)
+    lay32 = ar_kernel.choose_layout(mc, "float32", cluster=False)
+    laybf = ar_kernel.choose_layout(mc, "bfloat16", cluster=False)
+    lay32f, laybff = (ar_kernel.choose_layout(mc, dt, fused=FUSED,
+                                              cluster=False)
                       for dt in ("float32", "bfloat16"))
-    require(all(lay["stream"] for lay in (lay32, laybf, lay32f, laybff)),
+    require(all(lay.stream for lay in (lay32, laybf, lay32f, laybff)),
             f"deep fallback layouts are streamed: {lay32}, {laybf}, "
             f"{lay32f}, {laybff}")
     ar_kernel.launches.clear()
@@ -1052,7 +1027,7 @@ def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
                        "ok": e <= limit, **kw})
 
     def gen(c, n, layout, **kw):
-        return ar_kernel.generate(pp, mc, c, noise=n, **layout, **kw)
+        return ar_kernel.generate(pp, mc, c, noise=n, layout=layout, **kw)
 
     def plain(c, n, dtype="float32", **kw):
         return plain_version(pp, mc, c, noise=n, dtype=dtype, **kw)
@@ -1095,7 +1070,8 @@ def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
     for dtype, layout in (("float32", lay32), ("bfloat16", laybf)):
         record(f"deep_{dtype}_stream64_vs_stream32",
                err(gen(c_up, noise, layout),
-                   gen(c_up, noise, {**layout, "chunk": 32})), 0.0)
+                   gen(c_up, noise, dataclasses.replace(layout, chunk=32))),
+               0.0)
     # streamed equal to resident, where both fit: config-2 widths with
     # stack_size=8 (top dilation 128: the d > 64 and d > 32 splits stream)
     mc8 = get_config("shallow_laplace_single", ["model.stack_size=8"]).model
@@ -1103,16 +1079,18 @@ def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
     pp8 = extract_plain_params(m8)
     c8 = random_cond(mc8, m8, B, T, seed + 2)
     for dtype in ("float32", "bfloat16"):
-        res = ar_kernel.generate(pp8, mc8, c8, noise=noise, dtype=dtype)
+        res = ar_kernel.generate(pp8, mc8, c8, noise=noise,
+                                 layout=ar_kernel.Layout(dtype))
         for chunk in (64, 32):
-            st = ar_kernel.generate(pp8, mc8, c8, noise=noise, dtype=dtype,
-                                    stream=True, chunk=chunk)
+            st = ar_kernel.generate(pp8, mc8, c8, noise=noise,
+                                    layout=ar_kernel.Layout(
+                                        dtype, stream=True, chunk=chunk))
             record(f"stack8_{dtype}_stream{chunk}_vs_resident",
                    err(st, res), 0.0)
     # segmented against unsegmented, fp32 streamed
     cs = random_cond(mc, model, B, DEEP_SEG_T, seed + 4)
     ns = ar_kernel.uniform_noise((B, DEEP_SEG_T), g)
-    seg = generate_segmented(pp, mc, cs, ns, DEEP_SEGMENT, **lay32)
+    seg = generate_segmented(pp, mc, cs, ns, DEEP_SEGMENT, layout=lay32)
     record(f"segmented_{DEEP_SEGMENT}_vs_unsegmented",
            err(seg, gen(cs, ns, lay32)), 0.0)
     # the resident layout is refused before any launch (shared memory)
@@ -1152,31 +1130,31 @@ def phase_deep_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
     errs = {"fp32": next(c["max_abs_err"] for c in checks if c["check"]
                          == "fp32_stream_teacher_forced"),
             "bf16": e0}
-    for name, layout, plain_ms, wb, cn, e in (
-            ("fp32", lay32, plain32_ms, 4, (c_up, noise), errs["fp32"]),
-            ("bf16", laybf, plainbf_ms, 2, (c_up, noise), e0),
-            ("fp32_fused", lay32f, plain32f_ms, 4, (cf_, nf_), e32f),
-            ("bf16_fused", laybff, plainbff_ms, 2, (cf_, nf_), ebff)):
-        wl = ar_kernel.kernel_weights(pp, mc, layout["dtype"],
-                                      layout["fused"], "cuda")
-        ms = cuda_ms(lambda: ar_kernel.generate(wl, mc, cn[0], noise=cn[1],
-                                                **layout), 2)
+    for name, layout, plain_ms, cn, e in (
+            ("fp32", lay32, plain32_ms, (c_up, noise), errs["fp32"]),
+            ("bf16", laybf, plainbf_ms, (c_up, noise), e0),
+            ("fp32_fused", lay32f, plain32f_ms, (cf_, nf_), e32f),
+            ("bf16_fused", laybff, plainbff_ms, (cf_, nf_), ebff)):
+        wl = ar_kernel.kernel_weights(pp, mc, layout, "cuda")
+        ms = cuda_ms(lambda: ar_kernel.generate(wl, mc, cn[0], noise=cn[1]),
+                     2)
         Tn = cn[0].shape[1]
-        bound_ms, bound_by = bound(mc, B, Tn, pp, wb, layout["fused"])
+        bound_ms, bound_by = bound(mc, B, Tn, layout.dtype)
         times[name] = {"layout": layout, "T": Tn, "ms": ms,
                        "us_per_step": 1e3 * ms / Tn, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "max_abs_err": e}
     launched = dict(ar_kernel.launches)
     for name in times:
-        layout = times[name]["layout"]
-        times[name]["name"] = layout_variant(mc, layout)
+        times[name]["name"] = times[name]["layout"].name
         times[name]["launches"] = launched[times[name]["name"]]
     smem = {f"{dt}_{'stream' if st else 'resident'}{ch}"
             + (f"_fused{f}" if f else ""):
-            ar_kernel.smem_bytes(mc, dt, st, ch, f)
-            for dt, st, ch, clustered in decode.KERNEL_LAYOUTS
-            if not clustered for f in (0, FUSED)}
+            ar_kernel.smem_bytes(mc, ar_kernel.Layout(dt, f, stream=st,
+                                                      chunk=ch))
+            for dt in ar_kernel.DTYPES
+            for st, ch in ((False, 64), (True, 64), (True, 32))
+            for f in (0, FUSED)}
     emit("deep_kernel_vs_plain", B=B, T=T, checks=checks, readings=readings,
          times=times, launches=launched, smem_bytes=smem,
          smem_limit=ar_kernel.smem_limit("cuda"))
@@ -1201,12 +1179,12 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
             torch.Generator(device="cuda").manual_seed(seed), batch_size=8,
             kernel_dtype=kernel_dtype, fused=fused)
         launched = dict(ar_kernel.launches)
-        layout = summary["kernel"]
-        name = layout_variant(mc, layout)
-        require(layout == decode.kernel_layout(mc, kernel_dtype, fused=fused)
-                and layout["dtype"] == kernel_dtype
-                and layout["fused"] == fused
-                and not layout["stream"] and layout["cluster"] > 1,
+        layout = ar_kernel.Layout(**summary["kernel"])
+        name = layout.name
+        require(layout == ar_kernel.choose_layout(mc, kernel_dtype,
+                                                  fused=fused)
+                and layout.dtype == kernel_dtype and layout.fused == fused
+                and not layout.stream and layout.cluster > 1,
                 f"deep layout {layout}")
         require(launched.get(name, 0) >= 1 and set(launched) == {name},
                 f"the deep main path launched {name}: {launched}")
@@ -1228,10 +1206,9 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
     noise = ar_kernel.uniform_noise(
         c_up.shape[:2], torch.Generator(device="cuda").manual_seed(seed))
     # the kernel's weights made once, so that a timed call is its launch
-    w = ar_kernel.kernel_weights(pp, mc, layout["dtype"], fused, "cuda",
-                                 layout["cluster"])
-    out, full_ms = host_ms(lambda: ar_kernel.generate(
-        w, mc, c_up, noise=noise, **layout))
+    w = ar_kernel.kernel_weights(pp, mc, layout, "cuda")
+    out, full_ms = host_ms(lambda: ar_kernel.generate(w, mc, c_up,
+                                                      noise=noise))
     require(bool(torch.isfinite(out).all()), "deep main-path output finite")
     wav = out.cpu().numpy()
     for i, n in enumerate(n_samples):
@@ -1243,16 +1220,15 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
     # order (chain=True, split=N, fused or not), and fused fp32, over twice
     # the largest dilation, so every ring is written and read (see
     # TOL_CHAIN above)
-    bf16 = layout["dtype"] == "bfloat16"
-    split = layout["cluster"] if bf16 else 0
+    bf16 = layout.dtype == "bfloat16"
+    split = layout.cluster if bf16 else 0
     B = c_up.shape[0]
     Tp = 2 * max(mc.dilations) if bf16 or fused else PLAIN_T
     cp, npl = c_up[:, :Tp].contiguous(), noise[:, :Tp].contiguous()
     teacher = own_feedback(out)[:, :Tp]
-    ms = cuda_ms(lambda: ar_kernel.generate(w, mc, cp, noise=npl,
-                                            **layout), 2)
+    ms = cuda_ms(lambda: ar_kernel.generate(w, mc, cp, noise=npl), 2)
     plain, plain_ms = host_ms(lambda: plain_version(
-        pp, mc, cp, noise=npl, teacher=teacher, dtype=layout["dtype"],
+        pp, mc, cp, noise=npl, teacher=teacher, dtype=layout.dtype,
         chain=bf16, split=split, fused=fused))
     max_err = err(plain, out[:, :Tp])
     extra = {}
@@ -1271,7 +1247,7 @@ def phase_deep_main_path(cfg, model, pp, seed: int, smi: str,
                  "matmul_order_vs_chain": err(matmul, plain)}
     else:
         limit = TOL_TEACHER
-    bound_ms, bound_by = bound(mc, B, Tp, pp, 2 if bf16 else 4, fused)
+    bound_ms, bound_by = bound(mc, B, Tp, layout.dtype)
     emit(f"{phase}_vs_plain", variant=name, B=B, T=Tp,
          full_T=out.shape[1], full_call_ms=full_ms, max_abs_err=max_err,
          limit=limit, chain=bf16, split=split, **extra, kernel_ms=ms,
@@ -1291,7 +1267,8 @@ def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
     plain outputs: ar_generate (cluster 0, the fallback) and the cluster
     kernel at the size the decode picks for fused=4."""
     B, T = B_CHECK, T_CHECK
-    N = decode.kernel_layout(mc, "float32", fused=FUSED)["cluster"]
+    chosen = ar_kernel.choose_layout(mc, "float32", fused=FUSED)
+    N = chosen.cluster
     require(N > 1, f"a cluster size for fused={FUSED}")
     c_up = random_cond(mc, model, B, T, seed)
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1303,8 +1280,8 @@ def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
         checks.append({"check": name, "max_abs_err": e, "limit": limit,
                        "ok": e <= limit})
 
-    def gen(c, n, **kw):
-        return ar_kernel.generate(pp, mc, c, noise=n, **{"fused": FUSED, **kw})
+    def gen(c, n, layout, **kw):
+        return ar_kernel.generate(pp, mc, c, noise=n, layout=layout, **kw)
 
     def plain(c, n, **kw):
         return plain_version(pp, mc, c, noise=n, **{"fused": FUSED, **kw})
@@ -1322,24 +1299,25 @@ def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
         pps, mcs, c_up, noise=noise, teacher=ids, fused=FUSED), q)
     p_w = {W: plain(cw, nw, teacher=tw, fused=W) for W in FUSED_WINDOWS}
     kernel_ms = {}
-    for n in (0, N):
+    for layout in (ar_kernel.Layout(fused=FUSED), chosen):
+        n = layout.cluster
         tag = "" if n == 0 else f"cluster{n}_"
         # Laplace, teacher-forced: against its plain version and the same
         # kernel unfused
-        k = gen(c_up, noise, teacher=teacher, cluster=n)
+        k = gen(c_up, noise, layout, teacher=teacher)
         record(f"{tag}laplace_teacher_forced", err(k, p), TOL_TEACHER)
-        n0 = decode.kernel_layout(mc, "float32")["cluster"] if n else 0
+        unfused = (ar_kernel.choose_layout(mc, "float32") if n
+                   else ar_kernel.Layout())
         record(f"{tag}fused_vs_unfused_kernel_teacher_forced",
-               err(k, gen(c_up, noise, teacher=teacher, fused=0, cluster=n0)),
+               err(k, gen(c_up, noise, unfused, teacher=teacher)),
                TOL_TEACHER)
-        wk = ar_kernel.kernel_weights(pp, mc, "float32", FUSED, "cuda", n)
+        wk = ar_kernel.kernel_weights(pp, mc, layout, "cuda")
         kernel_ms[n] = cuda_ms(lambda: ar_kernel.generate(
-            wk, mc, c_up, noise=noise, teacher=teacher, fused=FUSED,
-            cluster=n), 2)
+            wk, mc, c_up, noise=noise, teacher=teacher), 2)
         # free-running, each sample against the plain version given the
         # kernel's own history
         for mode in ("sample", "greedy"):
-            k = gen(c_up, noise, mode=mode, cluster=n)
+            k = gen(c_up, noise, layout, mode=mode)
             require(bool(torch.isfinite(k).all()),
                     f"finite fused output {tag}{mode}")
             record(f"{tag}laplace_free_{mode}",
@@ -1347,8 +1325,8 @@ def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
                                 teacher=own_feedback(k))), TOL_FREE)
         # softmax head at config-2 widths, teacher-forced: class ids
         d = (mulaw_quantize(ar_kernel.generate(
-            pps, mcs, c_up, noise=noise, teacher=ids, fused=FUSED,
-            cluster=n), q).long() - p_ids.long()).abs()
+            pps, mcs, c_up, noise=noise, teacher=ids, layout=layout),
+            q).long() - p_ids.long()).abs()
         flips = float((d != 0).float().mean())
         checks.append({"check": f"{tag}softmax_teacher_forced_ids",
                        "max_bin_diff": int(d.max()), "limit_bins": 1,
@@ -1357,16 +1335,15 @@ def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
         # segmented against unsegmented, both fused
         record(f"{tag}segmented_{SEGMENT}_vs_unsegmented",
                err(generate_segmented(pp, mc, c_up, noise, SEGMENT,
-                                      fused=FUSED, cluster=n),
-                   gen(c_up, noise, cluster=n)), 0.0)
+                                      layout=layout),
+                   gen(c_up, noise, layout)), 0.0)
         # the other windows, teacher-forced over the first steps, each on
-        # the cluster size the decode picks for it
+        # the cluster layout the decode picks for it
         for W in FUSED_WINDOWS:
-            nW = (decode.kernel_layout(mc, "float32", fused=W)["cluster"]
-                  if n else 0)
+            lW = (ar_kernel.choose_layout(mc, "float32", fused=W) if n
+                  else ar_kernel.Layout(fused=W))
             record(f"{tag}W{W}_teacher_forced_{FUSED_W_T}",
-                   err(gen(cw, nw, teacher=tw, fused=W, cluster=nW), p_w[W]),
-                   TOL_TEACHER)
+                   err(gen(cw, nw, lW, teacher=tw), p_w[W]), TOL_TEACHER)
     # ar_generate: streamed equal to resident where both fit (config-2
     # widths with stack_size=8), and the time of each: the streamed layers'
     # slots are read from global memory in the base stage
@@ -1379,8 +1356,9 @@ def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
         for stream, chunk in ((False, 64), (True, 64), (True, 32)):
             def run8():
                 return ar_kernel.generate(pp8, mc8, c8, noise=noise,
-                                          dtype=dtype, stream=stream,
-                                          chunk=chunk, fused=FUSED)
+                                          layout=ar_kernel.Layout(
+                                              dtype, FUSED, stream=stream,
+                                              chunk=chunk))
             out = run8()
             if not stream:
                 res = out
@@ -1397,8 +1375,8 @@ def phase_fused_kernel_vs_plain(mc, model, pp, seed: int) -> dict:
     emit("fused_kernel_vs_plain", **result)
     for c in checks:
         require(c["ok"], f"fused kernel vs plain: {c}")
-    name = ar_kernel.variant("float32", False, FUSED)
-    bound_ms, bound_by = bound(mc, B, T, pp, 4, FUSED)
+    name = ar_kernel.Layout(fused=FUSED).name
+    bound_ms, bound_by = bound(mc, B, T)
     # ar_generate's fused row in the kernels line: launches counted here
     return {**result, "name": name, "launches": launched[name],
             "max_abs_err": next(c["max_abs_err"] for c in checks
@@ -1416,15 +1394,14 @@ def phase_deep_fused_times(mc, model, pp, seed: int) -> None:
         (B, T), torch.Generator(device="cuda").manual_seed(seed + 5))
     times = {}
     for dtype in ("float32", "bfloat16"):
-        layouts = {W: decode.kernel_layout(mc, dtype, fused=W)
+        layouts = {W: ar_kernel.choose_layout(mc, dtype, fused=W)
                    for W in (0, FUSED)}
-        w = {W: ar_kernel.kernel_weights(pp, mc, dtype, W, "cuda",
-                                         lay["cluster"])
+        w = {W: ar_kernel.kernel_weights(pp, mc, lay, "cuda")
              for W, lay in layouts.items()}
         us = {0: [], FUSED: []}
         for W in (0, FUSED, FUSED, 0):
             us[W].append(1e3 * cuda_ms(lambda: ar_kernel.generate(
-                w[W], mc, c, noise=n, **layouts[W]), 2) / T)
+                w[W], mc, c, noise=n), 2) / T)
         times[dtype] = {"layout": layouts[FUSED],
                         "unfused_layout": layouts[0],
                         "unfused_us_per_step": us[0],
@@ -1444,14 +1421,13 @@ def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
     n_blocks = -(-STREAM_FRAMES // STREAM_BLOCK)
     runs, checks = {}, []
     for W in (FUSED, 0):
-        layout = decode.kernel_layout(mc, "float32", fused=W)
-        name = layout_variant(mc, layout)
+        layout = ar_kernel.choose_layout(mc, "float32", fused=W)
+        name = layout.name
         syn = StreamingSynthesizer(pp, model, mc, hop, batch=1,
                                    block_frames=STREAM_BLOCK, seed=seed,
                                    record_noise=True, fused=W)
-        require(syn.cluster == layout["cluster"],
-                f"the session's cluster {syn.cluster}, the decode's {layout}")
-        n = syn.cluster
+        require(syn.layout == layout and layout.cluster > 1,
+                f"the session's layout {syn.layout}, the decode's {layout}")
         ar_kernel.launches.clear()
         pieces, pushes = [], []
         for s0 in range(0, STREAM_FRAMES, STREAM_BLOCK):
@@ -1472,8 +1448,8 @@ def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
         # and uniforms; the upsampler half: that conditioning against the
         # whole utterance's
         c_all, n_all = syn.cond_so_far(), syn.noise_so_far()
-        one_t = ar_kernel.generate(pp, mc, c_all, noise=n_all, fused=W,
-                                   cluster=n)
+        one_t = ar_kernel.generate(pp, mc, c_all, noise=n_all,
+                                   layout=layout)
         one = one_t.cpu().numpy()
         kerr, uerr = float(np.abs(one - wav).max()), err(c_all, full)
         ulimit = TOL_UPSAMPLE * float(full.abs().max())
@@ -1496,12 +1472,11 @@ def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
             pp, mc, c_all[:, :Tp], noise=n_all[:, :Tp],
             teacher=own_feedback(one_t)[:, :Tp], fused=W), one_t[:, :Tp])
         push = dict(noise=n_all[:, n_blk - M:2 * n_blk],
-                    teacher=one_t[:, n_blk - M - 1:n_blk - 1], warmup=M,
-                    fused=W)
+                    teacher=one_t[:, n_blk - M - 1:n_blk - 1], warmup=M)
         kp = ar_kernel.generate(pp, mc, c_all[:, n_blk - M:2 * n_blk],
-                                cluster=n, **push)
+                                layout=layout, **push)
         pe = err(plain_version(
-            pp, mc, c_all[:, n_blk - M:2 * n_blk], **push), kp)
+            pp, mc, c_all[:, n_blk - M:2 * n_blk], fused=W, **push), kp)
         se = float(np.abs(kp[:, M:].cpu().numpy()
                           - wav[:, n_blk:2 * n_blk]).max())
         checks += [{"check": f"fused{W}_kernel_vs_plain_teacher_forced_{Tp}",
@@ -1525,32 +1500,6 @@ def phase_streaming(cfg, model, pp, seed: int, smi: str) -> None:
          checks=checks, card=smi)
     for c in checks:
         require(c["ok"], f"streaming: {c}")
-
-
-def train_flops(mc, B: int, T: int) -> float:
-    """FLOPs of one update at B rows of T samples (x is (B, T)), counted
-    from the port's code: the stack over T - 1 positions (input
-    projection, per layer k taps R x G, cond C x G, res and skip (G/2) x
-    (R + S), head S x S + S x O), the upsampler over T / hop frames (the
-    1x1 projection, then each stage's phase matmul, 3C x fC per input
-    frame). Backward is twice the forward's products, less the input
-    gradients nobody needs (of x's projection and of cond's)."""
-    t, L = T - 1, len(mc.dilations)
-    R, G, S, C = (mc.residual_channels, mc.gate_channels, mc.skip_channels,
-                  mc.cond_channels)
-    O = mc.quantize_channels if mc.head == "softmax" else 2
-    inp = 0 if mc.head == "softmax" else R
-    stack = (inp + L * (mc.kernel_size * R * G + C * G + (G // 2) * (R + S))
-             + S * S + S * O)
-    frames = T // int(np.prod(mc.upsample_factors))
-    proj = frames * mc.aux_channels * C
-    ups, f_in = proj, frames
-    for f in mc.upsample_factors:
-        ups += f_in * 3 * C * f * C
-        f_in *= f
-    fwd = B * (t * stack + ups)
-    bwd = 2 * fwd - B * (t * inp + proj)
-    return 2.0 * (fwd + bwd)
 
 
 def corpus(cfg, seed: int) -> list:
@@ -1706,9 +1655,9 @@ def phase_train(cfg, seed: int, smi: str) -> None:
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / K
         launches = sum(e.count for e in kern) / K
-        flops = train_flops(mc, B, T)
-        bound32, bound16 = 1e3 * flops / PEAK_FP32_FLOPS, \
-            1e3 * flops / PEAK_BF16_FLOPS
+        flops = yardstick.train_flops(dataclasses.asdict(mc), B, T)
+        bound32, bound16 = 1e3 * flops / yardstick.PEAK_FP32_FLOPS, \
+            1e3 * flops / yardstick.PEAK_BF16_FLOPS
 
         # resume from the step-32 checkpoint in a workdir of its own: the
         # next group draws the straight run's batches 33..40
@@ -1747,8 +1696,8 @@ def phase_train(cfg, seed: int, smi: str) -> None:
     finally:
         shutil.rmtree(workdir)
     require(mstep == TRAIN_STEPS, f"decode loaded step {mstep}")
-    layout = decode.kernel_layout(mc, "auto")
-    name = layout_variant(mc, layout)
+    layout = ar_kernel.choose_layout(mc, "auto")
+    name = layout.name
     dutts = [Utterance(np.zeros(0, np.float32), u.feats)
              for u in utts[:TRAIN_DECODE_UTTS]]
     with tempfile.TemporaryDirectory() as out:
@@ -1759,7 +1708,8 @@ def phase_train(cfg, seed: int, smi: str) -> None:
             model_step=mstep)
         launched = dict(ar_kernel.launches)
     require(set(launched) == {name} and launched[name] == 1
-            and summary["kernel"] == layout and layout["cluster"] > 1,
+            and summary["kernel"] == dataclasses.asdict(layout)
+            and layout.cluster > 1,
             f"the trained decode launched {launched} on {summary['kernel']}")
     cond, _, _ = pad_batch_for_decode(dutts, d.hop_length)
     pp = extract_plain_params(model)
@@ -1767,7 +1717,7 @@ def phase_train(cfg, seed: int, smi: str) -> None:
         c_up = model.upsample_cond(torch.from_numpy(cond).cuda())
     noise = ar_kernel.uniform_noise(
         c_up.shape[:2], torch.Generator(device="cuda").manual_seed(seed))
-    out = ar_kernel.generate(pp, mc, c_up, noise=noise, **layout)
+    out = ar_kernel.generate(pp, mc, c_up, noise=noise, layout=layout)
     require(bool(torch.isfinite(out).all()), "trained decode finite")
     Tp = TRAIN_DECODE_T
     plain = plain_version(
@@ -1845,8 +1795,8 @@ def phase_observe(cfg, model, seed: int, smi: str) -> int:
     batch raising FloatingPointError at its update for K = 1 and K = 8;
     whether TensorBoard scalars are written on this host."""
     mc, hop = cfg.model, cfg.data.hop_length
-    layout = decode.kernel_layout(mc, "auto")
-    name = layout_variant(mc, layout)
+    layout = ar_kernel.choose_layout(mc, "auto")
+    name = layout.name
     _, utts = utterances(mc, seed + 7, 75, 150)
     utts = utts[:OBSERVE_UTTS]
     names = [f"utt{i}.wav" for i in range(len(utts))]
@@ -2017,8 +1967,8 @@ def world_pitch(wdw: Path, root: Path, seed: int, record) -> dict:
     stats = wdw / "stats.h5"
     evals = read_file_list(wdw / "corpus/eval.scp")
     out = root / "pitch"
-    layout = decode.kernel_layout(mc, "auto")
-    name = layout_variant(mc, layout)
+    layout = ar_kernel.choose_layout(mc, "auto")
+    name = layout.name
     readings = {"variant": name, "kernel": layout}
 
     # decode --f0-factor of the first eval utterance, cut
@@ -2039,7 +1989,7 @@ def world_pitch(wdw: Path, root: Path, seed: int, record) -> dict:
     readings["decode_seconds"] = time.perf_counter() - t0
     launched = dict(ar_kernel.launches)
     require(set(launched) == {name} and launched[name] == 1
-            and layout["cluster"] > 1,
+            and layout.cluster > 1,
             f"decode --f0-factor launched {launched} on {layout}")
     readings["launches"] = launched[name]
     utts = load_utterances(out / "eval.scp", out / "feats", stats,
@@ -2248,14 +2198,15 @@ def phase_recipe(seed: int, smi: str) -> int:
         # stage 5: the decode on the cluster kernel, then the kernel re-run
         # on its inputs against the plain version, teacher-forced with its
         # own samples
-        layout = decode.kernel_layout(mc, "auto")
-        name = layout_variant(mc, layout)
+        layout = ar_kernel.choose_layout(mc, "auto")
+        name = layout.name
         ar_kernel.launches.clear()
         run_stage("stage5", wd, 5)
         launched = dict(ar_kernel.launches)
         summary = json.loads((wd / "gen_wav/decode_summary.json").read_text())
         require(set(launched) == {name} and launched[name] >= 1
-                and summary["kernel"] == layout and layout["cluster"] > 1,
+                and summary["kernel"] == dataclasses.asdict(layout)
+                and layout.cluster > 1,
                 f"stage 5 launched {launched} on {summary['kernel']}")
         model, step = decode.load_model_state(cfg, wd / "model", "cuda")
         require(step == RECIPE_STEPS, f"stage 5 decoded step {step}")
@@ -2267,7 +2218,7 @@ def phase_recipe(seed: int, smi: str) -> int:
             c_up = model.upsample_cond(torch.from_numpy(cond).cuda())
         noise = ar_kernel.uniform_noise(
             c_up.shape[:2], torch.Generator(device="cuda").manual_seed(0))
-        out = ar_kernel.generate(pp, mc, c_up, noise=noise, **layout)
+        out = ar_kernel.generate(pp, mc, c_up, noise=noise, layout=layout)
         wav_err = max(float(np.abs(read_wav(wd / "gen_wav" / Path(w).name)[0]
                                    - out[i, :n_samples[i]].cpu().numpy())
                             .max()) for i, w in enumerate(evals))
@@ -2457,8 +2408,8 @@ def phase_decode_dp(cfg, model, pp, seed: int, smi: str) -> None:
     gather on the card), each equal to the single call, to the bit; the
     wall time of each and the launches."""
     mc = cfg.model
-    layout = decode.kernel_layout(mc, "auto")
-    name = layout_variant(mc, layout)
+    layout = ar_kernel.choose_layout(mc, "auto")
+    name = layout.name
     _, utts = utterances(mc, seed + 7, 75, 150)
     runs, outs = {}, {}
     for key, devices in (("single", None),
@@ -2584,16 +2535,16 @@ def phase_stream_pool(cfg, model, pp, seed: int, smi: str
     launched in one step(), over every count's steps, tails and the
     staggered scenario."""
     mc, hop, sr = cfg.model, cfg.data.hop_length, cfg.data.sample_rate
-    layout = decode.kernel_layout(mc, "float32")
-    name = layout_variant(mc, layout)
+    layout = ar_kernel.choose_layout(mc, "float32")
+    name = layout.name
     warnings = WarningCount()
     logging.getLogger("shallow_wavenet_tpu_torch.models.streaming"
                       ).addHandler(warnings)
     rng = np.random.default_rng(seed + 11)
     probe = StreamPool(pp, model, mc, hop, slots=1,
                        block_frames=STREAM_BLOCK)
-    require(probe.cluster == layout["cluster"] and layout["fused"] == 0,
-            f"the pool's cluster {probe.cluster}, the decode's {layout}")
+    require(probe.layout == layout and layout.fused == 0,
+            f"the pool's layout {probe.layout}, the decode's {layout}")
     at_once = probe.clusters_at_once
     counts = sorted({*POOL_STREAMS, at_once, at_once + 1})
     block_s = STREAM_BLOCK * hop / sr
@@ -2743,16 +2694,15 @@ def cluster_fits(mc, dtype: str, fused: int, limit: int):
     for size in CLUSTER_N:
         occ[size] = {}
         for l2, key in ((False, "smem"), (True, "l2")):
+            lay = ar_kernel.Layout(dtype, fused, size, resident=not l2)
             try:
-                b = ar_kernel.cluster_smem_bytes(mc, dtype, size, not l2,
-                                                 fused)
+                b = ar_kernel.cluster_smem_bytes(mc, lay)
             except ValueError as e:
                 occ[size] = {"refused": str(e)}
                 break
             occ[size][f"{key}_bytes"] = b
-            active = (ar_kernel.max_active_clusters(
-                mc, dtype, size, not l2, "cuda", fused) if b <= limit
-                else None)
+            active = (ar_kernel.clusters_at_once(mc, lay, "cuda")
+                      if b <= limit else None)
             occ[size][f"{key}_clusters"] = active
             if active:
                 fits.append((size, l2))
@@ -2775,21 +2725,19 @@ def cluster_lengths(mc, model, pp, tag: str, dtypes=("float32",)
     checks, ms = [], {}
     for dtype in dtypes:
         for W in (0, FUSED):
-            lay = decode.kernel_layout(mc, dtype, fused=W)
-            w = ar_kernel.kernel_weights(pp, mc, dtype, W, "cuda",
-                                         lay["cluster"])
+            lay = ar_kernel.choose_layout(mc, dtype, fused=W)
+            w = ar_kernel.kernel_weights(pp, mc, lay, "cuda")
             outs, t = {}, {"padded": [], "lengths": []}
             for k in ("padded", "lengths", "lengths", "padded"):
                 lens = lengths if k == "lengths" else None
                 t[k].append(event_ms(lambda: outs.setdefault(
-                    k, ar_kernel.generate(w, mc, c, noise=u, lengths=lens,
-                                          **lay))))
+                    k, ar_kernel.generate(w, mc, c, noise=u, lengths=lens))))
             same = all(torch.equal(outs["lengths"][r, :n],
                                    outs["padded"][r, :n])
                        and not outs["lengths"][r, n:].any()
                        for r, n in enumerate(lengths))
             checks.append({"check": f"{tag}_{dtype}_fused{W}_"
-                           f"{layout_variant(mc, lay)}_lengths_equal_padded",
+                           f"{lay.name}_lengths_equal_padded",
                            "ok": same})
             ms[f"{dtype}_fused{W}"] = t
     return checks, ms
@@ -2808,16 +2756,15 @@ def cluster_many_rows(mc, model, pp, tag: str) -> dict:
     u = ar_kernel.uniform_noise(
         (B, T), torch.Generator(device="cuda").manual_seed(31))
     lengths = np.random.default_rng(31).integers(1, T + 1, B).tolist()
-    lay = decode.kernel_layout(mc, "float32")
-    w = ar_kernel.kernel_weights(pp, mc, "float32", 0, "cuda",
-                                 lay["cluster"])
-    name = layout_variant(mc, lay)
+    lay = ar_kernel.choose_layout(mc, "float32")
+    w = ar_kernel.kernel_weights(pp, mc, lay, "cuda")
+    name = lay.name
     before = ar_kernel.launches[name]
-    got = ar_kernel.generate(w, mc, c, noise=u, lengths=lengths, **lay)
+    got = ar_kernel.generate(w, mc, c, noise=u, lengths=lengths)
     two = ar_kernel.launches[name] - before
     h = B // 2
     want = torch.cat([ar_kernel.generate(w, mc, c[a:b].contiguous(),
-                                         noise=u[a:b].contiguous(), **lay)
+                                         noise=u[a:b].contiguous())
                       for a, b in ((0, h), (h, B))])
     same = all(torch.equal(got[r, :n], want[r, :n]) and not got[r, n:].any()
                for r, n in enumerate(lengths))
@@ -2832,6 +2779,13 @@ def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
     for the kernels line, one for each variant held against its plain
     version here."""
     limit = ar_kernel.smem_limit("cuda")
+    # the card's property, which the chooser reads, against the limit the
+    # kernels' own library reads
+    lib_limit = ctypes.c_int(0)
+    require(ar_kernel._lib().ar_smem_limit(ctypes.byref(lib_limit)) == 0
+            and lib_limit.value == limit,
+            f"shared memory limit: torch {limit}, ar_smem_limit "
+            f"{lib_limit.value}")
     g = torch.Generator(device="cuda").manual_seed(17)
     ar_kernel.launches.clear()
     runs, checks, checked = {}, [], {}
@@ -2846,31 +2800,31 @@ def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
             tag = f"{preset}_{dtype}"
             fns, chosen, old, layouts, occs, fitted = {}, {}, {}, {}, {}, {}
             for W in (0, FUSED):
-                lay = layouts[W] = decode.kernel_layout(mc, dtype, fused=W)
-                old[W] = decode.kernel_layout(mc, dtype, fused=W,
-                                              cluster=False)
-                require(lay["cluster"] > 1,
+                lay = layouts[W] = ar_kernel.choose_layout(mc, dtype,
+                                                           fused=W)
+                old[W] = ar_kernel.choose_layout(mc, dtype, fused=W,
+                                                 cluster=False)
+                require(lay.cluster > 1,
                         f"{tag}: a cluster layout for fused={W}: {lay}")
-                chosen[W] = layout_variant(mc, lay)
+                chosen[W] = lay.name
                 occs[W], fits = cluster_fits(mc, dtype, W, limit)
                 fitted[W] = fits
-                w_old = ar_kernel.kernel_weights(pp, mc, dtype, W, "cuda")
-                w_new = {size: ar_kernel.kernel_weights(pp, mc, dtype, W,
-                                                        "cuda", size)
+                w_old = ar_kernel.kernel_weights(pp, mc, old[W], "cuda")
+                w_new = {size: ar_kernel.kernel_weights(
+                    pp, mc, ar_kernel.Layout(dtype, W, size), "cuda")
                          for size in {size for size, _ in fits}}
                 # every size and placement that fits, by its `launches`
                 # name
-                fns[layout_variant(mc, old[W])] = (
-                    lambda c, u, w=w_old, lay=old[W]: ar_kernel.generate(
-                        w, mc, c, noise=u, **lay))
+                fns[old[W].name] = (
+                    lambda c, u, w=w_old: ar_kernel.generate(w, mc, c,
+                                                             noise=u))
                 for size, l2 in fits:
-                    fns[ar_kernel.variant(dtype, False, W, size, not l2)] = (
-                        lambda c, u, W=W, size=size, l2=l2, w=w_new:
-                        ar_kernel.generate(w[size], mc, c, noise=u,
-                                           dtype=dtype, fused=W,
-                                           cluster=size, weights_l2=l2))
+                    fit = ar_kernel.Layout(dtype, W, size, resident=not l2)
+                    fns[fit.name] = (
+                        lambda c, u, fit=fit, w=w_new[size]:
+                        ar_kernel.generate(w, mc, c, noise=u, layout=fit))
                 require(chosen[W] in fns, f"{tag}: {chosen[W]} fits")
-            gen0, gen4 = (layout_variant(mc, old[W]) for W in (0, FUSED))
+            gen0, gen4 = (old[W].name for W in (0, FUSED))
             unfused = [k for k in fns if k != gen4 and "fused" not in k]
             us, outs = {}, {}
             for b in CLUSTER_B:
@@ -2891,8 +2845,8 @@ def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
                 # one size, both placements: the same sums, to the bit
                 for W in (0, FUSED):
                     for size in {size for size, _ in fitted[W]}:
-                        smem, l2 = (ar_kernel.variant(dtype, False, W, size,
-                                                      r)
+                        smem, l2 = (ar_kernel.Layout(dtype, W, size,
+                                                     resident=r).name
                                     for r in (True, False))
                         if smem in out and l2 in out:
                             checks.append({
@@ -2917,7 +2871,7 @@ def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
             # L2, the smallest size whose weights fit in shared memory
             for W in (0, FUSED):
                 held = [chosen[W]]
-                res = [ar_kernel.variant(dtype, False, W, size, True)
+                res = [ar_kernel.Layout(dtype, W, size).name
                        for size, l2 in fitted[W] if not l2]
                 if res and res[0] != chosen[W] and chosen[W].endswith(
                         ",l2]"):
@@ -2956,17 +2910,14 @@ def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
                                        "control_fp32": ctl,
                                        "control_min": cmin,
                                        "ok": e <= TOL_CHAIN and ctl > cmin})
-                    bound_ms, bound_by = bound(
-                        mc, 1, CLUSTER_CHECK_T, pp,
-                        2 if dtype == "bfloat16" else 4, W)
+                    bound_ms, bound_by = bound(mc, 1, CLUSTER_CHECK_T, dtype)
                     checked[name] = {
                         "name": name, "preset": preset, "dtype": dtype,
                         "fused": W, "max_abs_err": e, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "B": 1, "T": CLUSTER_CHECK_T}
             for W in (0, FUSED):
-                n = layouts[W]["cluster"]
-                resident = not chosen[W].endswith(",l2]")
+                n, resident = layouts[W].cluster, layouts[W].resident
                 key = ("ar_cluster,"
                        + ("bf16," if dtype == "bfloat16" else "fp32,")
                        + ("fused," if W else "")
@@ -2975,7 +2926,7 @@ def phase_cluster(smi: str, regs: dict, models: dict) -> dict:
                     "N": n, "weights": "shared memory" if resident else "L2",
                     "variant": chosen[W], "fallback": old[W],
                     "smem_bytes": ar_kernel.cluster_smem_bytes(
-                        mc, dtype, n, resident, W),
+                        mc, layouts[W]),
                     "registers": regs.get(key), "occupancy": occs[W]}
             runs[f"{tag}_us_per_step"] = us
         c2 = preset == "shallow_laplace_single"
@@ -3066,7 +3017,8 @@ def phase_kprobe(smi: str) -> dict:
             c, n, full = o["cond"], o["noise"], o["full"]
             gen = ar_kernel.generate(ar_probe.plain_params(wd), mc,
                                      c.transpose(0, 1).contiguous(),
-                                     noise=n.t().contiguous(), dtype=dt)
+                                     noise=n.t().contiguous(),
+                                     layout=ar_kernel.Layout(dt))
             record(f"{dt}_B{B}_full_vs_ar_generate", err(full.t(), gen), 0.0,
                    equal=torch.equal(full.t(), gen))
             for ab in defined:
@@ -3106,7 +3058,7 @@ def phase_kprobe(smi: str) -> dict:
             fn = ((lambda: ar_probe.probe(wd, mc, c, n, "full"))
                   if name == "full" else
                   (lambda: ar_kernel.generate(pp, mc, cb, noise=nb,
-                                              dtype=dt)))
+                                              layout=ar_kernel.Layout(dt))))
             us[name].append(1e3 * cuda_ms(fn, 2) / KPROBE_T)
         turns[dt] = us
     # the plain version's time: full, free running, at B = 8, held at
@@ -3126,7 +3078,7 @@ def phase_kprobe(smi: str) -> dict:
          full_vs_ar_generate_us_B8=turns, card=smi)
     for ck in checks:
         require(ck["ok"], f"kprobe: {ck}")
-    bound_ms, bound_by = bound(mc, 8, KPROBE_T, w["float32"], 4)
+    bound_ms, bound_by = bound(mc, 8, KPROBE_T)
     return {"launches": sum(launched.values()), "launches_by_variant":
             launched, "bound_ms": bound_ms, "bound_by": bound_by, **times}
 
@@ -3161,7 +3113,8 @@ def phase_dma_probe(smi: str, regs: dict) -> dict:
                   "fill_ms": at["rate"]["fill_ms"],
                   "us_per_chunk_b8": at["jax_64_chunks"]["us_per_chunk"],
                   "plain_ms": plain_ms,
-                  "bound_ms": 1e3 * ring_probe.bound_bytes(**kw) / PEAK_BYTES,
+                  "bound_ms": 1e3 * ring_probe.bound_bytes(**kw)
+                  / yardstick.PEAK_BYTES,
                   "bound_by": "bytes", "registers": regs.get(
                       "ring_probe," + v)}
     return out
@@ -3175,7 +3128,7 @@ def phase_cluster_probe(smi: str, regs: dict, models: dict) -> list:
     mc = get_config("shallow_laplace_single").model
     w = {dt: {k: v.cuda() for k, v in ar_probe.probe_weights(mc, dt).items()}
          for dt in ar_kernel.DTYPES}
-    layouts = {dt: ar_probe.cluster_layout(mc, dt, "cuda")
+    layouts = {dt: ar_kernel.choose_layout(mc, dt, "cuda")
                for dt in ar_kernel.DTYPES}
     checks = []
 
@@ -3207,7 +3160,8 @@ def phase_cluster_probe(smi: str, regs: dict, models: dict) -> list:
              for dt in ar_kernel.DTYPES}
     launched = dict(ar_probe.launches)
     defined = [ab for ab in ar_probe.CLUSTER_ABLATIONS if ab != "no_resskip"]
-    want = {ar_probe.variant(dt, ab, "cluster", *layouts[dt])
+    want = {ar_probe.variant(dt, ab, "cluster", layouts[dt].cluster,
+                             layouts[dt].resident)
             for dt in ar_kernel.DTYPES for ab in defined}
     require(set(launched) == want, f"the cluster probe sweep launched every "
             f"defined variant: {launched}")
@@ -3218,13 +3172,13 @@ def phase_cluster_probe(smi: str, regs: dict, models: dict) -> list:
                 f"cluster probe sweep {dt}: refused only no_resskip")
     errs = {dt: [] for dt in ar_kernel.DTYPES}
     for dt, by_b in outs.items():
-        wd, (n, resident) = w[dt], layouts[dt]
+        wd, n = w[dt], layouts[dt].cluster
         for B, o in by_b.items():
             c, nz, full = o["cond"], o["noise"], o["full"]
             gen = ar_kernel.generate(ar_probe.plain_params(wd), mc,
                                      c.transpose(0, 1).contiguous(),
-                                     noise=nz.t().contiguous(), dtype=dt,
-                                     cluster=n, weights_l2=not resident)
+                                     noise=nz.t().contiguous(),
+                                     layout=layouts[dt])
             record(f"{dt}_B{B}_full_vs_ar_cluster", err(full.t(), gen), 0.0,
                    equal=torch.equal(full.t(), gen))
             for ab in defined:
@@ -3266,7 +3220,9 @@ def phase_cluster_probe(smi: str, regs: dict, models: dict) -> list:
     B8 = max(CPROBE_B)
     o = outs["bfloat16"][B8]
     k2 = ar_probe.probe(w["bfloat16"], mc, o["cond"], o["noise"],
-                        "local_exchange", kernel="cluster", split=2)
+                        "local_exchange", kernel="cluster",
+                        layout=ar_kernel.choose_layout(mc, "bfloat16",
+                                                       "cuda", cluster=2))
     fb = own_feedback(k2.t())
     e = err(k2, probe_plain(w["bfloat16"], mc, o["cond"], o["noise"],
                             "local_exchange", feedback=fb, chain=True,
@@ -3280,36 +3236,35 @@ def phase_cluster_probe(smi: str, regs: dict, models: dict) -> list:
     # full against the production kernel on the same call, in turns
     turns = {}
     for dt, wd in w.items():
-        o, (n, resident) = outs[dt][B8], layouts[dt]
+        o, lay = outs[dt][B8], layouts[dt]
         c, nz = o["cond"], o["noise"]
-        pk = ar_probe.cluster_weights(wd, mc, n, "cuda")
-        kw = ar_kernel.kernel_weights(ar_probe.plain_params(wd), mc, dt, 0,
-                                      "cuda", n)
+        pk = ar_probe.cluster_weights(wd, mc, lay, "cuda")
+        kw = ar_kernel.kernel_weights(ar_probe.plain_params(wd), mc, lay,
+                                      "cuda")
         cb, nb = c.transpose(0, 1).contiguous(), nz.t().contiguous()
         us = {"full": [], "ar_cluster": []}
         for name in ("full", "ar_cluster", "ar_cluster", "full"):
             fn = ((lambda: ar_probe.probe(
-                wd, mc, c, nz, "full", kernel="cluster", split=n,
-                weights_l2=not resident, packed=pk)) if name == "full" else
-                (lambda: ar_kernel.generate(kw, mc, cb, noise=nb, dtype=dt,
-                                            cluster=n,
-                                            weights_l2=not resident)))
+                wd, mc, c, nz, "full", kernel="cluster", packed=pk))
+                if name == "full" else
+                (lambda: ar_kernel.generate(kw, mc, cb, noise=nb)))
             us[name].append(1e3 * cuda_ms(fn, 2) / CPROBE_T)
         turns[dt] = us
     # the plain version's time, full free running at B = 8; fp32 held at
     # TOL_FREE (config 2 does not amplify fp32 rounding under its own
     # feedback), bf16 (matmul order, which drifts from the kernel's) timed
     plain_ms = {}
-    for dt, (n, _) in layouts.items():
-        o = outs[dt][B8]
+    for dt, lay in layouts.items():
+        o, n = outs[dt][B8], lay.cluster
         free, plain_ms[dt] = host_ms(lambda: probe_plain(
             w[dt], mc, o["cond"], o["noise"], "full", split=n))
         if dt == "float32":
             record(f"float32_B{B8}_full_free_running_vs_plain_split{n}",
                    err(o["full"], free), TOL_FREE)
     emit("cluster_probe", config="shallow_laplace_single", T=CPROBE_T,
-         layouts={dt: {"N": n, "weights": "shared memory" if r else "L2"}
-                  for dt, (n, r) in layouts.items()},
+         layouts={dt: {"N": lay.cluster,
+                       "weights": "shared memory" if lay.resident else "L2"}
+                  for dt, lay in layouts.items()},
          checks=checks, sweep=sweep, launches=launched,
          full_vs_ar_cluster_us_B8=turns,
          registers={k: v for k, v in regs.items()
@@ -3317,17 +3272,16 @@ def phase_cluster_probe(smi: str, regs: dict, models: dict) -> list:
     for ck in checks:
         require(ck["ok"], f"cluster_probe: {ck}")
     rows = []
-    for dt, (n, resident) in layouts.items():
+    for dt, lay in layouts.items():
         mine = {k: v for k, v in launched.items()
                 if k.startswith("ar_cluster_probe[bf16,")
                 == (dt == "bfloat16")}
         full_row = next(r for r in sweep[dt]
                         if (r["B"], r["ablate"]) == (B8, "full"))
-        bound_ms, bound_by = bound(mc, B8, CPROBE_T, w[dt],
-                                   2 if dt == "bfloat16" else 4)
+        bound_ms, bound_by = bound(mc, B8, CPROBE_T, dt)
         rows.append({
-            "name": ar_probe.variant(dt, "full", "cluster", n,
-                                     resident)[:-len(",full]")] + "]",
+            "name": ar_probe.variant(dt, "full", "cluster", lay.cluster,
+                                     lay.resident)[:-len(",full]")] + "]",
             "launches": sum(mine.values()), "launches_by_variant": mine,
             "max_abs_err": max(errs[dt]),
             "ms": full_row["us_per_step"] * CPROBE_T / 1e3,
@@ -3363,9 +3317,7 @@ def phase_cluster_probe(smi: str, regs: dict, models: dict) -> list:
                 f"{r['variant']}: timed/untimed {r['ratio']}")
     for r in timed:
         pmc, _, pp = models[r["preset"]]
-        bound_ms, bound_by = bound(pmc, r["B"], r["T"], pp,
-                                   2 if r["dtype"] == "bfloat16" else 4,
-                                   r["fused"])
+        bound_ms, bound_by = bound(pmc, r["B"], r["T"], r["dtype"])
         rows.append({
             "name": r["variant"], "preset": r["preset"],
             "launches": timer_launches.get(r["variant"], 0),
@@ -3427,9 +3379,9 @@ def phase_sd_wide(smi: str, seed: int) -> dict:
     line's row."""
     tree = json.loads(SD_CONFIG.read_text())["config"]
     mc, mcd = Config.from_dict(tree).model, tree["model"]
-    layout = decode.kernel_layout(mc)
-    require(layout.get("wide") and layout["cluster"] == 16
-            and layout["dtype"] == "float32",
+    layout = ar_kernel.choose_layout(mc)
+    require(layout == ar_kernel.Layout(cluster=16, wide=True,
+                                       resident=False),
             f"the decode's layout (auto) at the vocoder's widths: {layout}")
     model = random_model(mc, seed)
     pp = extract_plain_params(model)
@@ -3440,7 +3392,7 @@ def phase_sd_wide(smi: str, seed: int) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     noise = ar_kernel.uniform_noise((B, T), g)
     ids = torch.randint(0, q, (B, T), generator=g, device="cuda").float()
-    plain_kw = dict(chain=True, split=layout["cluster"])
+    plain_kw = dict(chain=True, split=layout.cluster)
     checks = []
 
     def held(name, x_prev, k, p, greedy=False):
@@ -3455,13 +3407,14 @@ def phase_sd_wide(smi: str, seed: int) -> dict:
 
     ar_kernel.launches.clear()
     ar_kernel.ring_bytes.clear()
-    k = ar_kernel.generate(pp, mc, c_up, noise=noise, teacher=ids, **layout)
+    k = ar_kernel.generate(pp, mc, c_up, noise=noise, teacher=ids,
+                           layout=layout)
     p, plain_ms = host_ms(lambda: plain_version(pp, mc, c_up, noise=noise,
                                                 teacher=ids, **plain_kw))
     held("teacher_forced", ids, k, p)
     for mode in ("sample", "greedy"):
         k = ar_kernel.generate(pp, mc, c_up, noise=noise, mode=mode,
-                               **layout)
+                               layout=layout)
         # the kernel's own classes as the inputs of the plain version and
         # the reference: the silence class at t = 0, then each step's draw
         own = torch.cat([torch.full_like(k[:, :1], q // 2),
@@ -3474,12 +3427,10 @@ def phase_sd_wide(smi: str, seed: int) -> dict:
     control = max(c["control_max_gap"] for c in checks)
     checks.append({"check": "tf32_control_fails", "control_max_gap":
                    control, "limit": SD_GAP, "ok": control > SD_GAP})
-    name = ar_kernel.variant("float32", False, 0, layout["cluster"], False,
-                             wide=True)
+    name = layout.name
     launched = dict(ar_kernel.launches)
     rings = dict(ar_kernel.ring_bytes)
-    shared, glob = ar_kernel.cluster_rings(mc, layout["cluster"], "float32",
-                                           wide=True)
+    shared, glob = ar_kernel.cluster_rings(mc, layout)
     require(set(launched) == {name} and launched[name] == 3,
             f"the wide form's launches: {launched}")
     require(rings == {"shared": 3 * B * shared * mc.residual_channels * 4,
@@ -3492,11 +3443,12 @@ def phase_sd_wide(smi: str, seed: int) -> dict:
     DB, DT = len(SD_DEEP_LENGTHS), max(SD_DEEP_LENGTHS)
     dc = random_cond(dmc, dmodel, DB, DT, seed + 3)
     dn = ar_kernel.uniform_noise((DB, DT), g)
-    streamed = ar_kernel.generate(dpp, dmc, dc, noise=dn, cluster=16,
-                                  weights_l2=True, lengths=SD_DEEP_LENGTHS)
-    wide = ar_kernel.generate(dpp, dmc, dc, noise=dn, cluster=16, wide=True,
+    streamed = ar_kernel.generate(
+        dpp, dmc, dc, noise=dn, lengths=SD_DEEP_LENGTHS,
+        layout=ar_kernel.Layout(cluster=16, resident=False))
+    wide = ar_kernel.generate(dpp, dmc, dc, noise=dn, layout=layout,
                               lengths=SD_DEEP_LENGTHS)
-    dshared, dglob = ar_kernel.cluster_rings(dmc, 16, "float32", wide=True)
+    dshared, dglob = ar_kernel.cluster_rings(dmc, layout)
     bits = float((wide - streamed).abs().max())
     checks.append({"check": "deep_wide_vs_streamed_free_sample",
                    "max_abs_err": bits, "limit": 0.0, "ok": bits == 0.0,
@@ -3506,10 +3458,8 @@ def phase_sd_wide(smi: str, seed: int) -> dict:
     for b in SD_TIME_B:
         cb = random_cond(mc, model, b, T, seed + b)
         nb = ar_kernel.uniform_noise((b, T), g)
-        wk = ar_kernel.kernel_weights(pp, mc, "float32", 0, "cuda",
-                                      layout["cluster"])
-        ms = cuda_ms(lambda: ar_kernel.generate(wk, mc, cb, noise=nb,
-                                                **layout), 2)
+        wk = ar_kernel.kernel_weights(pp, mc, layout, "cuda")
+        ms = cuda_ms(lambda: ar_kernel.generate(wk, mc, cb, noise=nb), 2)
         bound_ms, bound_by = yardstick.ar_bound_ms(mcd, b, T)
         times.append({"B": b, "T": T, "ms": ms, "us_per_step": 1e3 * ms / T,
                       "bound_ms": bound_ms, "bound_by": bound_by})
@@ -3517,10 +3467,8 @@ def phase_sd_wide(smi: str, seed: int) -> dict:
          checks=checks, plain_ms=plain_ms, launches=launched,
          ring_bytes=rings,
          shared_rows=shared, global_rows=glob,
-         smem_bytes=ar_kernel.cluster_smem_bytes(
-             mc, "float32", layout["cluster"], False, wide=True),
-         clusters_at_once=ar_kernel.max_active_clusters(
-             mc, "float32", layout["cluster"], False, wide=True),
+         smem_bytes=ar_kernel.cluster_smem_bytes(mc, layout),
+         clusters_at_once=ar_kernel.clusters_at_once(mc, layout),
          times=times)
     for c in checks:
         require(c["ok"], f"sd_wide: {c}")

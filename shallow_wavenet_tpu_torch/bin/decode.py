@@ -8,18 +8,12 @@ models.wavenet.save_params_npz), upsamples the conditioning, generates each
 padded batch with a CUDA AR kernel in one launch, trims every utterance to
 n_frames * hop and writes wavs plus decode_summary.json (audio-seconds/s,
 RTF and the kernel layout that ran). There is no try-and-fall-back
-ladder: the layout is the first of KERNEL_LAYOUTS that fits the device,
-chosen from the kernels' own sizes and occupancy query before any launch;
-a failed launch raises. The cluster kernel (`csrc/ar_cluster.cu`, a
-cluster of N SMs per row, each reading 1/N of the weights) comes first,
-unfused and with --fused W, the fused window; the one-SM-per-row kernel
-(`csrc/ar_generate.cu`) is the fallback where no cluster fits the model,
-dtype and window. After the fp32 layouts of both, before any bf16 one,
-the cluster kernel's wide form (fp32, unfused) takes models that no other
-fp32 layout holds. Where no layout fits the fused window W at all,
---fused is dropped with a warning and the unfused layouts are tried, as
-the JAX tier ladder does (`decode_layout`); where none of those fits
-either, the decode raises.
+ladder: the layout is `ops.ar_kernel.choose_layout`'s for the model,
+--kernel-dtype, --fused and the device, chosen from the kernels' own sizes
+and occupancy query before any launch; a failed launch raises. Where no
+layout fits the fused window W at all, --fused is dropped with a warning
+and the unfused layouts are tried, as the JAX tier ladder does
+(`decode_layout`); where none of those fits either, the decode raises.
 
 `--f0-factor F` (world features only) moves the log-F0 conditioning by
 ln F on voiced frames before synthesis (`shift_f0`): pitch transposition
@@ -51,6 +45,7 @@ decode's with the same --seed.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
 import logging
@@ -101,137 +96,49 @@ def load_model_state(cfg: Config, workdir: str, device=None
                              trainer.params_tree(state.params))
     return model.to(trainer.device), step
 
-# The kernel layouts, in order: (dtype, streamed, chunk, cluster). Every
-# fp32 layout comes before any bf16 one, as in the JAX decode's tier order
-# (PALLAS_TIERS), so "auto" lowers the precision only where no fp32 layout
-# fits. Within a dtype, the cluster kernel first (cluster=True: its size N
-# is the model's, the fused window's and the card's,
-# `ar_kernel.cluster_size`; its rings are always resident), then the
-# one-SM-per-row kernel, where streaming moves
-# the rings of the layers whose dilation is a >1 multiple of the chunk from
-# shared to global memory. The fp32 layouts of one kernel give identical
-# samples. Last of the fp32 layouts, the cluster kernel's wide form
-# (cluster=WIDE: unfused; gate width up to 2048, the rings of the large
-# dilations in global memory, the weights streamed in tiles), for models
-# that no fp32 layout above holds (the speaker-dependent vocoder's R 512,
-# G 1024): after them, so that every model one of them fits keeps it.
-WIDE = "wide"
-KERNEL_LAYOUTS = (
-    ("float32", False, 64, True),
-    ("float32", False, 64, False),
-    ("float32", True, 64, False),
-    ("float32", True, 32, False),
-    ("float32", False, 64, WIDE),
-    ("bfloat16", False, 64, True),
-    ("bfloat16", False, 64, False),
-    ("bfloat16", True, 64, False),
-    ("bfloat16", True, 32, False),
-)
-
-
-class NoLayoutError(ValueError):
-    """No AR kernel layout of the asked dtype and window fits the device."""
-
-
-def kernel_layout(model_cfg, kernel_dtype: str = "auto", device=None,
-                  fused: int = 0, cluster: bool = True) -> dict:
-    """The first of KERNEL_LAYOUTS of `kernel_dtype` ("auto": any) that
-    fits the CUDA `device`: a cluster layout where the cluster kernel has a
-    size for this model, dtype, fused window W (fused > 0) and card
-    (`ar_kernel.cluster_size`: its block's shared memory and occupancy),
-    an `ar_generate` layout where its shared memory (`ar_smem_bytes`, for
-    the fused window when fused > 0) fits a block. On the CPU, where the
-    plain version has no such limits, the first of that dtype. A streamed
-    layout that streams no layer is the resident one and is skipped;
-    cluster=False skips the cluster layouts; the wide form, only on a
-    card, takes no fused window. Returns the generate() keywords {"dtype",
-    "stream", "chunk", "fused", "cluster"} (cluster: N, or 0 for
-    ar_generate), and "wide": True for the wide form. Raises NoLayoutError
-    (a ValueError) when none fits."""
-    dev = resolve_device(device)
-    if kernel_dtype not in ("auto", *ar_kernel.DTYPES):
-        raise ValueError(f"unknown kernel dtype {kernel_dtype!r}")
-    limit = ar_kernel.smem_limit(dev) if dev.type == "cuda" else None
-    for dtype, stream, chunk, clustered in KERNEL_LAYOUTS:
-        if kernel_dtype not in ("auto", dtype):
-            continue
-        if clustered == WIDE:
-            n = (ar_kernel.cluster_size(model_cfg, dtype, dev, 0, wide=True)
-                 if cluster and not fused and dev.type == "cuda" else 0)
-            if n:
-                return {"dtype": dtype, "stream": False, "chunk": chunk,
-                        "fused": 0, "cluster": n, "wide": True}
-            continue
-        if clustered:
-            n = (ar_kernel.cluster_size(model_cfg, dtype, dev, fused)
-                 if cluster else 0)
-            if n:
-                return {"dtype": dtype, "stream": False, "chunk": chunk,
-                        "fused": fused, "cluster": n}
-            continue
-        if stream and not ar_kernel.stream_split(model_cfg.dilations, chunk,
-                                                 True)[1]:
-            continue
-        if limit is None or ar_kernel.smem_bytes(
-                model_cfg, dtype, stream, chunk, fused) <= limit:
-            return {"dtype": dtype, "stream": stream, "chunk": chunk,
-                    "fused": fused, "cluster": 0}
-    raise NoLayoutError(f"no AR kernel layout of dtype {kernel_dtype!r} and "
-                        f"fused={fused} fits the shared memory of a block "
-                        f"on {dev}")
-
 
 def decode_layout(model_cfg, kernel_dtype: str = "auto", device=None,
-                  fused: int = 0) -> dict:
-    """The decode's layout: kernel_layout for the fused window W = fused;
-    where none fits W, --fused is dropped with a warning and the unfused
-    layout is taken, as the JAX tier ladder retries without --fused
-    (`_run_tier_ladder`). The choice is made from the kernels' byte counts
-    and occupancy query before any launch; it raises NoLayoutError where
-    no unfused layout fits either."""
+                  fused: int = 0) -> ar_kernel.Layout:
+    """The decode's layout: `ar_kernel.choose_layout` for the fused window
+    W = fused; where none fits W, --fused is dropped with a warning and
+    the unfused layout is taken, as the JAX tier ladder retries without
+    --fused (`_run_tier_ladder`). Raises NoLayoutError where no unfused
+    layout fits either."""
     try:
-        return kernel_layout(model_cfg, kernel_dtype, device, fused)
-    except NoLayoutError as e:
+        return ar_kernel.choose_layout(model_cfg, kernel_dtype, device, fused)
+    except ar_kernel.NoLayoutError as e:
         if not fused:
             raise
-        layout = kernel_layout(model_cfg, kernel_dtype, device, 0)
+        layout = ar_kernel.choose_layout(model_cfg, kernel_dtype, device, 0)
         log.warning("%s; --fused %d dropped: decoding on the unfused "
                     "layout %s", e, fused, layout)
         return layout
 
 
-def warn_waves(model_cfg, layout: dict, batch_size: int, device=None
-               ) -> int:
+def warn_waves(model_cfg, layout: ar_kernel.Layout, batch_size: int,
+               device=None) -> int:
     """Log a warning when a batch of `batch_size` rows is more than the
-    card holds clusters of the layout's size at once: the cluster kernel
-    then runs the batch in waves, and past a few waves the one-SM-per-row
-    kernel is faster (README). Returns the number of waves (1 off the
-    cluster kernel or the card)."""
-    n, dtype, dev = layout["cluster"], layout["dtype"], resolve_device(device)
-    if not n or dev.type != "cuda":
+    card holds clusters of the layout at once
+    (`ar_kernel.clusters_at_once`): the cluster kernel then runs the batch
+    in waves, and past a few waves the one-SM-per-row kernel is faster
+    (README). Returns the number of waves (1 off the cluster kernel or the
+    card)."""
+    at_once = ar_kernel.clusters_at_once(model_cfg, layout, device)
+    if not at_once:
         return 1
-    fused = layout["fused"]
-    if layout.get("wide"):
-        at_once = ar_kernel.max_active_clusters(model_cfg, dtype, n, False,
-                                                dev, fused, wide=True)
-    else:
-        at_once = ar_kernel.max_active_clusters(
-            model_cfg, dtype, n,
-            ar_kernel.cluster_resident(model_cfg, dtype, n, dev, fused),
-            dev, fused)
     waves = -(-batch_size // at_once)
     if waves > 1:
         log.warning("--batch-size %d is more than the %d clusters of %d "
                     "SMs the card holds at once: each batch runs in %d "
-                    "waves of the cluster kernel", batch_size, at_once, n,
-                    waves)
+                    "waves of the cluster kernel", batch_size, at_once,
+                    layout.cluster, waves)
     return waves
 
 
 @torch.no_grad()
 def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
                  generator=None, segment_samples: int = 0, device=None,
-                 layout: dict | None = None, devices=None):
+                 layout: ar_kernel.Layout | None = None, devices=None):
     """Generate one padded batch; returns the list of trimmed waveforms.
 
     noise: (B, T) uniforms for the padded batch, or None to draw them from
@@ -239,9 +146,9 @@ def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
     shift (the generator's step t uses c_up[t]). segment_samples > 0
     decodes in bounded kernel calls with teacher-forced warm-starts (same
     samples; `generate_segmented` checks the warm-start length). layout:
-    the kernel layout (`kernel_layout`), or None for
-    kernel_layout(cfg.model, "auto", device). devices: split the rows over
-    these devices (`--dp`): the conditioning is upsampled and the noise
+    the kernel layout, or None for `ar_kernel.choose_layout(cfg.model,
+    "auto", device)`. devices: split the rows over these devices
+    (`--dp`): the conditioning is upsampled and the noise
     drawn on `device` at the true batch shape, both padded to a multiple
     of the devices by repeating the last row, decoded by `generate_dp` and
     trimmed, so every row is the single call's.
@@ -254,7 +161,7 @@ def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
     with span("swt.decode.batch", id=next(_CALLS)):
         dev = resolve_device(device)
         if layout is None:
-            layout = kernel_layout(cfg.model, "auto", dev)
+            layout = ar_kernel.choose_layout(cfg.model, "auto", dev)
         with span("swt.decode.pad"):
             cond, _, n_samples = pad_batch_for_decode(utts,
                                                       cfg.data.hop_length)
@@ -278,16 +185,17 @@ def decode_batch(model: WaveNet, cfg: Config, utts, noise=None,
             c_up, noise = (torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
                            for x in (c_up, noise))
             wav = generate_dp(pp, cfg.model, c_up, noise, devices,
-                              **layout)[:B]
+                              layout=layout)[:B]
         elif segment_samples > 0:
             wav = generate_segmented(pp, cfg.model, c_up, noise,
-                                     segment_samples, device=dev, **layout)
+                                     segment_samples, device=dev,
+                                     layout=layout)
         else:
             # each row stops at its own length (the cluster kernel starts
             # the longest first), so a batch in waves ends sooner
             wav = ar_kernel.generate(pp, cfg.model, c_up, noise=noise,
-                                     device=dev, lengths=n_samples,
-                                     **layout)
+                                     device=dev, layout=layout,
+                                     dtype=layout.dtype, lengths=n_samples)
         with span("swt.decode.copy_back"):
             wav = wav.cpu().numpy()
             return [wav[i, : n_samples[i]] for i in range(len(utts))]
@@ -340,7 +248,7 @@ def decode_utterances(model: WaveNet, cfg: Config, utts, names, outdir,
         "audio_seconds": total_audio_s, "wall_seconds": total_wall,
         "rtf": total_wall / max(total_audio_s, 1e-9),
         "audio_seconds_per_s": total_audio_s / max(total_wall, 1e-9),
-        "kernel": layout,
+        "kernel": dataclasses.asdict(layout),
     }
     if devices:
         summary["dp_devices"] = [str(d) for d in devices]

@@ -12,14 +12,14 @@ weights), zero biases elsewhere, and the config's log-scale clip. Here the
 same recipe runs through the port's own CUDA kernels (`ops.ar_kernel`; one
 launch per call), unfused for W = 0 and the fused window otherwise, on
 random normal conditioning and uniforms, each W on the layout the decode
-would pick for it (`bin.decode.kernel_layout`): with --kernel cluster (the
+would pick for it (`ops.ar_kernel.choose_layout`): with --kernel cluster (the
 default) the cluster kernel at the size the decode picks for that W, or
 ar_generate where no cluster fits; with --kernel ar_generate the
 one-SM-per-row kernel alone (`cluster=False`; a preset whose resident
 rings do not fit runs streamed). Prints one JSON line per (B, W): mean us
 per sample step by CUDA events over --reps calls after one warm-up call,
 RTF at the preset's sample rate, the weights the kernel reads per step,
-the layout and the kernel variant (`ar_kernel.variant`). Needs CUDA.
+the layout and the kernel variant (`Layout.name`). Needs CUDA.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ import sys
 import numpy as np
 import torch
 
-from shallow_wavenet_tpu_torch.bin.decode import kernel_layout
 from shallow_wavenet_tpu_torch.config import get_config
 from shallow_wavenet_tpu_torch.ops import ar_kernel
 
@@ -96,12 +95,10 @@ def sweep(preset: str = "shallow_laplace_single", dtype: str = "float32",
     mc = dataclasses.replace(cfg.model, head="laplace")
     sr = cfg.data.sample_rate
     pp = recipe_params(mc, dev)
-    layouts = {W: kernel_layout(mc, dtype, dev, fused=W,
-                                cluster=kernel == "cluster")
-               for W in windows}
     # made once per W, so that a timed call is the kernel's launch alone
-    weights = {W: ar_kernel.kernel_weights(pp, mc, dtype, W, dev,
-                                           layouts[W]["cluster"])
+    weights = {W: ar_kernel.kernel_weights(
+        pp, mc, ar_kernel.choose_layout(mc, dtype, dev, fused=W,
+                                        cluster=kernel == "cluster"), dev)
                for W in windows}
     rng = np.random.default_rng(0)
     rows = []
@@ -113,7 +110,7 @@ def sweep(preset: str = "shallow_laplace_single", dtype: str = "float32",
         for W in windows:
             def call():
                 return ar_kernel.generate(weights[W], mc, c_up, noise=noise,
-                                          device=dev, **layouts[W])
+                                          device=dev)
 
             call()
             start, end = (torch.cuda.Event(enable_timing=True)
@@ -124,16 +121,12 @@ def sweep(preset: str = "shallow_laplace_single", dtype: str = "float32",
             end.record()
             torch.cuda.synchronize()
             us = 1e3 * start.elapsed_time(end) / reps / steps
-            lay = layouts[W]
-            n = lay["cluster"]
+            lay = weights[W].layout
             rows.append({"B": B, "W": W, "us_per_step": us,
                          "rtf": us * 1e-6 * sr,
                          "weights": weights_per_step(mc, W),
-                         "layout": lay,
-                         "variant": ar_kernel.variant(
-                             dtype, lay["stream"], W, n, bool(n) and
-                             ar_kernel.cluster_resident(mc, dtype, n, dev,
-                                                        W))})
+                         "layout": dataclasses.asdict(lay),
+                         "variant": lay.name})
     return rows
 
 

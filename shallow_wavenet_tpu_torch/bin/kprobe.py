@@ -37,6 +37,7 @@ the stage table is of that form) and the stage table
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -77,12 +78,13 @@ def _event_ms(fn) -> float:
 def sweep(preset: str = "shallow_laplace_single", dtype: str = "float32",
           batches=(1, 8, 32), steps: int = 2048, chunk: int = 128,
           only=None, reps: int = 3, device=None, outputs=None,
-          kernel: str = "generate", split=None, weights_l2=None):
+          kernel: str = "generate", split=None, weights_l2: bool = False):
     """Rows {"B", "ablate", "us_per_step", "saves_us", "weights_per_step"},
     or {"B", "ablate", "error"} for an ablation refused before launch, for
     every (B, ablation), on `kernel` (one of `ar_probe.KERNELS`; the
-    cluster kernel at `split` ranks, weights from L2 if `weights_l2`, each
-    as the decode picks it where None). outputs: a dict to fill with what
+    cluster kernel at `split` ranks, or the decode's size where None,
+    placed as the decode places it, `ar_kernel.choose_layout`, or its
+    weights from L2 with `weights_l2`). outputs: a dict to fill with what
     each B ran, {B: {"cond": ..., "noise": ..., ablate: samples of its
     first call}}, so that a caller can check the timed calls."""
     if kernel not in ar_probe.KERNELS:
@@ -104,15 +106,17 @@ def sweep(preset: str = "shallow_laplace_single", dtype: str = "float32",
         raise RuntimeError("kprobe times the CUDA kernel; it needs CUDA")
     cfg = get_config(preset).model
     w = {k: v.to(dev) for k, v in ar_probe.probe_weights(cfg, dtype).items()}
-    layout = {}
+    placed = {}
+    kw = {}
     if kernel == "cluster":
-        n, resident = ar_probe.cluster_layout(cfg, dtype, dev, split,
-                                              weights_l2)
-        layout = {"N": n, "weights": "shared memory" if resident else "L2"}
-        kw = dict(kernel=kernel, split=n, weights_l2=not resident,
-                  packed=ar_probe.cluster_weights(w, cfg, n, dev))
-    else:
-        kw = {}
+        layout = ar_kernel.choose_layout(
+            cfg, dtype, dev, cluster=True if split is None else split)
+        if weights_l2:
+            layout = dataclasses.replace(layout, resident=False)
+        placed = {"N": layout.cluster,
+                  "weights": "shared memory" if layout.resident else "L2"}
+        kw = dict(kernel=kernel, layout=layout,
+                  packed=ar_probe.cluster_weights(w, cfg, layout, dev))
     rng = np.random.default_rng(0)
     rows = []
     for B in batches:
@@ -139,7 +143,7 @@ def sweep(preset: str = "shallow_laplace_single", dtype: str = "float32",
                 / reps / steps
             if ab == "full":
                 base = us
-            rows.append({"B": B, "ablate": ab, **layout, "us_per_step": us,
+            rows.append({"B": B, "ablate": ab, **placed, "us_per_step": us,
                          "saves_us": None if base is None else base - us,
                          "weights_per_step": weights_per_step(cfg, ab,
                                                               chunk)})
@@ -158,20 +162,16 @@ def time_stages(pp, cfg, c_up, noise, dtype: str = "float32",
     dev = torch.device("cuda" if device is None else device)
     if dev.type != "cuda":
         raise RuntimeError("the timer runs on the card; it needs CUDA")
-    n = ar_kernel.cluster_size(cfg, dtype, dev, fused)
-    if not n:
-        raise ValueError(f"no cluster layout fits for dtype={dtype}, "
-                         f"fused={fused}")
-    w = ar_kernel.kernel_weights(pp, cfg, dtype, fused, dev, n)
+    layout = ar_kernel.choose_layout(cfg, dtype, dev, fused)
+    w = ar_kernel.kernel_weights(pp, cfg, layout, dev)
     args, out, timer, layout = ar_probe.timed_arguments(
-        w, cfg, c_up, noise, dtype, fused, n, None, dev)
-    resident = layout[2]
+        w, cfg, c_up, noise, layout, dev)
+    n, resident = layout.cluster, layout.resident
     B, T, _ = c_up.shape
 
     def run(kind):
         if kind == "untimed":
-            ar_kernel.launch_cluster(args, dev, dtype, n, resident, fused,
-                                     B)
+            ar_kernel.launch_cluster(args, dev, layout, B)
         else:
             ar_probe.launch_timed(args, timer, layout)
 
@@ -265,7 +265,7 @@ def main(argv=None) -> int:
         for row in sweep(args.preset, dt, batches, args.steps, args.chunk,
                          [a for a in args.only.split(",") if a], args.reps,
                          kernel=args.kernel, split=args.split,
-                         weights_l2=args.weights_l2 or None):
+                         weights_l2=args.weights_l2):
             print(json.dumps({**head, "dtype": dt, "chunk": args.chunk,
                               "kernel": args.kernel, **row}), flush=True)
     return 0

@@ -13,10 +13,11 @@ random normalized frames, and prints one JSON line: the root, the card's
 name and power limit, and the kernel's mean time per call and per step by
 CUDA events over --reps calls after one warm-up call. The layout timed is
 the fp32 one-SM-per-row kernel with resident rings, which every tree of the
-port has; --cluster N times the cluster kernel of N SMs per row instead
-(trees from the one that added it), and --cluster auto the size the decode
-picks. Compare two trees on one card in one session, in the order parent,
-change, change, parent.
+port has; --cluster N times the cluster kernel of N SMs per row instead,
+placed as the decode places it, and --cluster auto the decode's fp32
+layout (`ar_kernel.choose_layout`; both on trees that have it). Compare
+two trees on one card in one session, in the order parent, change,
+change, parent.
 """
 
 from __future__ import annotations
@@ -71,12 +72,12 @@ def main(argv=None) -> int:
         c_up = model.upsample_cond(cond)[:, :T].contiguous()
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     noise = ar_kernel.uniform_noise((B, T), g)
-    if args.cluster == "auto":
-        from shallow_wavenet_tpu_torch.bin.decode import kernel_layout
-        cluster = kernel_layout(mc, "float32")["cluster"]
-    else:
-        cluster = int(args.cluster)
-    kw = {"cluster": cluster} if cluster else {}
+    kw = {}
+    if args.cluster != "0":
+        kw["layout"] = ar_kernel.choose_layout(
+            mc, "float32", cluster=True if args.cluster == "auto"
+            else int(args.cluster))
+    cluster = kw["layout"].cluster if kw else 0
 
     def call():
         return ar_kernel.generate(pp, mc, c_up, noise=noise, **kw)

@@ -41,26 +41,26 @@ def generate_fast(pp: dict, cfg: ModelConfig, c_up, noise=None,
 
 
 def generate_segmented(pp: dict, cfg: ModelConfig, c_up, noise,
-                       seg_len: int, device=None, *, chunk: int = 64,
-                       dtype: str = "float32", stream: bool = False,
-                       fused: int = 0, cluster: int = 0, wide: bool = False):
+                       seg_len: int, device=None, *,
+                       layout: ar_kernel.Layout | None = None):
     """Generate (B, T) in kernel calls of at most seg_len output samples.
 
     Ring state is not carried between calls: each segment after the first
-    starts M = warmup_length(cfg, chunk) steps early, forcing those steps'
-    inputs from the previous segment's samples, which rebuilds every ring
-    exactly (layer l's horizon is the prefix sum of dilations < M). The
-    output is therefore identical to one unsegmented call. chunk, dtype,
-    stream, fused, cluster and wide pass to every kernel call; the kernel's
-    weights are made once (`ar_kernel.kernel_weights`) for all of them.
+    starts M = warmup_length(cfg, layout.chunk) steps early, forcing those
+    steps' inputs from the previous segment's samples, which rebuilds
+    every ring exactly (layer l's horizon is the prefix sum of dilations <
+    M). The output is therefore identical to one unsegmented call. Every
+    call runs `layout` (None: the weights' own, given KernelWeights, else
+    `ar_kernel.Layout()`); the kernel's weights are made once
+    (`ar_kernel.kernel_weights`) for all of them.
     """
     B, T, _ = c_up.shape
-    M = ar_kernel.warmup_length(cfg, chunk)
+    layout = ar_kernel.layout_of(pp, layout)
+    M = ar_kernel.warmup_length(cfg, layout.chunk)
     if seg_len <= M:
         raise ValueError(f"seg_len must exceed the warm-start length {M}")
-    pp = ar_kernel.kernel_weights(pp, cfg, dtype, fused, device, cluster)
-    kw = dict(device=device, chunk=chunk, dtype=dtype, stream=stream,
-              fused=fused, cluster=cluster, wide=wide)
+    pp = ar_kernel.kernel_weights(pp, cfg, layout, device)
+    kw = dict(device=device, layout=layout, dtype=layout.dtype)
     segs = []
     for s in range(0, T, seg_len):
         e = min(s + seg_len, T)
@@ -81,9 +81,8 @@ def generate_segmented(pp: dict, cfg: ModelConfig, c_up, noise,
 
 
 def generate_dp(pp: dict, cfg: ModelConfig, c_up, noise, devices=None, *,
-                mode: str = "sample", chunk: int = 64, dtype: str = "float32",
-                stream: bool = False, fused: int = 0, cluster: int = 0,
-                wide: bool = False):
+                mode: str = "sample",
+                layout: ar_kernel.Layout | None = None):
     """The rows of (B, T) generation split over `devices` (torch devices or
     their names; one may repeat; None: every visible CUDA device, raising
     without CUDA): shard i, rows [i B/n, (i+1) B/n), is one
@@ -95,11 +94,11 @@ def generate_dp(pp: dict, cfg: ModelConfig, c_up, noise, devices=None, *,
     the JAX `generate_dp` (shard_map over a ('data',) mesh).
 
     noise: (B, T) uniforms, required, so that the split cannot change
-    which uniform a row draws. B must be divisible by len(devices). The
-    layout keywords (chunk, dtype, stream, fused, cluster, wide) pass to every
-    call. A kernel's rows are independent of the batch, so each row
-    equals the single call's; on the CPU, the plain version's products
-    at another batch size may sum in another order."""
+    which uniform a row draws. B must be divisible by len(devices). Every
+    call runs `layout` (None: the weights' own, given KernelWeights, else
+    `ar_kernel.Layout()`). A kernel's rows are independent of the batch,
+    so each row equals the single call's; on the CPU, the plain version's
+    products at another batch size may sum in another order."""
     devices = [torch.device(d) for d in
                (dp_devices() if devices is None else devices)]
     B = c_up.shape[0]
@@ -108,16 +107,15 @@ def generate_dp(pp: dict, cfg: ModelConfig, c_up, noise, devices=None, *,
                          f"devices")
     if noise is None or tuple(noise.shape) != tuple(c_up.shape[:2]):
         raise ValueError("generate_dp needs (B, T) noise")
+    layout = ar_kernel.layout_of(pp, layout)
     per = B // len(devices)
     weights = {}
     outs = []
     for i, dev in enumerate(devices):
         if dev not in weights:
-            weights[dev] = ar_kernel.kernel_weights(pp, cfg, dtype, fused,
-                                                    dev, cluster)
+            weights[dev] = ar_kernel.kernel_weights(pp, cfg, layout, dev)
         rows = slice(i * per, (i + 1) * per)
         outs.append(ar_kernel.generate(
             weights[dev], cfg, c_up[rows].to(dev), noise=noise[rows].to(dev),
-            mode=mode, device=dev, chunk=chunk, dtype=dtype, stream=stream,
-            fused=fused, cluster=cluster, wide=wide))
+            mode=mode, device=dev, layout=layout, dtype=layout.dtype))
     return torch.cat([o.cpu() for o in outs])

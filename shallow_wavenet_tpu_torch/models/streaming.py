@@ -84,31 +84,32 @@ class StreamingSynthesizer:
 
     pp: plain params of `model` (models.wavenet.extract_plain_params), or
     the `KernelWeights` made from them for this dtype and fused window on
-    `device` (a pool makes them once for all its sessions; their cluster
-    size is then the session's); model: the torch WaveNet on `device` (its
+    `device` (a pool makes them once for all its sessions; their layout is
+    then the session's); model: the torch WaveNet on `device` (its
     upsampler runs per block).
-    block_frames * hop must be a multiple of `chunk` and at least M; larger
-    blocks amortize the M warm-up steps per call, smaller ones cut latency.
-    chunk, dtype, stream and fused pass to every kernel call (fused = W:
-    the fused window; not bit-exact against fused=0, but the stream still
-    equals one fused call). The session runs the kernel the decode picks
-    first: the cluster kernel at the model's, fused window's and card's
-    size (`ar_kernel.cluster_size`, `self.cluster`), unfused or fused; 0,
-    the one-SM-per-row kernel, where no cluster fits. record_noise: keep
-    every block's uniforms and conditioning rows, for `noise_so_far` and
+    block_frames * hop must be a multiple of `chunk` (a multiple of 32) and
+    at least M = warmup_length(cfg, chunk); larger blocks amortize the M
+    warm-up steps per call, smaller ones cut latency. Every kernel call
+    runs the layout the decode picks for `dtype` and the fused window
+    `fused` (`ar_kernel.choose_layout`, `self.layout`; fused = W: not
+    bit-exact against fused=0, but the stream still equals one fused
+    call). The cluster kernel's wide form is refused (ValueError): its
+    global ring is not yet made per launch here. record_noise: keep every
+    block's uniforms and conditioning rows, for `noise_so_far` and
     `cond_so_far` (they grow with the session). device: None means CUDA;
     "cpu" runs the plain version.
     """
 
     def __init__(self, pp: dict, model, cfg: ModelConfig, hop_length: int,
                  batch: int = 1, block_frames: int = 24, chunk: int = 64,
-                 dtype: str = "float32", stream: bool = False, speaker=None,
-                 seed: int = 0, record_noise: bool = False, fused: int = 0,
-                 device=None):
+                 dtype: str = "float32", speaker=None, seed: int = 0,
+                 record_noise: bool = False, fused: int = 0, device=None):
         self.model, self.cfg = model, cfg
         self.hop = int(hop_length)
         self.B = int(batch)
         self.block_frames = int(block_frames)
+        if chunk < 32 or chunk % 32 != 0:
+            raise ValueError("chunk must be a multiple of 32")
         if (self.block_frames * self.hop) % chunk != 0:
             raise ValueError(
                 f"block_frames * hop ({self.block_frames * self.hop}) must "
@@ -126,20 +127,22 @@ class StreamingSynthesizer:
                 f"upsampler halo ({self.halo})")
         self.dev = resolve_device(device)
         if isinstance(pp, ar_kernel.KernelWeights):
-            if (pp.dtype, pp.fused) != (dtype, int(fused)):
-                raise ValueError(f"kernel weights for dtype={pp.dtype!r}, "
-                                 f"fused={pp.fused}; the session asks for "
-                                 f"dtype={dtype!r}, fused={fused}")
-            self.cluster = pp.cluster
+            self.layout = pp.layout
+            if (self.layout.dtype, self.layout.fused) != (dtype, int(fused)):
+                raise ValueError(f"kernel weights for {self.layout}; the "
+                                 f"session asks for dtype={dtype!r}, "
+                                 f"fused={fused}")
         else:
-            self.cluster = ar_kernel.cluster_size(cfg, dtype, self.dev,
+            self.layout = ar_kernel.choose_layout(cfg, dtype, self.dev,
                                                   int(fused))
+        if self.layout.wide:
+            raise ValueError(f"{self.layout.name}: the session does not run "
+                             f"the cluster kernel's wide form yet")
         # the kernel's weights, made once for every block's call
-        self.weights = ar_kernel.kernel_weights(pp, cfg, dtype, int(fused),
-                                                self.dev, self.cluster)
+        self.weights = ar_kernel.kernel_weights(pp, cfg, self.layout,
+                                                self.dev)
         self.speaker = speaker
-        self._kw = dict(chunk=chunk, dtype=dtype, stream=stream,
-                        fused=int(fused), cluster=self.cluster,
+        self._kw = dict(layout=self.layout, dtype=self.layout.dtype,
                         device=self.dev)
         self._rng = np.random.default_rng(seed)
         self._frames = None          # (B, F_pending, aux) not yet upsampled
@@ -354,10 +357,10 @@ class StreamPool:
     - only members ride: a launch has as many rows as streams with a
       block ready, never filler rows, which would cost clusters and waves
       on the card. Past the clusters the card holds at once
-      (`ar_kernel.max_active_clusters`, `clusters_at_once`) a launch runs
+      (`ar_kernel.clusters_at_once`, `clusters_at_once`) a launch runs
       in waves: the pool warns once.
-    The kernel's rows do not depend on the batch (its cluster size is
-    fixed per model, dtype and card, never per batch), so every stream's
+    The kernel's rows do not depend on the batch (its layout is fixed per
+    model, dtype, window and card, never per batch), so every stream's
     samples equal, bit for bit, a standalone session's with the same seed
     fed the same frames. On the CPU that rests on the plain version's
     products giving a row the same bits at every batch size.
@@ -369,20 +372,22 @@ class StreamPool:
 
     def __init__(self, pp: dict, model, cfg: ModelConfig, hop_length: int,
                  slots: int = 8, block_frames: int = 24, chunk: int = 64,
-                 dtype: str = "float32", stream: bool = False,
-                 fused: int = 0, record_noise: bool = False, device=None):
+                 dtype: str = "float32", fused: int = 0,
+                 record_noise: bool = False, device=None):
         self.model, self.cfg = model, cfg
         self.S = int(slots)
         self.dev = resolve_device(device)
-        self.cluster = ar_kernel.cluster_size(cfg, dtype, self.dev,
+        self.layout = ar_kernel.choose_layout(cfg, dtype, self.dev,
                                               int(fused))
-        self.weights = ar_kernel.kernel_weights(pp, cfg, dtype, int(fused),
-                                                self.dev, self.cluster)
+        # every session runs the pool's layout, on the pool's weights
         self._session_kw = dict(
             hop_length=hop_length, batch=1, block_frames=block_frames,
-            chunk=chunk, dtype=dtype, stream=stream, fused=int(fused),
+            chunk=chunk, dtype=self.layout.dtype, fused=self.layout.fused,
             record_noise=record_noise, device=self.dev)
-        # a session checks the block geometry (chunk, M, halo) up front
+        self.weights = ar_kernel.kernel_weights(pp, cfg, self.layout,
+                                                self.dev)
+        # a session checks the block geometry (chunk, M, halo) and refuses
+        # a layout it cannot run up front
         probe = StreamingSynthesizer(self.weights, model, cfg,
                                      **self._session_kw)
         self.hop, self.M, self.halo = probe.hop, probe.M, probe.halo
@@ -453,12 +458,9 @@ class StreamPool:
     def clusters_at_once(self) -> int | None:
         """Rows the card runs at once on the pool's cluster layout (None
         off the card or off the cluster kernel)."""
-        if self._at_once is None and self.dev.type == "cuda" and self.cluster:
-            dtype, fused = self._kw["dtype"], self._kw["fused"]
-            self._at_once = ar_kernel.max_active_clusters(
-                self.cfg, dtype, self.cluster, ar_kernel.cluster_resident(
-                    self.cfg, dtype, self.cluster, self.dev, fused),
-                self.dev, fused)
+        if self._at_once is None:
+            self._at_once = ar_kernel.clusters_at_once(self.cfg, self.layout,
+                                                       self.dev)
         return self._at_once
 
     # ---- the batched cycle ----------------------------------------------
@@ -503,7 +505,7 @@ class StreamPool:
             log.warning("%d streams in one launch are more than the %d "
                         "clusters of %d SMs the card holds at once: the "
                         "launch runs in waves", len(members), at_once,
-                        self.cluster)
+                        self.layout.cluster)
             self._warned = True
         with span("swt.pool.launch", id=int(teacher is not None)):
             wav = ar_kernel.generate(

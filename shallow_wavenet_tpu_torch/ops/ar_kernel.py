@@ -1,27 +1,30 @@
 """Persistent AR generation: the wrappers around `csrc/ar_generate.cu` and
-`csrc/ar_cluster.cu` and their plain PyTorch version.
+`csrc/ar_cluster.cu`, their plain PyTorch version, and the one place that
+decides which of them runs (`Layout`, `choose_layout`).
 
 Same contract as `generate_pallas` in shallow_wavenet_tpu/ops/ar_kernel.py:
 c_up (B, T, C) fp32 and one uniform per (row, step) in, (B, T) fp32
 waveform out; Laplace or softmax head; "sample" or "greedy"; an optional
 teacher stream that forces the feedback input on every step, or on steps
-t < warmup only (the warm-start of segmented generation); `dtype`
-"float32" or "bfloat16" (bf16 weights and rings, fp32 accumulation and
-sampling); `stream` keeps the rings of the layers `stream_split` picks for
-`chunk` in global memory instead of shared memory; `fused` = W expands the
-residual recurrence into the gate inputs within blocks of W layers (the
-fused window, `fused_weights`); `cluster` = N runs the function, unfused or
-fused, on `ar_cluster.cu` instead, one thread-block cluster of N SMs per
-batch row, every product split along its input dimension over the N ranks
-(`cluster_partition`); with `wide`, its wide form (the gate width up to
-2048, the rings of the large dilations in a global ring, the weights
-streamed in tiles: for models whose rings and weights no other form
-holds). Softmax class ids are dequantized here, outside the
-kernel, with the same op on both versions. `lengths` gives each row its own
-number of steps (a padded decode batch): every version computes each row's
-samples within its length as the padded call does, to the bit, and returns
-0 past it; the cluster kernel stops each row there and launches the longest
-rows first (`cluster_order`), so a batch that runs in waves ends sooner.
+t < warmup only (the warm-start of segmented generation). How a call runs
+is its `Layout`: the precision (bf16 weights and rings, fp32 accumulation
+and sampling), the fused window (the residual recurrence expanded into the
+gate inputs within blocks of W layers, `fused_weights`), the kernel
+(`ar_cluster.cu`, one thread-block cluster of N SMs per batch row, every
+product split along its input dimension over the N ranks,
+`cluster_partition`, with its weights in shared memory or streamed from
+L2, or its wide form for models whose rings and weights no other form
+holds; else `ar_generate.cu`, one SM per row, with the rings of some
+layers streamed from global memory, `stream_split`). `choose_layout`
+picks it for a model, dtype, fused window and card, from the kernels' own
+byte counts and occupancy query, before any launch; `KernelWeights` carry
+the layout they were packed for. Softmax class ids are dequantized here,
+outside the kernel, with the same op on both versions. `lengths` gives
+each row its own number of steps (a padded decode batch): every version
+computes each row's samples within its length as the padded call does, to
+the bit, and returns 0 past it; the cluster kernel stops each row there
+and launches the longest rows first (`cluster_order`), so a batch that
+runs in waves ends sooner.
 
 On a CUDA tensor `generate` launches the kernel (one launch for the whole
 batch, or for each CLUSTER_MAX_ROWS rows of it on the cluster kernel; the
@@ -31,8 +34,8 @@ including its bf16 rounding points, with the same packed-ring recurrence
 (layer l owns ring rows [off_l, off_l + d_l), slot off_l + (t & (d_l - 1))).
 Where a ring is stored does not change the numbers, so the plain version
 keeps every ring in one tensor. `launches` counts kernel launches by
-variant, `row_steps` the steps the rows ran against the padded ones,
-`ring_bytes` where the launches' rings live.
+layout (`Layout.name`), `row_steps` the steps the rows ran against the
+padded ones, `ring_bytes` where the launches' rings live.
 
 How the weights reach the kernel: `kernel_weights` casts them (bf16) and,
 for the fused window, forms its weight products as fp32 matmuls, then
@@ -69,7 +72,7 @@ from shallow_wavenet_tpu_torch.ops import _build
 from shallow_wavenet_tpu_torch.ops.mulaw import mulaw_dequantize
 from shallow_wavenet_tpu_torch.utils.observability import span
 
-# kernel launches by variant (`variant`) since the last reset; callers
+# kernel launches by layout (`Layout.name`) since the last reset; callers
 # clear it to count a run
 launches: collections.Counter = collections.Counter()
 # rows' steps over `generate` calls since the last reset: "run", the steps
@@ -110,30 +113,99 @@ def stream_split(dilations, chunk: int, stream: bool):
     return res, strm
 
 
-def _streamed_mask(cfg: ModelConfig, chunk: int, stream: bool):
-    strm = stream_split(cfg.dilations, chunk, stream)[1]
+def _streamed_mask(cfg: ModelConfig, layout: Layout):
+    strm = stream_split(cfg.dilations, layout.chunk, layout.stream)[1]
     L = len(cfg.dilations)
     return (ctypes.c_int * L)(*(int(l in strm) for l in range(L)))
 
 
-def variant(dtype: str, streamed: bool, fused: int = 0, cluster: int = 0,
-            resident: bool = True, wide: bool = False) -> str:
-    """The kernel variant's name, as `launches` counts it: `ar_generate[...]`,
-    or with cluster = N `ar_cluster[...,N<N>]`, tagged `l2` where the
-    cluster kernel streams its weights from L2 a stage at a time
-    (`ar_cluster[fused4,N8,l2]`: the fused window W = 4 on clusters of 8)
-    and `wide` for its wide form (`ar_cluster[N16,wide]`)."""
-    if cluster:
-        tags = [t for t, on in (("bf16", dtype == "bfloat16"),
-                                (f"fused{fused}", fused > 0),
-                                (f"N{cluster}", True),
-                                ("l2", not resident and not wide),
-                                ("wide", wide)) if on]
-        return f"ar_cluster[{','.join(tags)}]"
-    tags = [t for t, on in (("bf16", dtype == "bfloat16"),
-                            ("stream", streamed),
-                            (f"fused{fused}", fused > 0)) if on]
-    return "ar_generate" + (f"[{','.join(tags)}]" if tags else "")
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Which AR kernel runs a call, in what precision, and where its weights
+    and rings sit; `Layout()` is the one-SM-per-row kernel in fp32,
+    unfused, its rings in shared memory. `choose_layout` picks one for a
+    model and card, and `KernelWeights` carry the one they were packed for.
+
+    dtype: "float32", or "bfloat16" for bf16 weights and rings.
+    fused: W > 0 runs the fused window over blocks of W layers: equal to
+    fused=0 in exact arithmetic, not to the bit (its sums run in another
+    order); 0 is the unfused form.
+    cluster: N > 0 launches `ar_cluster.cu` (clusters of N blocks, one per
+    row), equal to cluster=0 in exact arithmetic, not to the bit; on the
+    CPU, the plain version with split=N. 0 launches `ar_generate.cu`.
+    wide: the cluster kernel's wide form (fp32, unfused; gate width up to
+    2048; the rings of the large dilations in a zeroed global ring made
+    for each call, `swt.ar.rings`; the weights streamed from global memory
+    in tiles, so resident=False): the same samples as the streamed form,
+    to the bit, where both take the model. On the CPU nothing changes.
+    resident: the cluster kernel keeps its weights in shared memory; False
+    streams them from global memory (L2) a stage at a time. The samples
+    do not change.
+    stream, chunk: `ar_generate.cu` keeps the rings of the layers whose
+    dilation is a >1 multiple of `chunk` (a multiple of 32) in global
+    memory (`stream_split`); the samples do not change. chunk also sets
+    segmented generation's warm-up length (`warmup_length`).
+    Raises ValueError on a combination no kernel runs."""
+    dtype: str = "float32"
+    fused: int = 0
+    cluster: int = 0
+    wide: bool = False
+    resident: bool = True
+    stream: bool = False
+    chunk: int = 64
+
+    def __post_init__(self):
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
+                             f"{self.dtype!r}")
+        if self.fused < 0:
+            raise ValueError("fused must be >= 0 (0 disables the fused "
+                             "window)")
+        if self.cluster < 0:
+            raise ValueError("cluster must be >= 0 (0 runs ar_generate)")
+        if self.chunk < 32 or self.chunk % 32 != 0:
+            raise ValueError("chunk must be a multiple of 32")
+        if self.stream and self.cluster:
+            raise ValueError("stream is ar_generate's (cluster=0): the "
+                             "cluster kernel's rings are its own")
+        if not self.resident and not self.cluster:
+            raise ValueError("resident=False streams the cluster kernel's "
+                             "weights: it needs cluster=N")
+        if self.wide and (not self.cluster or self.dtype != "float32"
+                          or self.fused or self.resident):
+            raise ValueError("the wide form needs cluster=N, float32, no "
+                             "fused window and resident=False")
+
+    @property
+    def packing(self) -> tuple:
+        """What `kernel_weights` packs for, (dtype, fused, cluster): two
+        layouts alike in these run on the same weights."""
+        return self.dtype, self.fused, self.cluster
+
+    @property
+    def name(self) -> str:
+        """The kernel variant, as `launches` counts it: `ar_generate[...]`,
+        or with cluster = N `ar_cluster[...,N<N>]`, tagged `l2` where the
+        cluster kernel streams its weights from L2 a stage at a time
+        (`ar_cluster[fused4,N8,l2]`: the fused window W = 4 on clusters of
+        8) and `wide` for its wide form (`ar_cluster[N16,wide]`)."""
+        bf16 = self.dtype == "bfloat16"
+        if self.cluster:
+            tags = [t for t, on in (("bf16", bf16),
+                                    (f"fused{self.fused}", self.fused > 0),
+                                    (f"N{self.cluster}", True),
+                                    ("l2", not self.resident
+                                     and not self.wide),
+                                    ("wide", self.wide)) if on]
+            return f"ar_cluster[{','.join(tags)}]"
+        tags = [t for t, on in (("bf16", bf16), ("stream", self.stream),
+                                (f"fused{self.fused}", self.fused > 0))
+                if on]
+        return "ar_generate" + (f"[{','.join(tags)}]" if tags else "")
+
+
+class NoLayoutError(ValueError):
+    """No AR kernel layout of the asked dtype and window fits the device."""
 
 
 # cluster sizes the cluster kernel takes, largest first
@@ -335,43 +407,30 @@ def fm_layers(fm, cfg: ModelConfig, fused: int):
             for m, c in zip(fm.split([half * c for c in cols]), cols)]
 
 
-def _check_kind(dtype: str, fused: int, cluster: int = 0) -> None:
-    if fused < 0:
-        raise ValueError("fused must be >= 0 (0 disables the fused window)")
-    if cluster < 0:
-        raise ValueError("cluster must be >= 0 (0 runs ar_generate)")
-    if dtype not in DTYPES:
-        raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
-                         f"{dtype!r}")
-
-
 @dataclasses.dataclass(frozen=True)
 class KernelWeights:
-    """Plain params as the kernel reads them, for one dtype and fused
-    window, on one device (`kernel_weights`). A caller that makes many
-    calls with the same weights (the streaming session, segmented
-    generation) makes them once and passes them to `generate` in place of
-    the plain params."""
+    """Plain params as the kernel reads them, packed for one layout, on one
+    device (`kernel_weights`). A caller that makes many calls with the same
+    weights (the streaming session, segmented generation) makes them once
+    and passes them to `generate` in place of the plain params; the call
+    then runs their layout."""
     tensors: dict
-    dtype: str
-    fused: int
-    cluster: int = 0
+    layout: Layout
 
 
-def kernel_weights(pp, cfg: ModelConfig, dtype: str = "float32",
-                   fused: int = 0, device=None,
-                   cluster: int = 0) -> KernelWeights:
-    """The kernel's weights from plain params, on `device` (None: CUDA):
-    the input projection (or the softmax embedding) as in_w/in_b, with
-    fused = W the fused window's `fm` and folded conv_b in place of res_w,
-    skip_w and conv_b, with cluster = N also every rank's packed slices
-    (`pack_cluster`; `pack_cluster_fused` with the fused window), every
-    tensor cast to `dtype`. Given KernelWeights,
-    returns them."""
+def kernel_weights(pp, cfg: ModelConfig, layout: Layout = Layout(),
+                   device=None) -> KernelWeights:
+    """The kernel's weights for `layout` from plain params, on `device`
+    (None: CUDA): the input projection (or the softmax embedding) as
+    in_w/in_b, with the fused window W the window's `fm` and folded conv_b
+    in place of res_w, skip_w and conv_b, with cluster = N also every
+    rank's packed slices (`pack_cluster`; `pack_cluster_fused` with the
+    fused window), every tensor cast to the layout's dtype. Given
+    KernelWeights, returns them."""
     if isinstance(pp, KernelWeights):
         return pp
-    _check_kind(dtype, fused, cluster)
     dev = resolve_device(device)
+    fused, cluster = layout.fused, layout.cluster
     with span("swt.ar.pack"):
         w = {k: torch.as_tensor(v, dtype=torch.float32).to(dev)
              for k, v in pp.items()}
@@ -387,8 +446,16 @@ def kernel_weights(pp, cfg: ModelConfig, dtype: str = "float32",
             w.update(pack_cluster_fused(w, cfg, cluster, fused))
         elif cluster:
             w.update(pack_cluster(w, cfg, cluster))
-        return KernelWeights({k: v.to(DTYPES[dtype]).contiguous()
-                              for k, v in w.items()}, dtype, fused, cluster)
+        return KernelWeights({k: v.to(DTYPES[layout.dtype]).contiguous()
+                              for k, v in w.items()}, layout)
+
+
+def layout_of(pp, layout: Layout | None = None) -> Layout:
+    """The layout a call on `pp` runs: `layout`, else the weights' own
+    (given KernelWeights), else `Layout()`."""
+    if layout is not None:
+        return layout
+    return pp.layout if isinstance(pp, KernelWeights) else Layout()
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -442,10 +509,7 @@ def _zero_tails(out, lengths) -> None:
 
 
 def _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
-             unroll, dev, chunk, fused, dtype, cluster=0):
-    _check_kind(dtype, fused, cluster)
-    if chunk < 32 or chunk % 32 != 0:
-        raise ValueError("chunk must be a multiple of 32")
+             unroll, dev, layout):
     if mode not in ("sample", "greedy"):
         raise ValueError(f"mode must be 'sample' or 'greedy', got {mode!r}")
     if warmup < 0:
@@ -482,15 +546,13 @@ def _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
         teacher = stream_of(teacher, 0.0, "teacher")
         n_forced = T if warmup == 0 else min(warmup, T)
 
-    w = kernel_weights(pp, cfg, dtype, fused, dev, cluster)
-    if (w.dtype, w.fused, w.cluster) != (dtype, fused, cluster) or any(
+    w = kernel_weights(pp, cfg, layout, dev)
+    if w.layout.packing != layout.packing or any(
             v.device != c_up.device for v in w.tensors.values()):
         raise ValueError(
-            f"kernel weights are for dtype={w.dtype!r}, fused={w.fused}, "
-            f"cluster={w.cluster} on "
+            f"kernel weights are packed for {w.layout} on "
             f"{next(iter(w.tensors.values())).device}; the call asks for "
-            f"dtype={dtype!r}, fused={fused}, cluster={cluster} on "
-            f"{c_up.device}")
+            f"{layout} on {c_up.device}")
     return c_up, noise, teacher, n_forced, w.tensors
 
 
@@ -503,14 +565,12 @@ def _finish(cfg: ModelConfig, raw):
 def generate(pp, cfg: ModelConfig, c_up, noise=None,
              mode: str = "sample", teacher=None, warmup: int = 0,
              generator=None, unroll: int = 1, device=None, *,
-             chunk: int = 64, stream: bool = False, fused: int = 0,
-             dtype: str = "float32", cluster: int = 0,
-             weights_l2: bool = False, lengths=None, wide: bool = False):
+             layout: Layout | None = None, dtype: str | None = None,
+             lengths=None):
     """AR generation; returns (B, T) fp32 on `device`.
 
     pp: plain params (models.wavenet.extract_plain_params), or the
-    `KernelWeights` made from them for this call's dtype, fused window,
-    cluster and device (ValueError otherwise); c_up (B, T, C).
+    `KernelWeights` made from them on this device; c_up (B, T, C).
     noise: (B, <=T) uniforms in (0, 1), padded with 0.5; drawn from
     `generator` in [1e-7, 1 - 1e-7] when omitted (sample mode).
     teacher: optional (B, <=T) forced feedback stream (samples, or class ids
@@ -520,28 +580,13 @@ def generate(pp, cfg: ModelConfig, c_up, noise=None,
     loop has no unroll knob, and unrolling never changes the samples.
     device: None means "cuda" (raises without CUDA); "cpu" runs the plain
     version.
-    dtype: "float32", or "bfloat16" for bf16 weights and rings.
-    stream, chunk: keep the rings of the layers whose dilation is a >1
-    multiple of `chunk` (a multiple of 32) in global memory; the samples do
-    not change.
-    fused: W > 0 runs the fused window over blocks of W layers: equal to
-    fused=0 in exact arithmetic, not to the bit (its sums run in another
-    order); 0 is the unfused form.
-    cluster: N > 0 launches `ar_cluster.cu` (clusters of N blocks, one per
-    row, unfused or with the fused window; `stream` and `chunk` do not
-    apply: its rings are in shared memory, but in the wide form's global
-    ring), equal to cluster=0 in exact arithmetic,
-    not to the bit; on the CPU, the plain version with split=N. 0 launches
-    `ar_generate.cu`. A launch the cluster kernel refuses (cluster size,
-    fused window, shared memory, occupancy) raises.
-    weights_l2: with cluster = N, stream the weights from L2 even where
-    they fit in shared memory (`cluster_resident`), to time the two
-    placements; the samples do not change.
-    wide: with cluster = N, launch the cluster kernel's wide form (fp32,
-    unfused; gate width up to 2048; the rings of the large dilations in a
-    zeroed global ring made for the call, `swt.ar.rings`; the weights
-    streamed in tiles): the same samples as the streamed form, to the bit,
-    where both take the model. On the CPU nothing changes.
+    layout: the `Layout` to run; None runs the weights' own (given
+    KernelWeights) or `Layout()`. With KernelWeights it must be packed as
+    theirs (dtype, fused window, cluster size; ValueError otherwise), so a
+    timing caller may run one packing in both weight placements. A launch
+    the kernel refuses (cluster size, fused window, shared memory,
+    occupancy) raises.
+    dtype: None, or the layout's dtype (ValueError otherwise).
     lengths: None, or B host integers, the steps of each row, each in
     [1, T] and no fewer than the teacher-forced steps (ValueError
     otherwise): each row's samples within its length are the padded
@@ -552,26 +597,29 @@ def generate(pp, cfg: ModelConfig, c_up, noise=None,
     """
     with span("swt.ar.generate"):
         dev = resolve_device(device)
+        layout = layout_of(pp, layout)
+        # the benchmark's tracer reads the dtype from the call's keywords,
+        # so the decode mirrors the layout's here
+        if dtype is not None and dtype != layout.dtype:
+            raise ValueError(f"dtype={dtype!r} differs from the layout's "
+                             f"{layout.dtype!r}")
         args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup,
-                        generator, unroll, dev, chunk, fused, dtype, cluster)
+                        generator, unroll, dev, layout)
         B, T = args[0].shape[:2]
         if lengths is not None:
             lengths = row_lengths(lengths, B, T, args[3])
         with span("swt.ar.launch"):
-            if args[0].is_cuda and cluster:
-                raw = _launch_cluster(cfg, mode == "greedy", *args,
-                                      dtype=dtype, n=cluster,
-                                      weights_l2=weights_l2, fused=fused,
-                                      lengths=lengths, wide=wide)
+            if args[0].is_cuda and layout.cluster:
+                raw = _launch_cluster(cfg, mode == "greedy", *args, layout,
+                                      lengths=lengths)
             elif args[0].is_cuda:
-                raw = _launch(cfg, mode == "greedy", *args, dtype=dtype,
-                              streamed=_streamed_mask(cfg, chunk, stream),
-                              fused=fused)
+                raw = _launch(cfg, mode == "greedy", *args, layout)
                 if lengths is not None:
                     _zero_tails(raw, lengths)
             else:
-                raw = _plain(cfg, mode == "greedy", *args, fused=fused,
-                             split=cluster, lengths=lengths)
+                raw = _plain(cfg, mode == "greedy", *args,
+                             fused=layout.fused, split=layout.cluster,
+                             lengths=lengths)
         row_steps["run"] += sum(lengths) if lengths is not None else B * T
         row_steps["padded"] += B * T
         return _finish(cfg, raw)
@@ -580,12 +628,14 @@ def generate(pp, cfg: ModelConfig, c_up, noise=None,
 def generate_plain(pp, cfg: ModelConfig, c_up, noise=None,
                    mode: str = "sample", teacher=None, warmup: int = 0,
                    generator=None, unroll: int = 1, device=None, *,
-                   chunk: int = 64, stream: bool = False, fused: int = 0,
-                   dtype: str = "float32", chain: bool = False,
-                   split: int = 0, graph: bool = False, lengths=None):
+                   fused: int = 0, dtype: str = "float32",
+                   chain: bool = False, split: int = 0, graph: bool = False,
+                   lengths=None):
     """The plain PyTorch version of `generate`, on any device: one Python
-    step per sample, the kernel's arithmetic in torch ops. Where the
-    rings are stored (`stream`, `chunk`) changes nothing here.
+    step per sample, the kernel's arithmetic in torch ops, for `dtype` and
+    the fused window `fused` (the layout's fields that change its numbers;
+    where the rings and weights are stored changes nothing here). pp: plain
+    params, or KernelWeights packed for them without a cluster.
 
     graph: on a CUDA device, capture one step in a CUDA graph and replay it
     once per sample, instead of dispatching its torch ops from Python each
@@ -621,7 +671,7 @@ def generate_plain(pp, cfg: ModelConfig, c_up, noise=None,
     """
     dev = resolve_device(device)
     args = _prepare(pp, cfg, c_up, noise, mode, teacher, warmup, generator,
-                    unroll, dev, chunk, fused, dtype)
+                    unroll, dev, Layout(dtype, fused))
     if graph and dev.type != "cuda":
         raise ValueError("graph replay needs a CUDA device")
     if lengths is not None:
@@ -868,49 +918,42 @@ def _refusal(lib, err: int) -> ValueError:
                       + lib.ar_error_string(err).decode())
 
 
-def smem_bytes(cfg: ModelConfig, dtype: str = "float32",
-               stream: bool = False, chunk: int = 64, fused: int = 0) -> int:
-    """Shared memory one block of the CUDA kernel needs for this layout,
-    from the kernel's own layout function (builds the kernel's library)."""
+def smem_bytes(cfg: ModelConfig, layout: Layout = Layout()) -> int:
+    """Shared memory one block of `ar_generate.cu` needs for this layout
+    (cluster=0), from the kernel's own layout function (builds the kernel's
+    library)."""
     lib = _lib()
     dil = (ctypes.c_int * len(cfg.dilations))(*cfg.dilations)
-    O = cfg.quantize_channels if cfg.head == "softmax" else 2
-    n = lib.ar_smem_bytes(dil, _streamed_mask(cfg, chunk, stream),
+    n = lib.ar_smem_bytes(dil, _streamed_mask(cfg, layout),
                           len(cfg.dilations), cfg.residual_channels,
                           cfg.gate_channels, cfg.skip_channels,
-                          cfg.cond_channels, O, int(dtype == "bfloat16"),
-                          fused)
+                          cfg.cond_channels, _head_width(cfg),
+                          int(layout.dtype == "bfloat16"), layout.fused)
     if n < 0:
         raise _refusal(lib, n)
     return n
 
 
 def smem_limit(device) -> int:
-    """The CUDA device's shared memory per block (opt-in maximum)."""
-    lib = _lib()
-    limit = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = lib.ar_smem_limit(ctypes.byref(limit))
-    if err != 0:
-        raise RuntimeError("ar_smem_limit failed: "
-                           + lib.ar_error_string(err).decode())
-    return limit.value
+    """The CUDA device's shared memory per block (opt-in maximum), as the
+    kernels' own `ar_smem_limit` reads it (232,448 B on an H100)."""
+    return torch.cuda.get_device_properties(
+        resolve_device(device)).shared_memory_per_block_optin
 
 
-def _launch(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
-            streamed, fused):
+def _launch(cfg, greedy, c_up, noise, teacher, n_forced, w, layout):
     lib = _lib()
     B, T, C = c_up.shape
     R = cfg.residual_channels
     out = torch.empty((B, T), dtype=torch.float32, device=c_up.device)
     L = len(cfg.dilations)
     dil = (ctypes.c_int * L)(*cfg.dilations)
+    streamed = _streamed_mask(cfg, layout)
     strm_rows = sum(d for d, s in zip(cfg.dilations, streamed) if s)
     # zeroed, so that steps t < d read zeros from a streamed ring
-    strm_ring = (torch.zeros((B, strm_rows, R), dtype=DTYPES[dtype],
+    strm_ring = (torch.zeros((B, strm_rows, R), dtype=DTYPES[layout.dtype],
                              device=c_up.device) if strm_rows else None)
     softmax = cfg.head == "softmax"
-    O = cfg.quantize_channels if softmax else 2
 
     def ptr(k):
         return w[k].data_ptr() if k in w else None
@@ -925,15 +968,17 @@ def _launch(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
                 "head2_w", "head2_b", "fm")),
             None if strm_ring is None else strm_ring.data_ptr(),
             dil, streamed, B, T, L, R, cfg.gate_channels, cfg.skip_channels,
-            C, cfg.quantize_channels, O, int(softmax), int(greedy), n_forced,
-            int(dtype == "bfloat16"), fused, cfg.log_b_min, cfg.log_b_max,
+            C, cfg.quantize_channels, _head_width(cfg), int(softmax),
+            int(greedy), n_forced, int(layout.dtype == "bfloat16"),
+            layout.fused, cfg.log_b_min, cfg.log_b_max,
             torch.cuda.current_stream().cuda_stream)
     if err < 0:
         raise _refusal(lib, err)
     if err != 0:
         raise RuntimeError("ar_generate launch failed: "
                            + lib.ar_error_string(err).decode())
-    launches[variant(dtype, strm_rows > 0, fused)] += 1
+    # a streamed layout that streams no layer runs (and counts) resident
+    launches[dataclasses.replace(layout, stream=strm_rows > 0).name] += 1
     return out
 
 
@@ -969,81 +1014,65 @@ def _cluster_refusal(lib, err: int) -> ValueError:
 _STREAMED, _RESIDENT, _WIDE = 0, 1, 2
 
 
-def _form(resident: bool, wide: bool) -> int:
-    return _WIDE if wide else _RESIDENT if resident else _STREAMED
-
-
-def _cluster_shape(cfg: ModelConfig, n: int, dtype: str, resident: bool,
-                   fused: int, wide: bool = False):
+def _cluster_shape(cfg: ModelConfig, layout: Layout):
     L = len(cfg.dilations)
+    form = (_WIDE if layout.wide else _RESIDENT if layout.resident
+            else _STREAMED)
     return ((ctypes.c_int * L)(*cfg.dilations), L, cfg.residual_channels,
             cfg.gate_channels, cfg.skip_channels, cfg.cond_channels,
-            _head_width(cfg), n, int(dtype == "bfloat16"),
-            _form(resident, wide), fused)
+            _head_width(cfg), layout.cluster,
+            int(layout.dtype == "bfloat16"), form, layout.fused)
 
 
-def cluster_smem_bytes(cfg: ModelConfig, dtype: str, n: int,
-                       resident: bool, fused: int = 0,
-                       wide: bool = False) -> int:
-    """Shared memory one block of the cluster kernel needs, with its weights
-    resident in shared memory or streamed from L2, unfused or with the
-    fused window W = fused, or in the wide form (`wide`; `resident` then
-    does not apply), from the kernel's own layout function (builds the
-    kernel's library). Raises ValueError on a shape the kernel refuses."""
+def cluster_smem_bytes(cfg: ModelConfig, layout: Layout) -> int:
+    """Shared memory one block of the cluster kernel needs in this layout
+    (cluster=N), from the kernel's own layout function (builds the kernel's
+    library). Raises ValueError on a shape the kernel refuses."""
     lib = _cluster_lib()
-    b = lib.ar_cluster_smem_bytes(*_cluster_shape(cfg, n, dtype, resident,
-                                                  fused, wide))
+    b = lib.ar_cluster_smem_bytes(*_cluster_shape(cfg, layout))
     if b < 0:
         raise _cluster_refusal(lib, b)
     return b
 
 
-def cluster_rings(cfg: ModelConfig, n: int, dtype: str,
-                  wide: bool = False) -> tuple[int, int]:
+def cluster_rings(cfg: ModelConfig, layout: Layout) -> tuple[int, int]:
     """(ring rows one batch row keeps in the cluster's shared memory, ring
-    rows it keeps in the wide form's global ring), from the kernel's own
-    rule (builds its library for the wide form): every row in shared
-    memory but in the wide form, which keeps only its small dilations'
-    there (`pack_rings_wide`). Raises ValueError on a shape the kernel
-    refuses."""
-    if not wide:
+    rows it keeps in the wide form's global ring) in this layout
+    (cluster=N), from the kernel's own rule (builds its library for the
+    wide form): every row in shared memory but in the wide form, which
+    keeps only its small dilations' there (`pack_rings_wide`). Raises
+    ValueError on a shape the kernel refuses."""
+    if not layout.wide:
         return sum(cfg.dilations), 0
     lib = _cluster_lib()
     rows, grows = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.ar_cluster_rings(*_cluster_shape(cfg, n, dtype, False, 0,
-                                               wide)[:-1],
+    err = lib.ar_cluster_rings(*_cluster_shape(cfg, layout)[:-1],
                                ctypes.byref(rows), ctypes.byref(grows))
     if err < 0:
         raise _cluster_refusal(lib, err)
     return rows.value, grows.value
 
 
-def max_active_clusters(cfg: ModelConfig, dtype: str, n: int,
-                        resident: bool, device=None, fused: int = 0,
-                        wide: bool = False) -> int:
-    """cudaOccupancyMaxActiveClusters for clusters of n blocks of this
-    layout on the CUDA `device`: the rows the card runs at once."""
+def clusters_at_once(cfg: ModelConfig, layout: Layout, device=None
+                     ) -> int | None:
+    """The rows the card runs at once in this layout: its clusters that fit
+    the CUDA `device` together (cudaOccupancyMaxActiveClusters), so that a
+    batch of more rows runs in waves; None off the card or off the cluster
+    kernel."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or not layout.cluster:
+        return None
     lib = _cluster_lib()
     count = ctypes.c_int(0)
-    with torch.cuda.device(resolve_device(device)):
-        err = lib.ar_cluster_max_active(
-            *_cluster_shape(cfg, n, dtype, resident, fused, wide),
-            ctypes.byref(count))
+    with torch.cuda.device(dev):
+        err = lib.ar_cluster_max_active(*_cluster_shape(cfg, layout),
+                                        ctypes.byref(count))
     if err < 0:
         raise _cluster_refusal(lib, err)
     if err:
         raise RuntimeError("cudaOccupancyMaxActiveClusters failed: "
                            + lib.ar_cluster_error_string(err).decode())
     return count.value
-
-
-def cluster_resident(cfg: ModelConfig, dtype: str, n: int, device,
-                     fused: int = 0) -> bool:
-    """Whether the cluster kernel keeps its weights in shared memory (they
-    fit a block beside the ring slice and scratch) or streams them from
-    L2, on the CUDA `device`."""
-    return cluster_smem_bytes(cfg, dtype, n, True, fused) <= smem_limit(
-        device)
 
 
 # A cluster size fills the card when its clusters, all resident at once,
@@ -1057,69 +1086,107 @@ def cluster_resident(cfg: ModelConfig, dtype: str, n: int, device,
 FILL_SHARE = 0.9
 
 
-def cluster_size(cfg: ModelConfig, dtype: str, device=None,
-                 fused: int = 0, wide: bool = False) -> int:
-    """The cluster size for this model, dtype and fused window (0:
-    unfused) on `device`, never from the batch. Of `cluster_sizes(cfg)`
+def _cluster_layout(cfg: ModelConfig, dtype: str, dev, fused: int, sizes,
+                    wide: bool = False) -> Layout | None:
+    """The cluster layout of `sizes` (largest first) for this dtype and
+    fused window on `dev`, never from the batch, or None. Of the sizes
     whose block fits the card's shared memory (weights resident, else
     streamed from L2) with at least one cluster resident (the kernel's own
-    byte counts and occupancy query, for this window): the largest that
-    fills the card (N x max active clusters >= FILL_SHARE x SMs), so that a
-    batch as large as the card's clusters leaves no SM idle; else the
-    largest that fits. With `wide`, of the wide form (unfused), simply the
-    largest that fits: each SM there streams 1/N of weights that stay off
-    the chip, so the larger N, the fewer bytes each SM pulls a step. On
-    the CPU, the largest that divides the widths. 0 when none does."""
-    dev = resolve_device(device)
+    byte counts and occupancy query): the largest that fills the card (N x
+    clusters at once >= FILL_SHARE x SMs), so that a batch as large as the
+    card's clusters leaves no SM idle; else the largest that fits. With
+    `wide`, of the wide form, simply the largest that fits: each SM there
+    streams 1/N of weights that stay off the chip, so the larger N, the
+    fewer bytes each SM pulls a step. On the CPU, the largest (never the
+    wide form)."""
     if dev.type != "cuda":
-        sizes = cluster_sizes(cfg)
-        return sizes[0] if sizes else 0
+        return Layout(dtype, fused, sizes[0]) if sizes and not wide else None
     limit, fits = smem_limit(dev), []
-    if wide:
-        for n in cluster_sizes(cfg):
-            try:
-                if cluster_smem_bytes(cfg, dtype, n, False, fused,
-                                      wide=True) > limit:
-                    continue
-            except ValueError:   # a shape the wide form cannot take
-                continue
-            if max_active_clusters(cfg, dtype, n, False, dev, fused,
-                                   wide=True) >= 1:
-                return n
-        return 0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for n in cluster_sizes(cfg):
+    for n in sizes:
         try:
-            resident = cluster_smem_bytes(cfg, dtype, n, True, fused) <= limit
-            if not resident and cluster_smem_bytes(cfg, dtype, n, False,
-                                                   fused) > limit:
-                continue
-        except ValueError:   # a fused window the kernel cannot hold
+            lay = Layout(dtype, fused, n, wide=wide, resident=not wide)
+            if cluster_smem_bytes(cfg, lay) > limit:
+                if wide:
+                    continue
+                lay = dataclasses.replace(lay, resident=False)
+                if cluster_smem_bytes(cfg, lay) > limit:
+                    continue
+        except ValueError:   # a shape or fused window the kernel refuses
             continue
-        active = max_active_clusters(cfg, dtype, n, resident, dev, fused)
+        active = clusters_at_once(cfg, lay, dev)
         if active >= 1:
-            fits.append(n)
-            if n * active >= FILL_SHARE * sms:
-                return n
-    return fits[0] if fits else 0
+            fits.append(lay)
+            if wide or n * active >= FILL_SHARE * sms:
+                return lay
+    return fits[0] if fits else None
+
+
+def choose_layout(cfg: ModelConfig, dtype: str = "auto", device=None,
+                  fused: int = 0, cluster=True) -> Layout:
+    """The layout that runs this model on `device`, of `dtype` ("auto":
+    any) and the fused window W = fused: the first that fits of this
+    ladder, every fp32 layout before any bf16 one, as in the JAX decode's
+    tier order (PALLAS_TIERS), so "auto" lowers the precision only where
+    no fp32 layout fits. Within a dtype: the cluster kernel at the size
+    the model, window and card take (`_cluster_layout`; its weights in
+    shared memory where they fit a block, else from L2); then
+    `ar_generate.cu` where its block's shared memory (`smem_bytes`) fits,
+    its rings resident, then streamed at chunk 64 and at 32 (a streamed
+    layout that streams no layer is the resident one and is skipped; the
+    library is built only when one of these is weighed); last of the fp32
+    layouts, on a card and unfused, the cluster kernel's wide form, for
+    models that no fp32 layout above holds (the speaker-dependent
+    vocoder's R 512, G 1024), so that every model one of them fits keeps
+    it. The layouts of one kernel and dtype give identical samples.
+    On the CPU, where the plain version has no such limits, the first of
+    the dtype. cluster: True weighs every cluster size, False none, N
+    only N (and then no `ar_generate.cu` layout). Decided before any
+    launch, never from the batch. Raises NoLayoutError (a ValueError) when
+    none fits."""
+    dev = resolve_device(device)
+    if dtype not in ("auto", *DTYPES):
+        raise ValueError(f"unknown kernel dtype {dtype!r}")
+    sizes = (cluster_sizes(cfg) if cluster is True else
+             tuple(n for n in cluster_sizes(cfg) if n == cluster))
+    # ar_generate's (stream, chunk), but where the caller asked for one N
+    rungs = (((False, 64), (True, 64), (True, 32))
+             if cluster is True or not cluster else ())
+    for dt in DTYPES if dtype == "auto" else (dtype,):
+        lay = _cluster_layout(cfg, dt, dev, fused, sizes)
+        if lay:
+            return lay
+        for stream, chunk in rungs:
+            lay = Layout(dt, fused, stream=stream, chunk=chunk)
+            if stream and not stream_split(cfg.dilations, chunk, True)[1]:
+                continue
+            if dev.type != "cuda" or smem_bytes(cfg, lay) <= smem_limit(dev):
+                return lay
+        if dt == "float32" and not fused:
+            lay = _cluster_layout(cfg, dt, dev, 0, sizes, wide=True)
+            if lay:
+                return lay
+    raise NoLayoutError(f"no AR kernel layout of dtype {dtype!r} and "
+                        f"fused={fused} fits the shared memory of a block "
+                        f"on {dev}")
 
 
 def cluster_arguments(cfg, greedy, c_up, noise, teacher, n_forced, w,
-                      dtype, n, resident, fused, log_b=None, lengths=None,
-                      wide=False):
-    """The cluster kernel's C arguments for one call, its global ring and
-    stream aside (as `ar_cluster_generate` takes them; the probe's entry
-    takes the same), and the (B, T) output they write into. `w`: the
-    kernel's tensors for (dtype, fused, n); log_b: the Laplace clip
-    (default the config's); lengths: None for T steps of every row in row
-    order, or `row_lengths`' list: the rows then run in `cluster_order`,
-    and the output is zeroed first (a row is not written past its length);
-    wide: the wide form (`resident` does not apply).
+                      layout: Layout, log_b=None, lengths=None):
+    """The cluster kernel's C arguments for one call in `layout`
+    (cluster=N), its global ring and stream aside (as `ar_cluster_generate`
+    takes them; the probe's entry takes the same), and the (B, T) output
+    they write into. `w`: the kernel's tensors packed for the layout;
+    log_b: the Laplace clip (default the config's); lengths: None for T
+    steps of every row in row order, or `row_lengths`' list: the rows then
+    run in `cluster_order`, and the output is zeroed first (a row is not
+    written past its length).
     Raises ValueError where the packed stages are not the kernel's."""
     lib = _cluster_lib()
     B, T, C = c_up.shape
     L = len(cfg.dilations)
     O = _head_width(cfg)
+    n, fused = layout.cluster, layout.fused
     if fused:
         ours = cluster_fused_stages(cfg, n, fused)
         off, lens = ((ctypes.c_int * len(ours))() for _ in range(2))
@@ -1140,7 +1207,7 @@ def cluster_arguments(cfg, greedy, c_up, noise, teacher, n_forced, w,
                          f"kernel's {want}")
     out = (torch.empty if lengths is None else torch.zeros)(
         (B, T), dtype=torch.float32, device=c_up.device)
-    softmax = cfg.head == "softmax"
+    shape = _cluster_shape(cfg, layout)
     args = (c_up.data_ptr(), noise.data_ptr(),
             None if teacher is None else teacher.data_ptr(), out.data_ptr(),
             *((None, None) if lengths is None else
@@ -1149,22 +1216,20 @@ def cluster_arguments(cfg, greedy, c_up, noise, teacher, n_forced, w,
             *(w[k].data_ptr() for k in (
                 "in_w", "in_b", "conv_b", "res_b", "skip_b", "head1_b",
                 "head2_b", "cluster_stages")),
-            (ctypes.c_int * L)(*cfg.dilations), B, T, L,
-            cfg.residual_channels, cfg.gate_channels, cfg.skip_channels, C,
-            cfg.quantize_channels, O, n, int(softmax), int(greedy),
-            n_forced, int(dtype == "bfloat16"), _form(resident, wide), fused,
+            shape[0], B, T, L, cfg.residual_channels, cfg.gate_channels,
+            cfg.skip_channels, C, cfg.quantize_channels, O, n,
+            int(cfg.head == "softmax"), int(greedy), n_forced, *shape[-3:],
             *(log_b or (cfg.log_b_min, cfg.log_b_max)))
     return args, out
 
 
-def launch_cluster(args, device, dtype: str, n: int, resident: bool,
-                   fused: int, rows: int, ring=None,
-                   wide: bool = False) -> None:
-    """One call of the cluster kernel on `cluster_arguments`' args (its
-    output is theirs) for a batch of `rows` rows, its launches (one per
-    CLUSTER_MAX_ROWS rows) counted in `launches`; ring: the wide form's
-    zeroed global ring, (rows, global ring rows, R) (`cluster_rings`), or
-    None; raises on a refusal or a failed launch."""
+def launch_cluster(args, device, layout: Layout, rows: int,
+                   ring=None) -> None:
+    """One call of the cluster kernel in `layout` on `cluster_arguments`'
+    args (its output is theirs) for a batch of `rows` rows, its launches
+    (one per CLUSTER_MAX_ROWS rows) counted in `launches`; ring: the wide
+    form's zeroed global ring, (rows, global ring rows, R)
+    (`cluster_rings`), or None; raises on a refusal or a failed launch."""
     lib = _cluster_lib()
     with torch.cuda.device(device):
         err = lib.ar_cluster_generate(
@@ -1175,29 +1240,25 @@ def launch_cluster(args, device, dtype: str, n: int, resident: bool,
     if err != 0:
         raise RuntimeError("ar_cluster launch failed: "
                            + lib.ar_cluster_error_string(err).decode())
-    launches[variant(dtype, False, fused, n, resident, wide)] += \
-        -(-rows // CLUSTER_MAX_ROWS)
+    launches[layout.name] += -(-rows // CLUSTER_MAX_ROWS)
 
 
-def _launch_cluster(cfg, greedy, c_up, noise, teacher, n_forced, w, dtype,
-                    n, weights_l2, fused, lengths=None, wide=False):
-    resident = (not wide and not weights_l2
-                and cluster_resident(cfg, dtype, n, c_up.device, fused))
+def _launch_cluster(cfg, greedy, c_up, noise, teacher, n_forced, w, layout,
+                    lengths=None):
     args, out = cluster_arguments(cfg, greedy, c_up, noise, teacher,
-                                  n_forced, w, dtype, n, resident, fused,
-                                  lengths=lengths, wide=wide)
+                                  n_forced, w, layout, lengths=lengths)
     B = c_up.shape[0]
-    shared_rows, global_rows = cluster_rings(cfg, n, dtype, wide)
+    shared_rows, global_rows = cluster_rings(cfg, layout)
     ring = None
-    if wide:
+    if layout.wide:
         # the wide form's global ring: zeros, so that a layer's steps
         # t < d read zeros, as from a fresh shared ring
         with span("swt.ar.rings"):
             ring = torch.zeros((B, global_rows, cfg.residual_channels),
-                               dtype=DTYPES[dtype], device=c_up.device)
-    launch_cluster(args, c_up.device, dtype, n, resident, fused, B,
-                   ring=ring, wide=wide)
-    row_bytes = B * cfg.residual_channels * DTYPES[dtype].itemsize
+                               dtype=DTYPES[layout.dtype],
+                               device=c_up.device)
+    launch_cluster(args, c_up.device, layout, B, ring=ring)
+    row_bytes = B * cfg.residual_channels * DTYPES[layout.dtype].itemsize
     ring_bytes["shared"] += shared_rows * row_bytes
     ring_bytes["global"] += global_rows * row_bytes
     return out

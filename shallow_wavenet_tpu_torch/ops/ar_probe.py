@@ -18,8 +18,9 @@ ar_generate.cu's body (one SM per row), and "cluster", the production
 source `csrc/ar_cluster.cu` built with its ablations and timer as template
 parameters into the library `ar_cluster_probe`: clusters of `split` = N
 SMs per row, the weights packed by `ar_kernel.pack_cluster` and placed as
-the decode places them (`ar_kernel.cluster_size`, `cluster_resident`;
-callers may pass both). The cluster kernel takes `CLUSTER_ABLATIONS`:
+the decode places them (`ar_kernel.choose_layout`; callers may pass an
+`ar_kernel.Layout` of the unfused form). The cluster kernel takes
+`CLUSTER_ABLATIONS`:
 ABLATIONS without split2 (two rows per cluster would change the
 production layout), plus its own `local_exchange` (every exchange into
 the sender's own buffer; each owned column sums only the owner's own
@@ -49,7 +50,8 @@ entries refuse the same, and a config whose resident rings do not fit
 one block's shared memory.
 
 The timer (`timed_generate`): the cluster kernel's production instance
-with a clock read at each stage boundary, at any of the decode's layouts;
+with a clock read at each stage boundary, at any of the decode's cluster
+layouts but the wide form;
 `stage_times` turns its (B, N, 12) cycle counts into us per step per
 stage kind. It is the production step in one respect older: cluster k
 runs row k for T steps, where the production instance reads each
@@ -275,61 +277,56 @@ def _dtype_of(weights: dict) -> str:
                 if v == weights["conv_w"].dtype)
 
 
-def cluster_layout(cfg: ModelConfig, dtype: str, device=None, split=None,
-                   weights_l2=None) -> tuple[int, bool]:
-    """(N, weights resident in shared memory) of the cluster probe: as the
-    decode picks them (`ar_kernel.cluster_size`, `cluster_resident`) where
-    not given. Raises ValueError on an N the kernel does not take."""
-    dev = resolve_device(device)
-    n = ar_kernel.cluster_size(cfg, dtype, dev) if split is None else split
-    ar_kernel.cluster_partition(cfg, n)
-    if n not in ar_kernel.cluster_sizes(cfg):
-        raise ValueError(
-            f"the cluster kernel takes N in {ar_kernel.cluster_sizes(cfg)} "
-            f"for this config, got {n}")
-    if weights_l2 is None:
-        weights_l2 = (dev.type == "cuda"
-                      and not ar_kernel.cluster_resident(cfg, dtype, n, dev))
-    return n, not weights_l2
+def _check_cluster(cfg: ModelConfig, layout, dtype: str) -> None:
+    """Raise ValueError where `layout` is not one the cluster probe runs:
+    the unfused cluster kernel at an N it takes, in the weights' dtype."""
+    sizes = ar_kernel.cluster_sizes(cfg)
+    if layout.cluster not in sizes:
+        raise ValueError(f"the cluster kernel takes N in {sizes} for this "
+                         f"config, got {layout.cluster}")
+    if layout.fused or layout.wide or layout.dtype != dtype:
+        raise ValueError(f"the cluster probe runs the unfused form in its "
+                         f"weights' dtype {dtype!r}, got {layout}")
 
 
-def cluster_weights(weights: dict, cfg: ModelConfig, split: int,
+def cluster_weights(weights: dict, cfg: ModelConfig, layout,
                     device=None) -> ar_kernel.KernelWeights:
-    """The probe's weights as the cluster kernel reads them, packed for N =
-    split ranks (`plain_params`, then `ar_kernel.kernel_weights`): made
-    once, passed to `probe(..., packed=)` by a caller that makes many
-    calls."""
-    return ar_kernel.kernel_weights(plain_params(weights), cfg,
-                                    _dtype_of(weights), 0, device, split)
+    """The probe's weights as the cluster kernel reads them in `layout`
+    (`plain_params`, then `ar_kernel.kernel_weights`): made once, passed
+    to `probe(..., packed=)` by a caller that makes many calls."""
+    return ar_kernel.kernel_weights(plain_params(weights), cfg, layout,
+                                    device)
 
 
 def probe(weights: dict, cfg: ModelConfig, cond, noise, ablate: str,
           chunk: int = 128, device=None, kernel: str = "generate",
-          split=None, weights_l2=None, packed=None):
+          layout=None, packed=None):
     """Samples (T, B) fp32 of ablation `ablate` on `device` (None: CUDA;
     "cpu" runs `probe_plain`). cond (T, B, C) fp32, noise (T, B) uniforms
     in (0, 1); weights as `probe_weights` makes them, fp32 or bf16 (the
     kernel's storage type); `chunk` sets where no_cond refreshes its
     conditioning (the TPU probe's grid chunk). kernel: "generate"
-    (`ar_probe.cu`) or "cluster" (`ar_cluster.cu`'s probe instances) at
-    `split` = N ranks with the weights from L2 (`weights_l2`), each as the
-    decode picks it where None (`cluster_layout`); packed: the
-    `cluster_weights` of these weights for N, made once by the caller."""
+    (`ar_probe.cu`) or "cluster" (`ar_cluster.cu`'s probe instances) in
+    `layout`, an `ar_kernel.Layout` of the unfused cluster kernel in the
+    weights' dtype (None: packed's, else the decode's,
+    `ar_kernel.choose_layout`); packed: the `cluster_weights` of these
+    weights for its N, made once by the caller."""
     dev = resolve_device(device)
-    n = resident = 0
-    if kernel == "cluster":
-        n, resident = cluster_layout(cfg, _dtype_of(weights), dev, split,
-                                     weights_l2)
+    if kernel == "cluster" and layout is None:
+        layout = (packed.layout if packed is not None else
+                  ar_kernel.choose_layout(cfg, _dtype_of(weights), dev))
+    n = layout.cluster if kernel == "cluster" else 0
     cond, noise, w = _prepare(weights, cfg, cond, noise, ablate, chunk, dev,
                               kernel, n)
+    if kernel == "cluster":
+        _check_cluster(cfg, layout, _dtype_of(w))
     if not cond.is_cuda:
         return _plain(cfg, cond, noise, w, ablate, chunk, None, False, n)
     if kernel == "generate":
         return _launch(cfg, cond, noise, w, ablate, chunk)
     if packed is None:
-        packed = cluster_weights(w, cfg, n, dev)
-    return _launch_cluster(cfg, cond, noise, packed, ablate, chunk, n,
-                           resident)
+        packed = cluster_weights(w, cfg, layout, dev)
+    return _launch_cluster(cfg, cond, noise, packed, ablate, chunk, layout)
 
 
 def probe_plain(weights: dict, cfg: ModelConfig, cond, noise, ablate: str,
@@ -630,72 +627,67 @@ def _cluster_probe_call(args, ablate: str, chunk: int, timer, dev) -> None:
                            + lib.ar_cluster_error_string(err).decode())
 
 
-def _launch_cluster(cfg, cond, noise, packed, ablate, chunk, n, resident):
-    dtype = packed.dtype
-    if (packed.fused, packed.cluster) != (0, n) or any(
+def _launch_cluster(cfg, cond, noise, packed, ablate, chunk, layout):
+    if packed.layout.packing != layout.packing or any(
             v.device != cond.device for v in packed.tensors.values()):
-        raise ValueError(f"packed weights are for fused={packed.fused}, "
-                         f"cluster={packed.cluster}; the call asks for the "
-                         f"unfused form at N={n} on {cond.device}")
+        raise ValueError(f"packed weights are for {packed.layout}; the call "
+                         f"asks for {layout} on {cond.device}")
     args, out = ar_kernel.cluster_arguments(
         cfg, False, cond.transpose(0, 1).contiguous(),
-        noise.t().contiguous(), None, 0, packed.tensors, dtype, n, resident,
-        0, LOG_B_CLIP)
+        noise.t().contiguous(), None, 0, packed.tensors, layout, LOG_B_CLIP)
     _cluster_probe_call(args, ablate, chunk, None, cond.device)
-    launches[variant(dtype, ablate, "cluster", n, resident)] += 1
+    launches[variant(layout.dtype, ablate, "cluster", layout.cluster,
+                     layout.resident)] += 1
     return out.t()
 
 
-def timed_arguments(pp, cfg: ModelConfig, c_up, noise, dtype="float32",
-                    fused: int = 0, cluster=None, weights_l2=None,
+def timed_arguments(pp, cfg: ModelConfig, c_up, noise, layout=None,
                     device=None):
-    """What a timed call needs, made once: (args, out, timer, (dtype, N,
-    resident, fused)), args the cluster kernel's C arguments
-    (`ar_kernel.cluster_arguments`) writing the (B, T) samples into out,
-    timer the (B, N, TIMER_SLOTS) int64 buffer. `launch_timed` launches
-    the timed instance on them; `ar_kernel.launch_cluster` the production
-    one on the same args. pp: plain params or their `KernelWeights` for
-    this dtype, window and N; cluster and weights_l2 as the decode picks
-    them where None. Needs CUDA."""
+    """What a timed call needs, made once: (args, out, timer, layout),
+    args the cluster kernel's C arguments (`ar_kernel.cluster_arguments`)
+    writing the (B, T) samples into out, timer the (B, N, TIMER_SLOTS)
+    int64 buffer. `launch_timed` launches the timed instance on them;
+    `ar_kernel.launch_cluster` the production one on the same args. pp:
+    plain params or their `KernelWeights`; layout: a cluster layout but the
+    wide form (None: the weights', else the decode's fp32 one). Needs
+    CUDA."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("the timer runs on the card; it needs CUDA")
-    n = ar_kernel.cluster_size(cfg, dtype, dev, fused) if cluster is None \
-        else cluster
-    if weights_l2 is None:
-        weights_l2 = not ar_kernel.cluster_resident(cfg, dtype, n, dev,
-                                                    fused)
+    if layout is None:
+        layout = (pp.layout if isinstance(pp, ar_kernel.KernelWeights)
+                  else ar_kernel.choose_layout(cfg, "float32", dev))
+    if not layout.cluster or layout.wide:
+        raise ValueError(f"the timer runs the cluster kernel's unfused or "
+                         f"fused form, got {layout}")
     c_up, noise, teacher, n_forced, w = ar_kernel._prepare(
-        pp, cfg, c_up, noise, "sample", None, 0, None, 1, dev, 64, fused,
-        dtype, n)
-    timer = torch.zeros((c_up.shape[0], n, TIMER_SLOTS), dtype=torch.int64,
-                        device=dev)
+        pp, cfg, c_up, noise, "sample", None, 0, None, 1, dev, layout)
+    timer = torch.zeros((c_up.shape[0], layout.cluster, TIMER_SLOTS),
+                        dtype=torch.int64, device=dev)
     args, out = ar_kernel.cluster_arguments(
-        cfg, False, c_up, noise, teacher, n_forced, w, dtype, n,
-        not weights_l2, fused)
-    return args, out, timer, (dtype, n, not weights_l2, fused)
+        cfg, False, c_up, noise, teacher, n_forced, w, layout)
+    return args, out, timer, layout
 
 
 def launch_timed(args, timer, layout) -> None:
     """One launch of the timed instance (the production step in
     TIMED_FORM) on `timed_arguments`' args, its cycles into `timer`,
     counted in `launches`."""
-    dtype, n, resident, fused = layout
     _cluster_probe_call(args, "full", 0, timer, timer.device)
-    launches[variant(dtype, "timed", "cluster", n, resident, fused)] += 1
+    launches[variant(layout.dtype, "timed", "cluster", layout.cluster,
+                     layout.resident, layout.fused)] += 1
 
 
-def timed_generate(pp, cfg: ModelConfig, c_up, noise, dtype="float32",
-                   fused: int = 0, cluster=None, weights_l2=None,
+def timed_generate(pp, cfg: ModelConfig, c_up, noise, layout=None,
                    device=None):
-    """`ar_kernel.generate(pp, cfg, c_up, noise=noise, dtype=, fused=,
-    cluster=)` on the cluster kernel's timed instance: returns its (B, T)
-    samples (the production instance's, to the bit) and the timer's (B, N,
+    """`ar_kernel.generate(pp, cfg, c_up, noise=noise, layout=layout)` on
+    the cluster kernel's timed instance: returns its (B, T) samples (the
+    production instance's, to the bit) and the timer's (B, N,
     TIMER_SLOTS) int64 cycles (`stage_times`); arguments as
     `timed_arguments`. The counters are 32-bit: a call's time loop must
     stay below 2^32 cycles (about 2 s on an H100)."""
-    args, out, timer, layout = timed_arguments(
-        pp, cfg, c_up, noise, dtype, fused, cluster, weights_l2, device)
+    args, out, timer, layout = timed_arguments(pp, cfg, c_up, noise, layout,
+                                               device)
     launch_timed(args, timer, layout)
     return ar_kernel._finish(cfg, out), timer
 

@@ -1,9 +1,9 @@
 """The cluster AR kernel's host side on the CPU (shallow_wavenet_tpu_torch.
-ops.ar_kernel with cluster=N; the kernel, csrc/ar_cluster.cu, runs only on
-a card and is held there by chip_smoke.py): its plain version's summation
-order (`split=N`) against the JAX generators, the partition of the widths
-over the ranks, the packing of each rank's weight slices, and the decode's
-layout ladder.
+ops.ar_kernel in a Layout with cluster=N; the kernel, csrc/ar_cluster.cu,
+runs only on a card and is held there by chip_smoke.py): its plain
+version's summation order (`split=N`) against the JAX generators, the
+partition of the widths over the ranks, the packing of each rank's weight
+slices, and the layout chooser's ladder.
 
 Tolerances. fp32 `split=N, chain=True` against `generate_pallas` in
 interpret mode: as test_torch_generate (Laplace atol 1e-5: fp32 sums in
@@ -127,25 +127,31 @@ def test_bf16_split_orders(head):
 
 
 def test_generate_cluster_on_cpu_is_the_plain_version():
-    """generate(cluster=N) on a CPU tensor runs the plain version (split
-    changes no matmul order): the samples equal cluster=0's; the packed
-    weights ride along."""
+    """generate in a cluster=N layout on a CPU tensor runs the plain
+    version (split changes no matmul order): the samples equal cluster=0's;
+    the packed weights ride along, and the call runs their layout or one
+    packed alike (here the other weight placement), never another."""
     cfg, pp, c_up = _setup("laplace")
     B, T, _ = c_up.shape
     noise = torch.from_numpy(_noise((B, T), 5))
     pcfg, ppp = port_cfg(cfg), port_pp(pp)
     c = torch.from_numpy(c_up)
-    w = ar_kernel.kernel_weights(ppp, pcfg, device="cpu", cluster=8)
-    assert "cluster_stages" in w.tensors
-    a = ar_kernel.generate(w, pcfg, c, noise=noise, device="cpu", cluster=8)
+    Layout = ar_kernel.Layout
+    w = ar_kernel.kernel_weights(ppp, pcfg, Layout(cluster=8), "cpu")
+    assert "cluster_stages" in w.tensors and w.layout == Layout(cluster=8)
+    a = ar_kernel.generate(w, pcfg, c, noise=noise, device="cpu")
     b = ar_kernel.generate(ppp, pcfg, c, noise=noise, device="cpu")
     torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(ar_kernel.generate(
+        w, pcfg, c, noise=noise, device="cpu",
+        layout=Layout(cluster=8, resident=False)), b, rtol=0, atol=0)
     with pytest.raises(ValueError, match="cluster=8"):
-        ar_kernel.generate(w, pcfg, c, noise=noise, device="cpu", cluster=4)
+        ar_kernel.generate(w, pcfg, c, noise=noise, device="cpu",
+                           layout=Layout(cluster=4))
     # weights made unfused do not run the fused window
     with pytest.raises(ValueError, match="fused=0"):
         ar_kernel.generate(w, pcfg, c, noise=noise, device="cpu",
-                           cluster=8, fused=2)
+                           layout=Layout(fused=2, cluster=8))
 
 
 def _lengths(T):
@@ -174,8 +180,8 @@ def test_lengths_keep_each_row_of_the_padded_call(form, four_rows):
         def run(**kw):
             return ar_kernel.generate(
                 port_pp(pp), port_cfg(cfg), torch.from_numpy(c_up),
-                noise=torch.from_numpy(noise), device="cpu", **form,
-                **kw).numpy()
+                noise=torch.from_numpy(noise), device="cpu",
+                layout=ar_kernel.Layout(**form), **kw).numpy()
     else:
         def run(**kw):
             return _plain(pp, cfg, c_up, noise, **form, **kw)
@@ -295,8 +301,8 @@ def test_pack_cluster_places_each_weight_where_the_kernel_reads_it():
     cfg, pp, _ = _setup("laplace")
     pcfg = port_cfg(cfg)
     n = 4
-    w = ar_kernel.kernel_weights(port_pp(pp), pcfg, device="cpu",
-                                 cluster=n).tensors
+    w = ar_kernel.kernel_weights(port_pp(pp), pcfg,
+                                 ar_kernel.Layout(cluster=n), "cpu").tensors
     st = w["cluster_stages"]
     L, R, G, S = (len(pcfg.dilations), pcfg.residual_channels,
                   pcfg.gate_channels, pcfg.skip_channels)
@@ -327,111 +333,266 @@ def test_pack_cluster_places_each_weight_where_the_kernel_reads_it():
 
 
 def test_ladder_puts_the_cluster_layouts_first(monkeypatch):
-    """Within each dtype the cluster layout comes first, then the old
-    kernel's three, in their order; every fp32 layout comes before any
-    bf16 one, so "auto" never lowers the precision while an fp32 layout
-    fits, the cluster kernel's wide form last of the fp32 ones, so that
-    every model another fp32 layout fits keeps it. On the CPU the first
-    layout is the fp32 cluster layout, at the
-    largest size that divides the widths, --fused too (cluster=False keeps
-    cluster 0). On a card (sizes stand in for the kernels' own), a model
-    with no fp32 cluster size takes the old kernel's fp32 layout, and bf16
-    only where no fp32 layout fits."""
+    """Within each dtype the cluster layout comes first, then
+    ar_generate's three (resident, streamed at chunk 64, at 32), in their
+    order; every fp32 layout comes before any bf16 one, so "auto" never
+    lowers the precision while an fp32 layout fits, the cluster kernel's
+    wide form last of the fp32 ones, so that every model another fp32
+    layout fits keeps it. On the CPU the first layout is the fp32 cluster
+    layout, at the largest size that divides the widths, --fused too
+    (cluster=False gives ar_generate's). On a card (sizes and byte counts
+    stand in for the kernels' own), a model with no fp32 cluster size
+    takes ar_generate's fp32 layout, and bf16 only where no fp32 layout
+    fits."""
+    Layout = ar_kernel.Layout
     c2 = get_config("shallow_laplace_single").model
     deep = get_config("deep_baseline").model
-    clustered = [lay[3] for lay in decode.KERNEL_LAYOUTS]
-    assert clustered == ([True] + [False] * 3 + [decode.WIDE]
-                         + [True] + [False] * 3)
-    assert [lay[0] for lay in decode.KERNEL_LAYOUTS] == (
-        ["float32"] * 5 + ["bfloat16"] * 4)
     for mc in (c2, deep):
-        assert decode.kernel_layout(mc, "auto", "cpu") == {
-            "dtype": "float32", "stream": False, "chunk": 64, "fused": 0,
-            "cluster": 16}
-        assert decode.kernel_layout(mc, "bfloat16", "cpu")["cluster"] == 16
-    assert decode.kernel_layout(c2, "auto", "cpu", fused=4) == {
-        "dtype": "float32", "stream": False, "chunk": 64, "fused": 4,
-        "cluster": 16}
-    assert decode.kernel_layout(c2, "auto", "cpu", cluster=False)[
-        "cluster"] == 0
+        assert ar_kernel.choose_layout(mc, "auto", "cpu") == Layout(
+            cluster=16)
+        assert ar_kernel.choose_layout(mc, "bfloat16", "cpu").cluster == 16
+    assert ar_kernel.choose_layout(c2, "auto", "cpu", fused=4) == Layout(
+        fused=4, cluster=16)
+    assert ar_kernel.choose_layout(c2, "auto", "cpu", cluster=False) == \
+        Layout()
 
     asked = []
     fp32_bytes = [1000]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(ar_kernel, "smem_limit", lambda dev: 2000)
-    monkeypatch.setattr(
-        ar_kernel, "smem_bytes", lambda cfg, dtype, stream, chunk, fused:
-        fp32_bytes[0] if dtype == "float32" else 1000)
 
-    def size(cfg, dtype, dev, fused=0, wide=False):
-        asked.append(dtype)
-        return 8 if dtype == "bfloat16" and not wide else 0
+    def gen_bytes(cfg, lay):
+        asked.append(("generate", lay.dtype, lay.stream, lay.chunk))
+        return fp32_bytes[0] if lay.dtype == "float32" else 1000
 
-    monkeypatch.setattr(ar_kernel, "cluster_size", size)
-    old_fp32 = {"dtype": "float32", "stream": False, "chunk": 64,
-                "fused": 0, "cluster": 0}
-    bf16_cluster = {"dtype": "bfloat16", "stream": False, "chunk": 64,
-                    "fused": 0, "cluster": 8}
-    assert decode.kernel_layout(c2) == old_fp32
-    assert asked == ["float32"]
-    assert decode.kernel_layout(c2, "float32") == old_fp32
-    assert decode.kernel_layout(c2, "bfloat16") == bf16_cluster
+    def cluster(cfg, dtype, dev, fused, sizes, wide=False):
+        asked.append(("wide" if wide else "cluster", dtype))
+        return (Layout(dtype, fused, 8)
+                if dtype == "bfloat16" and sizes and not wide else None)
+
+    monkeypatch.setattr(ar_kernel, "smem_bytes", gen_bytes)
+    monkeypatch.setattr(ar_kernel, "_cluster_layout", cluster)
+    bf16_cluster = Layout("bfloat16", cluster=8)
+    assert ar_kernel.choose_layout(c2) == Layout()
+    assert asked == [("cluster", "float32"),
+                     ("generate", "float32", False, 64)]
+    assert ar_kernel.choose_layout(c2, "float32") == Layout()
+    assert ar_kernel.choose_layout(c2, "bfloat16") == bf16_cluster
     # no fp32 layout fits, the wide form's neither: auto takes the bf16
-    # cluster layout
+    # cluster layout, after every fp32 one in the ladder's order (deep
+    # streams its large dilations at chunk 64 and at 32)
     fp32_bytes[0] = 3000
-    assert decode.kernel_layout(c2) == bf16_cluster
+    assert ar_kernel.choose_layout(c2) == bf16_cluster
+    asked.clear()
+    assert ar_kernel.choose_layout(deep) == bf16_cluster
+    assert asked == [("cluster", "float32"),
+                     ("generate", "float32", False, 64),
+                     ("generate", "float32", True, 64),
+                     ("generate", "float32", True, 32),
+                     ("wide", "float32"), ("cluster", "bfloat16")]
 
 
 def test_cluster_size_fills_the_card(monkeypatch):
-    """On a card (sizes and occupancy stand in for the kernel's own): the
-    largest size whose clusters cover FILL_SHARE of the SMs, whatever the
-    batch; else the largest that fits; placement resident where the block
-    fits, else streamed from L2."""
+    """On a card (sizes and occupancy stand in for the kernel's own, the
+    shared memory limit is the card's property): the largest size whose
+    clusters cover FILL_SHARE of the SMs, whatever the batch; else the
+    largest that fits; placement resident where the block fits, else
+    streamed from L2."""
     import types
+    Layout = ar_kernel.Layout
     c2 = get_config("shallow_laplace_single").model
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: types.SimpleNamespace(
-                            multi_processor_count=132))
-    monkeypatch.setattr(ar_kernel, "smem_limit", lambda dev: 232448)
+                            multi_processor_count=132,
+                            shared_memory_per_block_optin=232448))
     resident = {16: 129124, 8: 250036, 4: 491860, 2: 975508}
     streamed = {16: 25700, 8: 43188, 4: 78164, 2: 148116}
     monkeypatch.setattr(
         ar_kernel, "cluster_smem_bytes",
-        lambda cfg, dtype, n, res, fused=0:
-        (resident if res else streamed)[n])
+        lambda cfg, lay: (resident if lay.resident else streamed)[
+            lay.cluster])
     asked = []
 
-    def active(cfg, dtype, n, res, dev, fused=0):
-        asked.append((n, res))
-        return {16: 7, 8: 30, 4: 62, 2: 66}[n]
+    def active(cfg, lay, dev=None):
+        asked.append((lay.cluster, lay.resident))
+        return {16: 7, 8: 30, 4: 62, 2: 66}[lay.cluster]
 
-    monkeypatch.setattr(ar_kernel, "max_active_clusters", active)
+    monkeypatch.setattr(ar_kernel, "clusters_at_once", active)
     # 16 x 7 = 112 < 0.9 x 132: 8, from L2 (its resident block is too big)
-    assert ar_kernel.cluster_size(c2, "float32") == 8
+    assert ar_kernel.choose_layout(c2, "float32") == Layout(
+        cluster=8, resident=False)
     assert asked == [(16, True), (8, False)]
     # no size fills the card: the largest that fits
-    monkeypatch.setattr(ar_kernel, "max_active_clusters",
-                        lambda cfg, dtype, n, res, dev, fused=0: 1)
-    assert ar_kernel.cluster_size(c2, "float32") == 16
+    monkeypatch.setattr(ar_kernel, "clusters_at_once",
+                        lambda cfg, lay, dev=None: 1)
+    assert ar_kernel.choose_layout(c2, "float32") == Layout(cluster=16)
 
 
 def test_decode_warns_when_a_batch_runs_in_waves(monkeypatch, caplog):
     """The decode logs a warning when its batch is more than the card's
-    clusters of the layout's size (occupancy stands in for the kernel's
-    own), and not on the CPU or off the cluster kernel."""
+    clusters of the layout (occupancy stands in for the kernel's own), and
+    not on the CPU or off the cluster kernel."""
     c2 = get_config("shallow_laplace_single").model
-    lay = {"dtype": "float32", "stream": False, "chunk": 64, "fused": 0,
-           "cluster": 8}
+    lay = ar_kernel.Layout(cluster=8, resident=False)
     assert decode.warn_waves(c2, lay, 64, "cpu") == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(ar_kernel, "cluster_resident",
-                        lambda cfg, dtype, n, dev, fused=0: False)
-    monkeypatch.setattr(ar_kernel, "max_active_clusters",
-                        lambda cfg, dtype, n, res, dev, fused=0: 15)
+    # off the cluster kernel: no occupancy query at all
+    assert decode.warn_waves(c2, ar_kernel.Layout(), 32) == 1
+    monkeypatch.setattr(ar_kernel, "clusters_at_once",
+                        lambda cfg, layout, dev=None: 15)
     with caplog.at_level("WARNING", logger="decode"):
         assert decode.warn_waves(c2, lay, 15) == 1
         assert not caplog.records
         assert decode.warn_waves(c2, lay, 32) == 3
         assert "3 waves" in caplog.records[-1].getMessage()
-        assert decode.warn_waves(c2, {**lay, "cluster": 0}, 32) == 1
+
+
+# A card in miniature for the chooser: the shared memory one block of a
+# layout takes and the clusters the card holds at once, standing in for
+# the kernels' own byte counts and occupancy query (the H100's limit and
+# SMs; the counts are a rough model, not the kernels').
+CARD_SMEM = 232448
+CARD_AT_ONCE = {16: 7, 8: 15, 4: 33, 2: 66}
+
+
+def _card_widths(cfg):
+    O = cfg.quantize_channels if cfg.head == "softmax" else 2
+    return (len(cfg.dilations), cfg.residual_channels, cfg.gate_channels,
+            cfg.skip_channels, cfg.cond_channels, O)
+
+
+def _card_cluster_bytes(cfg, lay):
+    it = 2 if lay.dtype == "bfloat16" else 4
+    L, R, G, S, C, O = _card_widths(cfg)
+    n = lay.cluster
+    if lay.wide:
+        if G < 512:
+            raise ValueError("the card in miniature's wide form takes "
+                             "G >= 512")
+        return 4 * sum(d for d in cfg.dilations if d < 64) * R // n + 65536
+    layer = 2 * R * G + C * G + G // 2 * (S + R)
+    extra = (lay.fused - 1) * G * G // 2 if lay.fused else 0
+    ring = sum(cfg.dilations) * R // n
+    if lay.resident:
+        return it * ((L * (layer + extra) + S * (S + O)) // n + ring) + 8192
+    return it * (2 * (layer + extra) // n + ring) + 8192
+
+
+def _card_generate_bytes(cfg, lay):
+    it = 2 if lay.dtype == "bfloat16" else 4
+    L, R, G, S, C, O = _card_widths(cfg)
+    rows = sum(d for d in cfg.dilations
+               if not lay.stream or d <= lay.chunk or d % lay.chunk)
+    return it * rows * R + it * lay.fused * G * 4 + 8192
+
+
+def _card(monkeypatch, generate=True):
+    import types
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=132,
+                            shared_memory_per_block_optin=CARD_SMEM))
+    monkeypatch.setattr(ar_kernel, "cluster_smem_bytes", _card_cluster_bytes)
+    monkeypatch.setattr(ar_kernel, "clusters_at_once",
+                        lambda cfg, lay, dev=None: CARD_AT_ONCE[lay.cluster])
+    if generate:
+        monkeypatch.setattr(ar_kernel, "smem_bytes", _card_generate_bytes)
+
+
+def _models():
+    import json
+    from shallow_wavenet_tpu_torch.config import PRESETS, Config
+    path = (Path(__file__).resolve().parents[1] / "port_bench" / "configs"
+            / "tamamori_sd_arctic.json")
+    sd = Config.from_dict(json.loads(path.read_text())["config"]).model
+    return {**{name: get_config(name).model for name in PRESETS},
+            "tamamori_sd_arctic": sd}
+
+
+# (dtype, fused) of each column of the tables below
+CHOOSER_ASKS = [(dt, W) for dt in ("auto", "float32", "bfloat16")
+                for W in (0, 4)]
+# What the ladder before `Layout` (bin/decode.py's kernel_layout, the
+# weights' placement worked out at each launch) chose for each column, as
+# `launches` names the layout, with its chunk where not 64; None where it
+# raised. On the CPU, for every model: the largest cluster size divides its
+# widths.
+PARENT_ON_CPU = ("ar_cluster[N16]", "ar_cluster[fused4,N16]",
+                 "ar_cluster[N16]", "ar_cluster[fused4,N16]",
+                 "ar_cluster[bf16,N16]", "ar_cluster[bf16,fused4,N16]")
+# On the card in miniature
+PARENT_ON_CARD = {
+    "shallow_softmax_single": (
+        "ar_cluster[N8]", "ar_cluster[fused4,N8]", "ar_cluster[N8]",
+        "ar_cluster[fused4,N8]", "ar_cluster[bf16,N8]",
+        "ar_cluster[bf16,fused4,N8]"),
+    "shallow_laplace_single": (
+        "ar_cluster[N8,l2]", "ar_cluster[fused4,N8,l2]", "ar_cluster[N8,l2]",
+        "ar_cluster[fused4,N8,l2]", "ar_cluster[bf16,N8]",
+        "ar_cluster[bf16,fused4,N8]"),
+    "shallow_laplace_ns": (
+        "ar_cluster[N8,l2]", "ar_cluster[fused4,N8,l2]", "ar_cluster[N8,l2]",
+        "ar_cluster[fused4,N8,l2]", "ar_cluster[bf16,N8]",
+        "ar_cluster[bf16,fused4,N8]"),
+    "multispk_dp": (
+        "ar_cluster[N8,l2]", "ar_cluster[fused4,N8,l2]", "ar_cluster[N8,l2]",
+        "ar_cluster[fused4,N8,l2]", "ar_cluster[bf16,N8]",
+        "ar_cluster[bf16,fused4,N8]"),
+    "deep_baseline": (
+        "ar_cluster[N16,l2]", "ar_cluster[fused4,N16,l2]",
+        "ar_cluster[N16,l2]", "ar_cluster[fused4,N16,l2]",
+        "ar_cluster[bf16,N8,l2]", "ar_cluster[bf16,fused4,N8,l2]"),
+    "tamamori_sd_arctic": (
+        "ar_cluster[N16,wide]", None, "ar_cluster[N16,wide]", None,
+        "ar_generate[bf16,stream]/32", None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARENT_ON_CARD))
+def test_chooser_gives_the_parents_layouts(name, monkeypatch):
+    """`choose_layout` picks, for each preset and the vocoder, under each
+    dtype and fused window, the layout the ladder it replaced picked, on
+    the CPU and on the card in miniature: the same kernel, size, weight
+    placement, precision, window and rings."""
+    mc = _models()[name]
+
+    def chosen(device):
+        out = []
+        for dtype, fused in CHOOSER_ASKS:
+            try:
+                lay = ar_kernel.choose_layout(mc, dtype, device, fused)
+            except ar_kernel.NoLayoutError:
+                out.append(None)
+                continue
+            out.append(lay.name + ("" if lay.chunk == 64
+                                   else f"/{lay.chunk}"))
+        return tuple(out)
+
+    assert chosen("cpu") == PARENT_ON_CPU
+    _card(monkeypatch)
+    assert chosen("cuda") == PARENT_ON_CARD[name]
+
+
+def test_a_cluster_layout_never_loads_ar_generate(monkeypatch):
+    """Where a cluster layout fits, choosing it neither builds nor loads
+    `ar_generate.cu`'s library: the card's shared memory limit is its own
+    property, and no `ar_generate` layout is weighed."""
+    _card(monkeypatch, generate=False)
+
+    def no_library():
+        raise RuntimeError("ar_generate's library was loaded")
+
+    monkeypatch.setattr(ar_kernel, "_lib", no_library)
+    models = _models()
+    for name in ("shallow_softmax_single", "shallow_laplace_single",
+                 "deep_baseline"):
+        for dtype, fused in CHOOSER_ASKS:
+            lay = ar_kernel.choose_layout(models[name], dtype, "cuda", fused)
+            assert lay.cluster and not lay.wide, (name, dtype, fused)
+    assert ar_kernel.smem_limit("cuda") == CARD_SMEM
+    # an ar_generate layout is weighed only where no cluster one fits
+    with pytest.raises(RuntimeError, match="library was loaded"):
+        ar_kernel.choose_layout(models["tamamori_sd_arctic"], "bfloat16",
+                                "cuda")

@@ -28,7 +28,6 @@ import pytest
 import torch
 
 from shallow_wavenet_tpu.ops.ar_kernel import generate_pallas
-from shallow_wavenet_tpu_torch.bin import decode
 from shallow_wavenet_tpu_torch.config import get_config
 from shallow_wavenet_tpu_torch.models.streaming import StreamingSynthesizer
 from shallow_wavenet_tpu_torch.models.wavenet import extract_plain_params
@@ -115,8 +114,8 @@ def test_pack_cluster_fused_places_each_weight_where_the_kernel_reads_it(
     at (S/n) S + s O + m. Each stage starts at a multiple of 8 elements."""
     cfg, pp, _, _, _ = _case("laplace")
     pcfg = port_cfg(cfg)
-    w = ar_kernel.kernel_weights(port_pp(pp), pcfg, device="cpu",
-                                 fused=fused, cluster=n).tensors
+    w = ar_kernel.kernel_weights(port_pp(pp), pcfg, ar_kernel.Layout(
+        fused=fused, cluster=n), "cpu").tensors
     st = w["cluster_stages"]
     L, R, G, S = (len(pcfg.dilations), pcfg.residual_channels,
                   pcfg.gate_channels, pcfg.skip_channels)
@@ -157,32 +156,34 @@ def test_pack_cluster_fused_places_each_weight_where_the_kernel_reads_it(
              w["head1_w"][k * Sn:(k + 1) * Sn])
         same(st[k, at + Sn * S:at + Sn * (S + O)].reshape(Sn, O),
              w["head2_w"][k * Sn:(k + 1) * Sn])
-    assert ar_kernel.variant("float32", False, fused, n, False) == \
-        f"ar_cluster[fused{fused},N{n},l2]"
-    assert ar_kernel.variant("bfloat16", False, fused, n, True) == \
+    assert ar_kernel.Layout(fused=fused, cluster=n, resident=False).name \
+        == f"ar_cluster[fused{fused},N{n},l2]"
+    assert ar_kernel.Layout("bfloat16", fused, n).name == \
         f"ar_cluster[bf16,fused{fused},N{n}]"
 
 
 def test_generate_cluster_fused_on_cpu_is_the_plain_version():
-    """generate(cluster=N, fused=W) on a CPU tensor runs the plain version
-    with split=N, whose matmuls ignore the split: the samples equal
-    fused=W's without a cluster, exactly; weights made for another window
-    or size are refused."""
+    """generate in a cluster=N, fused=W layout on a CPU tensor runs the
+    plain version with split=N, whose matmuls ignore the split: the
+    samples equal fused=W's without a cluster, exactly; weights made for
+    another window or size are refused."""
     cfg, pp, c_up, noise, _ = _case("laplace")
     pcfg, ppp = port_cfg(cfg), port_pp(pp)
     c, u = torch.from_numpy(c_up), torch.from_numpy(noise)
-    w = ar_kernel.kernel_weights(ppp, pcfg, device="cpu", fused=3, cluster=4)
+    Layout = ar_kernel.Layout
+    w = ar_kernel.kernel_weights(ppp, pcfg, Layout(fused=3, cluster=4),
+                                 "cpu")
     assert "cluster_stages" in w.tensors and "fm" in w.tensors
-    got = ar_kernel.generate(w, pcfg, c, noise=u, device="cpu", fused=3,
-                             cluster=4)
+    got = ar_kernel.generate(w, pcfg, c, noise=u, device="cpu")
     for want in (ar_kernel.generate(ppp, pcfg, c, noise=u, device="cpu",
-                                    fused=3),
+                                    layout=Layout(fused=3)),
                  ar_kernel.generate_plain(ppp, pcfg, c, noise=u,
                                           device="cpu", fused=3, split=4)):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    for other in (dict(fused=2, cluster=4), dict(fused=3, cluster=2)):
+    for other in (Layout(fused=2, cluster=4), Layout(fused=3, cluster=2)):
         with pytest.raises(ValueError, match="kernel weights"):
-            ar_kernel.generate(w, pcfg, c, noise=u, device="cpu", **other)
+            ar_kernel.generate(w, pcfg, c, noise=u, device="cpu",
+                               layout=other)
 
 
 def test_ladder_takes_the_fused_cluster_first(monkeypatch):
@@ -190,60 +191,60 @@ def test_ladder_takes_the_fused_cluster_first(monkeypatch):
     CPU at the largest size that divides the widths), then ar_generate's
     fused layouts where no cluster fits the window, and raises where none
     fits. On a card the sizes and shared memory stand in for the kernels'
-    own; cluster_size skips a size whose fused block the kernel refuses."""
+    own; the chooser skips a size whose fused block the kernel refuses."""
+    Layout = ar_kernel.Layout
     c2 = get_config("shallow_laplace_single").model
     for W in (2, 4, 6):
-        assert decode.kernel_layout(c2, "auto", "cpu", fused=W) == {
-            "dtype": "float32", "stream": False, "chunk": 64, "fused": W,
-            "cluster": 16}
+        assert ar_kernel.choose_layout(c2, "auto", "cpu", fused=W) == \
+            Layout(fused=W, cluster=16)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(ar_kernel, "smem_limit", lambda dev: 2000)
     gen_bytes = [1000]
     monkeypatch.setattr(ar_kernel, "smem_bytes",
-                        lambda cfg, dtype, stream, chunk, fused: gen_bytes[0])
+                        lambda cfg, lay: gen_bytes[0])
     sizes = {0: 8, 4: 16, 6: 0}
     asked = []
 
-    def size(cfg, dtype, dev, fused=0):
-        asked.append((dtype, fused))
-        return sizes[fused]
+    def cluster(cfg, dtype, dev, fused, ns, wide=False):
+        asked.append((dtype, fused, wide))
+        return Layout(dtype, fused, sizes[fused]) if sizes[fused] else None
 
-    monkeypatch.setattr(ar_kernel, "cluster_size", size)
-    lay = {"dtype": "float32", "stream": False, "chunk": 64}
-    assert decode.kernel_layout(c2, fused=4) == {**lay, "fused": 4,
-                                                 "cluster": 16}
-    assert decode.kernel_layout(c2) == {**lay, "fused": 0, "cluster": 8}
+    monkeypatch.setattr(ar_kernel, "_cluster_layout", cluster)
+    assert ar_kernel.choose_layout(c2, fused=4) == Layout(fused=4,
+                                                          cluster=16)
+    assert ar_kernel.choose_layout(c2) == Layout(cluster=8)
     # no cluster fits W = 6: ar_generate's fused layout, still fp32
     asked.clear()
-    assert decode.kernel_layout(c2, fused=6) == {**lay, "fused": 6,
-                                                 "cluster": 0}
-    assert asked == [("float32", 6)]
+    assert ar_kernel.choose_layout(c2, fused=6) == Layout(fused=6)
+    assert asked == [("float32", 6, False)]
     gen_bytes[0] = 3000
     with pytest.raises(ValueError, match="fused=6"):
-        decode.kernel_layout(c2, fused=6)
+        ar_kernel.choose_layout(c2, fused=6)
 
-    # cluster_size on a card: a size whose fused block the kernel refuses
-    # is skipped, the next that fits and fills the card is taken
+    # on a card: a size whose fused block the kernel refuses is skipped,
+    # the next that fits and fills the card is taken
     import types
     monkeypatch.undo()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: types.SimpleNamespace(
-                            multi_processor_count=132))
-    monkeypatch.setattr(ar_kernel, "smem_limit", lambda dev: 232448)
+                            multi_processor_count=132,
+                            shared_memory_per_block_optin=232448))
 
-    def smem(cfg, dtype, n, res, fused=0):
-        if fused and n == 16:
+    def smem(cfg, lay):
+        if lay.fused and lay.cluster == 16:
             raise ValueError("config not supported by the cluster AR "
                              "kernel: fused window")
-        return 100000 if not res else 300000
+        return 100000 if not lay.resident else 300000
 
     monkeypatch.setattr(ar_kernel, "cluster_smem_bytes", smem)
-    monkeypatch.setattr(ar_kernel, "max_active_clusters",
-                        lambda cfg, dtype, n, res, dev, fused=0:
-                        {16: 7, 8: 15, 4: 30, 2: 66}[n])
-    assert ar_kernel.cluster_size(c2, "float32", fused=4) == 8
-    assert ar_kernel.cluster_size(c2, "float32") == 8
+    monkeypatch.setattr(ar_kernel, "clusters_at_once",
+                        lambda cfg, lay, dev=None:
+                        {16: 7, 8: 15, 4: 30, 2: 66}[lay.cluster])
+    assert ar_kernel.choose_layout(c2, "float32", fused=4) == Layout(
+        fused=4, cluster=8, resident=False)
+    assert ar_kernel.choose_layout(c2, "float32") == Layout(
+        cluster=8, resident=False)
 
 
 @pytest.mark.parametrize("fused", [3, 4])
@@ -259,11 +260,11 @@ def test_fused_session_on_the_cluster_equals_one_call(fused):
                                hop_length=hop, batch=B, block_frames=32,
                                chunk=64, device="cpu", seed=5, fused=fused,
                                record_noise=True)
-    assert syn.cluster == ar_kernel.cluster_size(pcfg, "float32", "cpu",
-                                                 fused) > 1
-    assert syn.weights.cluster == syn.cluster
+    assert syn.layout == ar_kernel.choose_layout(pcfg, "float32", "cpu",
+                                                 fused)
+    assert syn.layout.cluster > 1 and syn.weights.layout == syn.layout
     wav = _run(syn, frames, 9)
     one = ar_kernel.generate(syn.weights, pcfg, syn.cond_so_far(),
-                             noise=syn.noise_so_far(), device="cpu",
-                             fused=fused, cluster=syn.cluster).numpy()
+                             noise=syn.noise_so_far(),
+                             device="cpu").numpy()
     np.testing.assert_array_equal(wav, one)

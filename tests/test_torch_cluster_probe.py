@@ -182,7 +182,9 @@ def test_refusals_before_any_launch(cfg_over, ablate, split, match):
     noise = torch.full((8, 2), 0.5)
     ar_probe.launches.clear()
     texts = []
-    for fn, kw in ((ar_probe.probe, dict(kernel="cluster", split=split)),
+    for fn, kw in ((ar_probe.probe, dict(kernel="cluster",
+                                         layout=ar_kernel.Layout(
+                                             cluster=split))),
                    (ar_probe.probe_plain, dict(split=split))):
         with pytest.raises(ValueError, match=match) as e:
             fn(w, cfg, cond, noise, ablate, chunk=4, device="cpu", **kw)
@@ -197,8 +199,8 @@ def test_wrapper_on_cpu_is_the_plain_version():
     given one; local_exchange is the cluster's own."""
     cfg = port_cfg(CFG)
     w, cond, noise = _inputs(cfg, "float32")
-    n = ar_kernel.cluster_size(cfg, "float32", "cpu")
-    assert ar_probe.cluster_layout(cfg, "float32", "cpu") == (n, True)
+    n = ar_kernel.choose_layout(cfg, "float32", "cpu").cluster
+    assert n > 1
     for ab in ("full", "local_exchange"):
         got = ar_probe.probe(w, cfg, cond, noise, ab, chunk=CHUNK,
                              device="cpu", kernel="cluster")
@@ -209,7 +211,12 @@ def test_wrapper_on_cpu_is_the_plain_version():
                        device="cpu")
     with pytest.raises(ValueError, match="takes N in"):
         ar_probe.probe(w, cfg, cond, noise, "full", chunk=CHUNK,
-                       device="cpu", kernel="cluster", split=1)
+                       device="cpu", kernel="cluster",
+                       layout=ar_kernel.Layout(cluster=1))
+    with pytest.raises(ValueError, match="unfused form"):
+        ar_probe.probe(w, cfg, cond, noise, "full", chunk=CHUNK,
+                       device="cpu", kernel="cluster",
+                       layout=ar_kernel.Layout("bfloat16", cluster=n))
     with pytest.raises(ValueError, match="kernel must be one of"):
         ar_probe.check_shape(cfg, "full", 2, 16, 4, kernel="nope")
 
@@ -221,7 +228,8 @@ def test_probe_and_timer_raise_without_cuda(monkeypatch):
     for device in (None, "cuda"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ar_probe.probe(w, cfg, cond, noise, "full", chunk=CHUNK,
-                           device=device, kernel="cluster", split=2)
+                           device=device, kernel="cluster",
+                           layout=ar_kernel.Layout(cluster=2))
     with pytest.raises(RuntimeError, match="CUDA"):
         ar_probe.timed_generate(ar_probe.plain_params(w), cfg,
                                 cond.transpose(0, 1), noise.t())

@@ -115,10 +115,66 @@ def test_decode_batch_rows_stop_at_their_lengths():
         extract_plain_params(model), pcfg.model,
         model.upsample_cond(cond).detach(),
         noise=noise, device="cpu",
-        **decode.kernel_layout(pcfg.model, "auto", "cpu")).numpy()
+        layout=ar_kernel.choose_layout(pcfg.model, "auto", "cpu")).numpy()
     for g, p, f in zip(got, padded, frames):
         np.testing.assert_array_equal(g, p[:f * cfg.data.hop_length])
 
+
+
+def test_every_caller_runs_the_chosen_layout(monkeypatch):
+    """decode_batch (whole, segmented and split over devices), the
+    streaming session and the pool take their layout from
+    `ar_kernel.choose_layout` alone: with the chooser giving a sentinel
+    (the fused window W = 2 on ar_generate, which none of them asks for),
+    every kernel call runs it, on weights packed for it."""
+    from shallow_wavenet_tpu_torch.models.streaming import (
+        StreamingSynthesizer, StreamPool,
+    )
+    from shallow_wavenet_tpu_torch.models.wavenet import init_params_tree
+    cfg = _cfg("laplace")
+    pcfg = Config.from_dict(cfg.to_dict())
+    model = params_from_flax(WaveNet(pcfg.model),
+                             init_params_tree(pcfg.model, 0))
+    hop = cfg.data.hop_length
+    sentinel = ar_kernel.Layout(fused=2, chunk=32)
+    asked, ran = [], []
+
+    def choose(*args, **kw):
+        asked.append(args)
+        return sentinel
+
+    real = ar_kernel.generate
+
+    def generate(pp, mc, c_up, *args, layout=None, **kw):
+        packed = pp.layout if isinstance(pp, ar_kernel.KernelWeights) \
+            else None
+        ran.append((layout, packed))
+        return real(pp, mc, c_up, *args, layout=layout, **kw)
+
+    monkeypatch.setattr(ar_kernel, "choose_layout", choose)
+    monkeypatch.setattr(ar_kernel, "generate", generate)
+    utts = [Utterance(np.zeros(0), f) for f in _feats(cfg, (8, 5), seed=4)]
+    g = torch.Generator().manual_seed(8)
+    for kw in ({}, {"segment_samples": 64}, {"devices": ["cpu", "cpu"]}):
+        decode.decode_batch(model, pcfg, utts, generator=g, device="cpu",
+                            **kw)
+    frames = _feats(cfg, (12,), seed=5)[0]
+    geometry = dict(block_frames=16, chunk=32, device="cpu")
+    syn = StreamingSynthesizer(extract_plain_params(model), model,
+                               pcfg.model, hop_length=hop, **geometry)
+    syn.push(frames[None])
+    syn.flush()
+    pool = StreamPool(extract_plain_params(model), model, pcfg.model, hop,
+                      slots=1, **geometry)
+    sid = pool.open(seed=1)
+    pool.push(sid, frames)
+    pool.end(sid)
+    while pool.active:
+        pool.step()
+    assert len(asked) == 5          # 3 decode calls, the session, the pool
+    assert len(ran) == 1 + 2 + 2 + 1 + 1
+    assert all(layout == sentinel and packed in (None, sentinel)
+               for layout, packed in ran), ran
 
 def test_decode_cli_writes_wavs_and_summary(tmp_path):
     cfg = _cfg("softmax")
@@ -149,8 +205,10 @@ def test_decode_cli_writes_wavs_and_summary(tmp_path):
     assert set(summary) == {"utterances", "model_step", "audio_seconds",
                             "wall_seconds", "rtf", "audio_seconds_per_s",
                             "kernel"}
-    assert summary["kernel"] == {"dtype": "bfloat16", "stream": False,
-                                 "chunk": 64, "fused": 0, "cluster": 4}
+    assert summary["kernel"] == {"dtype": "bfloat16", "fused": 0,
+                                 "cluster": 4, "wide": False,
+                                 "resident": True, "stream": False,
+                                 "chunk": 64}
     assert summary["utterances"] == 2
     assert summary["audio_seconds"] == pytest.approx(80 / 8000)
     for name, f in frames.items():
@@ -187,9 +245,10 @@ def test_decode_cli_fused(tmp_path):
     for fused in (0, 3):
         out = run(fused)
         summary = json.loads((out / "decode_summary.json").read_text())
-        assert summary["kernel"] == {"dtype": "float32", "stream": False,
-                                     "chunk": 64, "fused": fused,
-                                     "cluster": 4}
+        assert summary["kernel"] == {"dtype": "float32", "fused": fused,
+                                     "cluster": 4, "wide": False,
+                                     "resident": True, "stream": False,
+                                     "chunk": 64}
         with wave.open(str(out / "spk0_utt0.wav")) as w:
             wavs[fused] = np.frombuffer(w.readframes(w.getnframes()), "<i2")
     assert len(wavs[3]) == 7 * cfg.data.hop_length

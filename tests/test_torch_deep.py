@@ -92,8 +92,8 @@ def test_decode_batch_stack8_plain_matches_jax():
     got = decode.decode_batch(model, pcfg,
                               [Utterance(np.zeros(0), f) for f in feats],
                               noise=torch.from_numpy(noise), device="cpu",
-                              layout=decode.kernel_layout(pcfg.model,
-                                                          "float32", "cpu"))
+                              layout=ar_kernel.choose_layout(
+                                  pcfg.model, "float32", "cpu"))
     for g, w in zip(got, want):
         assert len(g) == len(w)
         assert_same_samples(cfg.model, g, w)
@@ -106,36 +106,36 @@ def test_kernel_layout_order_and_refusal(monkeypatch):
     stream nothing; ValueError when none fits. The sizes here are a
     stand-in for the kernels' own layout functions."""
     deep = get_config("deep_baseline").model
-    assert decode.kernel_layout(deep, "auto", "cpu") == {
-        "dtype": "float32", "stream": False, "chunk": 64, "fused": 0,
-        "cluster": 16}
-    assert decode.kernel_layout(deep, "bfloat16", "cpu")["dtype"] == "bfloat16"
+    assert ar_kernel.choose_layout(deep, "auto", "cpu") == ar_kernel.Layout(
+        cluster=16)
+    assert ar_kernel.choose_layout(deep, "bfloat16", "cpu").dtype == \
+        "bfloat16"
     with pytest.raises(ValueError, match="kernel dtype"):
-        decode.kernel_layout(deep, "float16", "cpu")
+        ar_kernel.choose_layout(deep, "float16", "cpu")
 
     asked = []
 
-    def fake_bytes(cfg, dtype, stream, chunk, fused):
-        asked.append((dtype, stream, chunk))
-        assert fused == 0
+    def fake_bytes(cfg, lay):
+        asked.append((lay.dtype, lay.stream, lay.chunk))
+        assert lay.fused == 0 and lay.cluster == 0
         return {("float32", True, 32): 1000, ("bfloat16", True, 64): 1500}.get(
-            (dtype, stream, chunk), 10**6)
+            (lay.dtype, lay.stream, lay.chunk), 10**6)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(ar_kernel, "smem_limit", lambda dev: 2000)
     monkeypatch.setattr(ar_kernel, "smem_bytes", fake_bytes)
     # no cluster size fits, the wide form's neither
-    monkeypatch.setattr(ar_kernel, "cluster_size",
-                        lambda cfg, dtype, dev, fused=0, wide=False: 0)
-    assert decode.kernel_layout(deep) == {"dtype": "float32", "stream": True,
-                                          "chunk": 32, "fused": 0,
-                                          "cluster": 0}
+    monkeypatch.setattr(ar_kernel, "_cluster_layout",
+                        lambda cfg, dtype, dev, fused, sizes, wide=False:
+                        None)
+    assert ar_kernel.choose_layout(deep) == ar_kernel.Layout(stream=True,
+                                                             chunk=32)
     assert asked == [("float32", False, 64), ("float32", True, 64),
                      ("float32", True, 32)]
-    assert decode.kernel_layout(deep, "bfloat16")["chunk"] == 64
+    assert ar_kernel.choose_layout(deep, "bfloat16").chunk == 64
     # config 2 (top dilation 32) streams no layer at chunk 32 or 64
     c2 = get_config("shallow_laplace_single").model
     asked.clear()
-    with pytest.raises(ValueError, match="no AR kernel layout"):
-        decode.kernel_layout(c2)
+    with pytest.raises(ar_kernel.NoLayoutError, match="no AR kernel layout"):
+        ar_kernel.choose_layout(c2)
     assert asked == [("float32", False, 64), ("bfloat16", False, 64)]

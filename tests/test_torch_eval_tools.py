@@ -197,47 +197,46 @@ def test_fused_ladder_drops_the_window(monkeypatch, caplog, world_decode,
                                        tmp_path):
     """On a card (sizes and shared memory standing in for the kernels'
     own): no layout fits W = 4, so the decode's layout is the unfused
-    cluster one, with a warning; kernel_layout itself still raises; with
+    cluster one, with a warning; choose_layout itself still raises; with
     no unfused layout either, the decode raises."""
     c2 = get_config("shallow_laplace_single").model
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: True)
         m.setattr(ar_kernel, "smem_limit", lambda dev: 2000)
         fits = {0: 1000, 4: 3000}
-        m.setattr(ar_kernel, "smem_bytes",
-                  lambda cfg, dtype, stream, chunk, fused: fits[fused])
+        m.setattr(ar_kernel, "smem_bytes", lambda cfg, lay: fits[lay.fused])
         sizes = {0: 8, 4: 0}
         # no size of the cluster kernel's wide form fits either
-        m.setattr(ar_kernel, "cluster_size",
-                  lambda cfg, dtype, dev, fused=0, wide=False:
-                  0 if wide else sizes[fused])
-        with pytest.raises(decode.NoLayoutError, match="fused=4"):
-            decode.kernel_layout(c2, fused=4)
+        m.setattr(ar_kernel, "_cluster_layout",
+                  lambda cfg, dtype, dev, fused, ns, wide=False:
+                  None if wide or not sizes[fused] else
+                  ar_kernel.Layout(dtype, fused, sizes[fused]))
+        with pytest.raises(ar_kernel.NoLayoutError, match="fused=4"):
+            ar_kernel.choose_layout(c2, fused=4)
         with caplog.at_level(logging.WARNING, logger="decode"):
             lay = decode.decode_layout(c2, fused=4)
-        assert lay == {"dtype": "float32", "stream": False, "chunk": 64,
-                       "fused": 0, "cluster": 8}
+        assert lay == ar_kernel.Layout(cluster=8)
         assert any("--fused 4 dropped" in r.getMessage()
                    for r in caplog.records)
         assert decode.decode_layout(c2) == lay
         sizes[0], fits[0] = 0, 3000
-        with pytest.raises(decode.NoLayoutError, match="fused=0"):
+        with pytest.raises(ar_kernel.NoLayoutError, match="fused=0"):
             decode.decode_layout(c2, fused=4)
-        with pytest.raises(decode.NoLayoutError, match="fused=0"):
+        with pytest.raises(ar_kernel.NoLayoutError, match="fused=0"):
             decode.decode_layout(c2)
 
     # through the decode: a layout that never fits a fused window records
     # the unfused layout that ran, and writes the unfused decode's wavs
     cfg, args, names = world_decode
-    real = decode.kernel_layout
+    real = ar_kernel.choose_layout
 
-    def no_fused(model_cfg, kernel_dtype="auto", device=None, fused=0,
+    def no_fused(model_cfg, dtype="auto", device=None, fused=0,
                  cluster=True):
         if fused:
-            raise decode.NoLayoutError(f"no layout fits fused={fused}")
-        return real(model_cfg, kernel_dtype, device, fused, cluster)
+            raise ar_kernel.NoLayoutError(f"no layout fits fused={fused}")
+        return real(model_cfg, dtype, device, fused, cluster)
 
-    monkeypatch.setattr(decode, "kernel_layout", no_fused)
+    monkeypatch.setattr(ar_kernel, "choose_layout", no_fused)
     decode.main(args + ["--outdir", str(tmp_path / "a"), "--fused", "2"])
     decode.main(args + ["--outdir", str(tmp_path / "b")])
     summary = json.loads((tmp_path / "a/decode_summary.json").read_text())

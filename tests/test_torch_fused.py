@@ -79,10 +79,11 @@ def test_fused_segmented_equals_unsegmented():
     pcfg, ppp = port_cfg(cfg), port_pp(pp)
     B, T, _ = c_up.shape
     c_t, n_t = torch.from_numpy(c_up), torch.from_numpy(_noise((B, T), 21))
+    layout = ar_kernel.Layout(fused=4)
     seg = generate_segmented(ppp, pcfg, c_t, n_t, 128, device="cpu",
-                             fused=4)
+                             layout=layout)
     full = ar_kernel.generate(ppp, pcfg, c_t, noise=n_t, device="cpu",
-                              fused=4)
+                              layout=layout)
     torch.testing.assert_close(seg, full, rtol=0, atol=0)
 
 
@@ -109,21 +110,23 @@ def test_fused_bf16_teacher_forced_matches_pallas_interpret(chain):
 
 def test_kernel_weights_made_once_give_the_same_samples():
     """Weights made once (`kernel_weights`) give the samples of a call on
-    plain params; weights of another dtype or window are refused."""
+    plain params in their layout; weights of another dtype or window are
+    refused."""
     cfg, m, v, pp, c_up = _gen("laplace", F=6)
     pcfg, ppp = port_cfg(cfg), port_pp(pp)
     B, T, _ = c_up.shape
-    kw = dict(noise=torch.from_numpy(_noise((B, T), 8)), device="cpu",
-              fused=3)
+    kw = dict(noise=torch.from_numpy(_noise((B, T), 8)), device="cpu")
     c_t = torch.from_numpy(c_up)
-    w = ar_kernel.kernel_weights(ppp, pcfg, "float32", 3, "cpu")
+    Layout = ar_kernel.Layout
+    w = ar_kernel.kernel_weights(ppp, pcfg, Layout(fused=3), "cpu")
     assert ar_kernel.kernel_weights(w, pcfg) is w
-    torch.testing.assert_close(ar_kernel.generate(w, pcfg, c_t, **kw),
-                               ar_kernel.generate(ppp, pcfg, c_t, **kw),
-                               rtol=0, atol=0)
-    for other in (dict(fused=2), dict(fused=3, dtype="bfloat16")):
+    torch.testing.assert_close(
+        ar_kernel.generate(w, pcfg, c_t, **kw),
+        ar_kernel.generate(ppp, pcfg, c_t, layout=Layout(fused=3), **kw),
+        rtol=0, atol=0)
+    for other in (Layout(fused=2), Layout("bfloat16", 3)):
         with pytest.raises(ValueError, match="kernel weights"):
-            ar_kernel.generate(w, pcfg, c_t, **{**kw, **other})
+            ar_kernel.generate(w, pcfg, c_t, layout=other, **kw)
 
 
 def _jax_fused_weights(pp, cfg, fused):

@@ -10,6 +10,8 @@ may pick the neighbouring class — at most 1 bin, on under 1% of samples.
 Segmented generation is held to exact equality with one unsegmented call.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,10 +64,14 @@ def assert_same_samples(cfg, got, want):
 
 
 def _port(pp, cfg, c_up, noise, **kw):
+    """`ar_kernel.generate` on the CPU; the keywords that name a Layout
+    field (fused, dtype, stream, chunk, ...) make the call's layout."""
+    fields = {f.name for f in dataclasses.fields(ar_kernel.Layout)}
+    layout = ar_kernel.Layout(**{k: kw.pop(k) for k in fields & set(kw)})
     return ar_kernel.generate(port_pp(pp), port_cfg(cfg),
                               torch.from_numpy(np.asarray(c_up)),
                               noise=torch.from_numpy(noise), device="cpu",
-                              **kw).numpy()
+                              layout=layout, **kw).numpy()
 
 
 @pytest.mark.parametrize("head", ["laplace", "softmax"])

@@ -3,6 +3,7 @@ output-head samplers, config presets; plus the port's package rules
 (no JAX in its imports, CUDA by default, no silent CPU path) and the AR
 kernel wrapper's argument checks."""
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -153,6 +154,24 @@ def _tiny():
     return cfg, extract_plain_params(m), torch.zeros(2, 10, cfg.cond_channels)
 
 
+@pytest.mark.parametrize("kw, match", [
+    (dict(cluster=-1), "cluster must be >= 0"),
+    (dict(stream=True, cluster=8), "stream is ar_generate's"),
+    (dict(resident=False), "it needs cluster=N"),
+    (dict(wide=True), "the wide form needs"),
+    (dict(wide=True, cluster=16), "the wide form needs"),
+    (dict(wide=True, cluster=16, resident=False, dtype="bfloat16"),
+     "the wide form needs"),
+    (dict(wide=True, cluster=16, resident=False, fused=2),
+     "the wide form needs"),
+])
+def test_layout_refuses_what_no_kernel_runs(kw, match):
+    """Each combination of a layout's values that no kernel runs is
+    refused where the layout is made."""
+    with pytest.raises(ValueError, match=match):
+        ar_kernel.Layout(**kw)
+
+
 @pytest.mark.parametrize("kw, exc, match", [
     (dict(stream=True, chunk=48), ValueError, "chunk"),
     (dict(fused=-1), ValueError, "fused"),
@@ -167,6 +186,18 @@ def _tiny():
 ])
 def test_generate_argument_checks(kw, exc, match):
     cfg, pp, c_up = _tiny()
+    fields = {f.name for f in dataclasses.fields(ar_kernel.Layout)}
+    if fields & set(kw):
+        # a layout's values: `Layout` refuses them where it is made, for
+        # generate's layout and for generate_plain's dtype and window
+        with pytest.raises(exc, match=match):
+            ar_kernel.Layout(**kw)
+        if set(kw) <= {"dtype", "fused"}:
+            with pytest.raises(exc, match=match):
+                ar_kernel.generate_plain(pp, cfg, c_up, device="cpu",
+                                         noise=torch.full((2, 10), 0.5),
+                                         **kw)
+        return
     kw = {"noise": torch.full((2, 10), 0.5), **kw}
     for fn in (ar_kernel.generate, ar_kernel.generate_plain):
         with pytest.raises(exc, match=match):

@@ -37,6 +37,8 @@ CONFIG = harness.load_json(harness.ROOT, "configs", "tamamori_sd_arctic")
 # (about 1e-7 for 256 classes), well below a wrong class's probability
 LIMIT = 1e-5
 SEED = 2 ** 31 + 19
+# the wide form at N = 16, as the chooser gives it for this model
+WIDE_LAYOUT = ar_kernel.Layout(cluster=16, wide=True, resident=False)
 
 
 def narrow_tree() -> dict:
@@ -89,8 +91,8 @@ def test_decode_batch_against_the_reference(narrow):
         (f, mc["aux_channels"])).astype(np.float32)) for f in frames]
     noise = ar_kernel.uniform_noise(
         (2, max(frames) * hop), torch.Generator().manual_seed(SEED))
-    layout = decode.kernel_layout(cfg.model, "float32", "cpu")
-    assert layout["cluster"] == 16
+    layout = ar_kernel.choose_layout(cfg.model, "float32", "cpu")
+    assert layout.cluster == 16
     wavs = decode.decode_batch(model, cfg, utts, noise=noise, layout=layout,
                                device="cpu")
     assert [len(x) for x in wavs] == [f * hop for f in frames]
@@ -122,10 +124,12 @@ def test_the_plain_version_in_the_wide_forms_order(narrow):
     gaps = reference.cdf_gaps(w, mc, c_up[0], noise[0], out[0])
     assert float(gaps.max()) <= LIMIT
     short = slice(0, 48)
-    kw = dict(noise=noise[:, short], cluster=16, device="cpu")
+    kw = dict(noise=noise[:, short], device="cpu")
     assert torch.equal(
-        ar_kernel.generate(pp, cfg.model, c_up[:, short], wide=True, **kw),
-        ar_kernel.generate(pp, cfg.model, c_up[:, short], **kw))
+        ar_kernel.generate(pp, cfg.model, c_up[:, short],
+                           layout=WIDE_LAYOUT, **kw),
+        ar_kernel.generate(pp, cfg.model, c_up[:, short],
+                           layout=ar_kernel.Layout(cluster=16), **kw))
 
 
 def test_the_off_chip_term_at_the_published_widths():
@@ -143,10 +147,6 @@ def test_the_off_chip_term_at_the_published_widths():
     assert round(step) == 56_578_048
 
 
-WIDE_LAYOUT = {"dtype": "float32", "stream": False, "chunk": 64, "fused": 0,
-               "cluster": 16, "wide": True}
-
-
 def test_the_wide_form_is_the_ladders_last_fp32_layout(monkeypatch):
     """The wide form comes after every other fp32 layout, so a model that
     one of them fits keeps it, and before every bf16 one, so "auto" keeps
@@ -154,44 +154,37 @@ def test_the_wide_form_is_the_ladders_last_fp32_layout(monkeypatch):
     kernels' own) it is taken where no other fp32 layout fits, even where
     a bf16 one does, unfused only (decode_layout drops --fused for it);
     on the CPU the plain version needs no such form."""
-    dtypes = [lay[0] for lay in decode.KERNEL_LAYOUTS]
-    wide_at = [lay[3] for lay in decode.KERNEL_LAYOUTS].index(decode.WIDE)
-    assert decode.KERNEL_LAYOUTS[wide_at] == ("float32", False, 64,
-                                              decode.WIDE)
-    assert dtypes[:wide_at + 1] == ["float32"] * (wide_at + 1)
-    assert "float32" not in dtypes[wide_at + 1:]
-    assert [lay[3] for lay in decode.KERNEL_LAYOUTS].count(decode.WIDE) == 1
+    Layout = ar_kernel.Layout
     sd = Config.from_dict(CONFIG["config"]).model
-    assert decode.kernel_layout(sd, "float32", "cpu") == {
-        "dtype": "float32", "stream": False, "chunk": 64, "fused": 0,
-        "cluster": 16}
+    assert ar_kernel.choose_layout(sd, "float32", "cpu") == Layout(
+        cluster=16)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(ar_kernel, "smem_limit", lambda dev: 232448)
     # one SM per row: bf16 fits, fp32 does not (as on an H100 here)
     monkeypatch.setattr(
-        ar_kernel, "smem_bytes", lambda cfg, dtype, stream, chunk, fused:
-        10 ** 6 if dtype == "float32" else 10 ** 5)
+        ar_kernel, "smem_bytes", lambda cfg, lay:
+        10 ** 6 if lay.dtype == "float32" else 10 ** 5)
     other = [0]
 
-    def size(cfg, dtype, dev, fused=0, wide=False):
-        return 16 if wide else other[0]
+    def cluster(cfg, dtype, dev, fused, sizes, wide=False):
+        if not sizes:
+            return None
+        if wide:
+            return WIDE_LAYOUT
+        return Layout(dtype, fused, other[0]) if other[0] else None
 
-    monkeypatch.setattr(ar_kernel, "cluster_size", size)
-    assert decode.kernel_layout(sd, "float32") == WIDE_LAYOUT
-    assert decode.kernel_layout(sd, "auto") == WIDE_LAYOUT
+    monkeypatch.setattr(ar_kernel, "_cluster_layout", cluster)
+    assert ar_kernel.choose_layout(sd, "float32") == WIDE_LAYOUT
+    assert ar_kernel.choose_layout(sd, "auto") == WIDE_LAYOUT
     assert decode.decode_layout(sd) == WIDE_LAYOUT
-    assert decode.kernel_layout(sd, "bfloat16") == {
-        "dtype": "bfloat16", "stream": False, "chunk": 64, "fused": 0,
-        "cluster": 0}
-    with pytest.raises(decode.NoLayoutError):
-        decode.kernel_layout(sd, "float32", fused=4)
+    assert ar_kernel.choose_layout(sd, "bfloat16") == Layout("bfloat16")
+    with pytest.raises(ar_kernel.NoLayoutError):
+        ar_kernel.choose_layout(sd, "float32", fused=4)
     assert decode.decode_layout(sd, "float32", fused=4) == WIDE_LAYOUT
-    with pytest.raises(decode.NoLayoutError):
-        decode.kernel_layout(sd, "float32", cluster=False)
+    with pytest.raises(ar_kernel.NoLayoutError):
+        ar_kernel.choose_layout(sd, "float32", cluster=False)
     other[0] = 8
-    assert decode.kernel_layout(sd, "float32") == {
-        "dtype": "float32", "stream": False, "chunk": 64, "fused": 0,
-        "cluster": 8}
+    assert ar_kernel.choose_layout(sd, "float32") == Layout(cluster=8)
 
 
 def test_the_wide_form_takes_the_largest_size_that_fits(monkeypatch):
@@ -199,36 +192,40 @@ def test_the_wide_form_takes_the_largest_size_that_fits(monkeypatch):
     its size is the largest that fits, though 7 clusters of 16 cover less
     of the card than 15 of 8; a size whose block does not fit, or that the
     form refuses, is skipped (bytes and occupancy stand in for the
-    kernel's own)."""
+    kernel's own; no other layout fits)."""
     sd = Config.from_dict(CONFIG["config"]).model
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda dev: types.SimpleNamespace(
-                            multi_processor_count=132))
-    monkeypatch.setattr(ar_kernel, "smem_limit", lambda dev: 232448)
+                            multi_processor_count=132,
+                            shared_memory_per_block_optin=232448))
+    monkeypatch.setattr(ar_kernel, "smem_bytes", lambda cfg, lay: 10 ** 6)
     smem = {16: 198900, 8: 300000, 4: 200000, 2: 200000}
 
-    def smem_bytes(cfg, dtype, n, res, fused=0, wide=False):
-        assert wide and not res
-        return smem[n]
+    def smem_bytes(cfg, lay):
+        if not lay.wide:
+            return 10 ** 6
+        assert not lay.resident
+        return smem[lay.cluster]
 
     monkeypatch.setattr(ar_kernel, "cluster_smem_bytes", smem_bytes)
-    monkeypatch.setattr(ar_kernel, "max_active_clusters",
-                        lambda cfg, dtype, n, res, dev, fused=0, wide=False:
-                        {16: 7, 8: 15, 4: 30, 2: 60}[n])
-    assert ar_kernel.cluster_size(sd, "float32", wide=True) == 16
+    monkeypatch.setattr(ar_kernel, "clusters_at_once",
+                        lambda cfg, lay, dev=None:
+                        {16: 7, 8: 15, 4: 30, 2: 60}[lay.cluster])
+    assert ar_kernel.choose_layout(sd, "float32") == WIDE_LAYOUT
     smem[16] = 300000
-    assert ar_kernel.cluster_size(sd, "float32", wide=True) == 4
+    assert ar_kernel.choose_layout(sd, "float32") == ar_kernel.Layout(
+        cluster=4, wide=True, resident=False)
 
 
 def test_the_wide_forms_names():
-    assert ar_kernel.variant("float32", False, 0, 16, False,
-                             wide=True) == "ar_cluster[N16,wide]"
-    assert ar_kernel.variant("float32", False, 0, 16, False) \
+    assert WIDE_LAYOUT.name == "ar_cluster[N16,wide]"
+    assert ar_kernel.Layout(cluster=16, resident=False).name \
         == "ar_cluster[N16,l2]"
     # every ring row in shared memory but in the wide form
     sd = Config.from_dict(CONFIG["config"]).model
-    assert ar_kernel.cluster_rings(sd, 16, "float32") == (3069, 0)
+    assert ar_kernel.cluster_rings(sd, ar_kernel.Layout(cluster=16)) == (
+        3069, 0)
     # sass_diff matches a production instance with the wide form's
     # template argument (off) to the parent's, and tells the wide one apart
     old = ("_ZN53_GLOBAL__N__962581f1_20_ar_cluster_parent_cu_77f3002a17ar_"

@@ -1,5 +1,5 @@
 """The AR kernel's streamed-ring and bf16 variants (shallow_wavenet_tpu_torch.
-ops.ar_kernel with stream=True / dtype="bfloat16") against the JAX
+ops.ar_kernel in a Layout with stream=True / dtype="bfloat16") against the JAX
 `generate_pallas` in interpret mode on the CPU, where the port runs its
 plain version: same plain params, conditioning, uniforms and teacher.
 
@@ -147,7 +147,8 @@ def test_segmented_streamed_equals_unsegmented(dtype):
     assert ar_kernel.warmup_length(pcfg, 32) == 256
     B, T, _ = c_up.shape
     c_t, n_t = torch.from_numpy(c_up), torch.from_numpy(_noise((B, T), 14))
-    kw = dict(chunk=32, stream=True, dtype=dtype, device="cpu")
+    kw = dict(layout=ar_kernel.Layout(dtype, stream=True, chunk=32),
+              device="cpu")
     seg = generate_segmented(ppp, pcfg, c_t, n_t, 288, **kw)
     full = ar_kernel.generate(ppp, pcfg, c_t, noise=n_t, **kw)
     torch.testing.assert_close(seg, full, rtol=0, atol=0)

@@ -144,7 +144,7 @@ def test_stream_equals_one_batch_call(head, fused):
     assert c_up.shape == (B, F * hop, cfg.cond_channels)
     batch = ar_kernel.generate(extract_plain_params(model), syn.cfg, c_up,
                                noise=noise, device="cpu",
-                               fused=fused).numpy()
+                               layout=ar_kernel.Layout(fused=fused)).numpy()
     if head == "softmax":
         # the kernel's output is class ids; the elementwise dequantize
         # outside it may round 1 ulp apart on the CPU between tensors of
