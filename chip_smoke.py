@@ -206,8 +206,9 @@ Phases, each printing one JSON line; any failure exits nonzero:
      at 1 and 8 streams, at the card's clusters for the layout
      (clusters_at_once) and at one more (two waves, warned once):
      per steady step wall ms (mean, p95), the launches' CUDA-event ms,
-     the rest and its host split by call, launches per step and the
-     streams' audio-s per wall-s; the first, a middle and the last
+     the rest and its host split by call, launches, upsampler calls
+     per step and windows per call, and the streams' audio-s per wall-s;
+     the first, a middle and the last
      stream equal to standalone sessions to the bit; then a staggered
      open/end scenario over 3 slots, every stream equal to its session,
      at most two launches per step. The cluster kernel's row counts the
@@ -368,6 +369,7 @@ from shallow_wavenet_tpu_torch.data.dataset import (
 )
 from shallow_wavenet_tpu_torch.data.prefetch import GroupSampler
 from shallow_wavenet_tpu_torch.data.synthetic import synth_utterance
+from shallow_wavenet_tpu_torch.models import streaming
 from shallow_wavenet_tpu_torch.models.generate import (
     generate_dp, generate_segmented,
 )
@@ -2468,20 +2470,24 @@ class LaunchTimer:
 
 
 class HostSplit:
-    """Host seconds spent in the stream pool's per-member calls while it
-    is active, by kind: `_next_block` (the haloed window's upsampling),
-    `_prepare_block` (uniforms, their copy, the warm-up's
-    concatenations), `_finish_block` (the history's roll); `take()`
-    returns {kind: ms} since the last take. No synchronization is added:
-    each is the host's time in the call, waits included."""
+    """Host seconds spent in the stream pool's calls while it is active,
+    by kind: `_next_window` (a member's haloed window picked),
+    `upsample_windows` (the step's one upsampler call), `_prepare_block`
+    (uniforms, their copy, the warm-up's concatenations), `_finish_block`
+    (the history's roll); `take()` returns {kind: ms} since the last take.
+    No synchronization is added: each is the host's time in the call,
+    waits included."""
 
-    KINDS = ("_next_block", "_prepare_block", "_finish_block")
+    KINDS = ("_next_window", "upsample_windows", "_prepare_block",
+             "_finish_block")
 
     def __enter__(self):
-        self._orig = {k: getattr(StreamingSynthesizer, k) for k in self.KINDS}
+        owners = {k: streaming if k == "upsample_windows"
+                  else StreamingSynthesizer for k in self.KINDS}
+        self._orig = {k: (o, getattr(o, k)) for k, o in owners.items()}
         self._ms = dict.fromkeys(self.KINDS, 0.0)
-        for k, f in self._orig.items():
-            setattr(StreamingSynthesizer, k, self._timed(k, f))
+        for k, (o, f) in self._orig.items():
+            setattr(o, k, self._timed(k, f))
         return self
 
     def _timed(self, kind, f):
@@ -2498,8 +2504,8 @@ class HostSplit:
         return out
 
     def __exit__(self, *exc):
-        for k, f in self._orig.items():
-            setattr(StreamingSynthesizer, k, f)
+        for k, (o, f) in self._orig.items():
+            setattr(o, k, f)
 
 
 class WarningCount(logging.Handler):
@@ -2564,14 +2570,16 @@ def phase_stream_pool(cfg, model, pp, seed: int, smi: str
             for lo in range(0, STREAM_FRAMES, STREAM_BLOCK):
                 for i, sid in enumerate(sids):
                     pool.push(sid, frames[i, lo:lo + STREAM_BLOCK])
-                d0 = pool.dispatches
+                d0, u0, w0 = (pool.dispatches, pool.upsample_calls,
+                              pool.upsample_windows)
                 split.take()
                 t0 = time.perf_counter()
                 out = pool.step()
                 wall = 1e3 * (time.perf_counter() - t0)
                 splits.append(split.take())
                 steps.append((wall, timer.take(), pool.dispatches - d0,
-                              len(out)))
+                              len(out), pool.upsample_calls - u0,
+                              pool.upsample_windows - w0))
                 for sid, w in out.items():
                     got[sid].append(w)
             for sid in sids:
@@ -2623,6 +2631,9 @@ def phase_stream_pool(cfg, model, pp, seed: int, smi: str
                 "non_kernel_ms_mean": float((wall - kern).mean()),
                 "host_ms_per_step": host,
                 "launches_per_step": float(steady[:, 2].mean()),
+                "upsample_calls_per_step": float(steady[:, 4].mean()),
+                "windows_per_upsample_call": float(
+                    steady[:, 5].sum() / steady[:, 4].sum()),
                 "audio_s_per_wall_s": float(count * block_s * len(steady)
                                             / (wall.sum() / 1e3)),
                 "launches": launched[name]}

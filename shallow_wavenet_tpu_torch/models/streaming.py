@@ -31,9 +31,9 @@ the host path. Block uniforms are drawn as the JAX session draws them,
 the same seed gives the same noise in both packages.
 
 `StreamPool` serves many batch=1 streams that open and end at any time
-with at most two kernel launches per `step()`: each stream's state lives
-in its own session, and the pool batches only the launch (see its
-docstring).
+with one upsampler call and at most two kernel launches per `step()`:
+each stream's state lives in its own session, and the pool batches the
+upsampling and the launch (see its docstring).
 """
 
 from __future__ import annotations
@@ -67,6 +67,46 @@ def upsampler_halo(factors) -> int:
     return r
 
 
+def upsample_windows(model, windows, phase, device, speakers):
+    """Every frame window's sample-rate conditioning, from one upsampler
+    call: the (B_i, F_i, aux) windows stacked row-wise, left-aligned and
+    zero-padded on the right to the longest, copied to `device` at once
+    (their lengths with them), and upsampled with `valid_frames` = each
+    row's own F_i where the lengths differ. Masking after every stage makes
+    a padded row equal its window upsampled alone, and each product is
+    taken per window at the window's own shape (`ConditioningUpsampler`'s
+    `windows`), so a window gets the same bits alone or beside others.
+    phase: the upsampler's phase weights
+    (`ConditioningUpsampler.phase_weights`, made once); speakers: each
+    window's (B_i,) speaker ids or None. Returns each window's
+    (B_i, F_i * hop, C) fp32 rows, views of the call's output."""
+    lens = np.repeat([w.shape[1] for w in windows],
+                     [w.shape[0] for w in windows])
+    rows, longest, aux = len(lens), int(lens.max()), windows[0].shape[2]
+    host = np.zeros(rows * longest * aux + rows, np.float32)
+    frames = host[:-rows].reshape(rows, longest, aux)
+    r = 0
+    for w in windows:
+        frames[r:r + w.shape[0], :w.shape[1]] = w
+        r += w.shape[0]
+    host[-rows:] = lens                  # exact in fp32
+    spk = None
+    if model.cfg.n_speakers > 0 and all(s is not None for s in speakers):
+        spk = torch.cat([torch.as_tensor(s).reshape(-1) for s in speakers])
+    with span("swt.stream.upsample"), torch.no_grad():
+        buf = torch.from_numpy(host).to(device)
+        valid = None if lens.min() == longest else buf[-rows:].long()
+        c_up = model.upsample_cond(
+            buf[:-rows].view(rows, longest, aux), spk, valid, phase,
+            [(w.shape[0], w.shape[1]) for w in windows])
+    hop = c_up.shape[1] // longest
+    out, r = [], 0
+    for w in windows:
+        out.append(c_up[r:r + w.shape[0], :w.shape[1] * hop])
+        r += w.shape[0]
+    return out
+
+
 class StreamingSynthesizer:
     """Incremental vocoder session: push frames, pull waveform samples.
 
@@ -86,7 +126,10 @@ class StreamingSynthesizer:
     the `KernelWeights` made from them for this dtype and fused window on
     `device` (a pool makes them once for all its sessions; their layout is
     then the session's); model: the torch WaveNet on `device` (its
-    upsampler runs per block).
+    upsampler runs once per block, `upsample_windows`); phase: the
+    upsampler's phase weights (`ConditioningUpsampler.phase_weights`), as
+    a pool makes them once for all its sessions; None makes the session's
+    own, once.
     block_frames * hop must be a multiple of `chunk` (a multiple of 32) and
     at least M = warmup_length(cfg, chunk); larger blocks amortize the M
     warm-up steps per call, smaller ones cut latency. Every kernel call
@@ -103,7 +146,8 @@ class StreamingSynthesizer:
     def __init__(self, pp: dict, model, cfg: ModelConfig, hop_length: int,
                  batch: int = 1, block_frames: int = 24, chunk: int = 64,
                  dtype: str = "float32", speaker=None, seed: int = 0,
-                 record_noise: bool = False, fused: int = 0, device=None):
+                 record_noise: bool = False, fused: int = 0, phase=None,
+                 device=None):
         self.model, self.cfg = model, cfg
         self.hop = int(hop_length)
         self.B = int(batch)
@@ -141,6 +185,10 @@ class StreamingSynthesizer:
         # the kernel's weights, made once for every block's call
         self.weights = ar_kernel.kernel_weights(pp, cfg, self.layout,
                                                 self.dev)
+        if phase is None:
+            with torch.no_grad():
+                phase = model.upsampler.phase_weights()
+        self.phase = phase
         self.speaker = speaker
         self._kw = dict(layout=self.layout, dtype=self.layout.dtype,
                         device=self.dev)
@@ -155,19 +203,16 @@ class StreamingSynthesizer:
         self._closed = False
         self.sid = None              # the pool's stream id, for the spans
 
-    def _upsample_block(self, lo: int, hi: int, last: bool):
-        """c_up rows for frames [lo, hi): upsample the haloed window and
-        trim. At the true utterance edges the SAME-conv zero padding is the
-        full utterance's, so there is nothing to trim there."""
-        a = max(lo - self.halo, 0)
-        b = hi if last else hi + self.halo
-        win = self._frames[:, a - self._frames_base:b - self._frames_base]
-        with span("swt.stream.upsample"), torch.no_grad():
-            c_up = self.model.upsample_cond(
-                torch.from_numpy(np.ascontiguousarray(win)).to(self.dev),
-                self.speaker)
-        s = (lo - a) * self.hop
-        return c_up[:, s:s + (hi - lo) * self.hop]
+    def _block_rows(self, c_up, n: int, trim: int):
+        """A window's conditioning (`_next_window`, upsampled) -> the
+        block's rows: the halo trimmed, a partial block padded with zero
+        conditioning to a whole block (as pad_batch_for_decode pads; its
+        samples are trimmed by the caller)."""
+        c_blk = c_up[:, trim:trim + n * self.hop]
+        if n < self.block_frames:
+            c_blk = torch.nn.functional.pad(
+                c_blk, (0, 0, 0, (self.block_frames - n) * self.hop))
+        return c_blk
 
     def _prepare_block(self, c_blk):
         """One block's kernel inputs for this session's rows: (conditioning,
@@ -217,13 +262,16 @@ class StreamingSynthesizer:
             self.weights, self.cfg, c, noise=noise, teacher=teacher,
             warmup=0 if teacher is None else self.M, **self._kw))
 
-    def _next_block(self, last: bool):
-        """The next block ready to synthesize, as (frames, conditioning
-        rows padded to a whole block), or None. Ready: a whole block with
-        the upsampling halo after it; with `last` (the utterance has
-        ended), whatever is left, with the utterance-final upsampler edge,
-        a partial block padded with zero conditioning (as
-        pad_batch_for_decode pads) and trimmed by the caller."""
+    def _next_window(self, last: bool):
+        """The next block ready to synthesize, as (frames n, haloed frame
+        window, trim), or None; nothing is upsampled here. Ready: a whole
+        block with the upsampling halo after it; with `last` (the utterance
+        has ended), whatever is left, a partial block padded by
+        `_block_rows`. The window is the block's frames [lo, hi) with H
+        frames of context on each side, none past the utterance's true
+        edges (there the SAME-conv zero padding is the full utterance's,
+        so there is nothing to trim); trim = the samples of its left
+        context."""
         with span("swt.stream.next_block", id=self.sid):
             if self._frames is None:
                 return None
@@ -233,11 +281,10 @@ class StreamingSynthesizer:
                 return None
             n = min(ready, self.block_frames)
             lo, hi = self._done_frames, self._done_frames + n
-            c_blk = self._upsample_block(lo, hi, last=last and hi == have)
-            if n < self.block_frames:
-                c_blk = torch.nn.functional.pad(
-                    c_blk, (0, 0, 0, (self.block_frames - n) * self.hop))
-            return n, c_blk
+            a = max(lo - self.halo, 0)
+            b = hi if last and hi == have else hi + self.halo
+            win = self._frames[:, a - self._frames_base:b - self._frames_base]
+            return n, win, (lo - a) * self.hop
 
     def _consume(self, n: int) -> None:
         """Mark n more frames synthesized and drop the frames no longer
@@ -258,9 +305,11 @@ class StreamingSynthesizer:
     def _drain(self, last: bool) -> np.ndarray:
         """Synthesize every complete block currently available."""
         pieces = []
-        while (blk := self._next_block(last)) is not None:
-            n, c_blk = blk
-            out = self._generate(c_blk)
+        while (w := self._next_window(last)) is not None:
+            n, win, trim = w
+            (c_up,) = upsample_windows(self.model, [win], self.phase,
+                                       self.dev, [self.speaker])
+            out = self._generate(self._block_rows(c_up, n, trim))
             pieces.append(out[:, :n * self.hop].cpu().numpy())
             self._consume(n)
         if not pieces:
@@ -339,13 +388,17 @@ class StreamPool:
     The design is eager PyTorch's, not a copy of the jitted JAX pool:
     - each stream's state is a batch=1 `StreamingSynthesizer`: its frames,
       its own numpy uniform stream and its warm-start history. The pool
-      makes the kernel weights once and hands them to every session;
+      makes the kernel weights and the upsampler's phase weights once and
+      hands them to every session (serving weights do not change);
     - a step takes from each stream at most one block, the block its
-      session would synthesize next (`_next_block`: a whole block once
+      session would synthesize next (`_next_window`: a whole block once
       the upsampling halo after it has arrived; after `end`, whatever is
-      left, a partial block padded to a whole one), and prepares its rows
-      through the session (`_prepare_block`): the conditioning from the
-      session's own haloed upsampling, its uniforms, and its teacher;
+      left, a partial block padded to a whole one), upsamples every
+      member's haloed window in one call (`upsample_windows`, the
+      function a session runs on its own window, so the rows are the
+      session's to the bit), and prepares each member's rows through its
+      session (`_prepare_block`): that conditioning, its uniforms, and its
+      teacher;
     - the rows of every member go to one `ar_kernel.generate` call per
       phase: the streams' first blocks (no warm-up) in one, the
       warm-started blocks (teacher, `warmup=M`) in the other. The
@@ -366,8 +419,9 @@ class StreamPool:
     products giving a row the same bits at every batch size.
 
     slots: the most streams open at once. `dispatches` counts the
-    launches. device: None means CUDA, and raises without it; "cpu" runs
-    the plain version.
+    launches, `upsample_calls` the upsampler calls (one a step with a
+    block ready) and `upsample_windows` the windows they took. device:
+    None means CUDA, and raises without it; "cpu" runs the plain version.
     """
 
     def __init__(self, pp: dict, model, cfg: ModelConfig, hop_length: int,
@@ -386,10 +440,12 @@ class StreamPool:
             record_noise=record_noise, device=self.dev)
         self.weights = ar_kernel.kernel_weights(pp, cfg, self.layout,
                                                 self.dev)
+        with torch.no_grad():
+            self.phase = model.upsampler.phase_weights()
         # a session checks the block geometry (chunk, M, halo) and refuses
         # a layout it cannot run up front
         probe = StreamingSynthesizer(self.weights, model, cfg,
-                                     **self._session_kw)
+                                     phase=self.phase, **self._session_kw)
         self.hop, self.M, self.halo = probe.hop, probe.M, probe.halo
         self._kw = probe._kw
         self._sessions: dict[int, StreamingSynthesizer] = {}
@@ -398,6 +454,8 @@ class StreamPool:
         self._at_once = None
         self._warned = False
         self.dispatches = 0
+        self.upsample_calls = 0
+        self.upsample_windows = 0
         self._steps = 0
 
     # ---- lifecycle -------------------------------------------------------
@@ -409,7 +467,7 @@ class StreamPool:
         sid = self._next_id
         self._next_id += 1
         self._sessions[sid] = StreamingSynthesizer(
-            self.weights, self.model, self.cfg, seed=seed,
+            self.weights, self.model, self.cfg, seed=seed, phase=self.phase,
             **self._session_kw)
         self._sessions[sid].sid = sid
         return sid
@@ -467,17 +525,28 @@ class StreamPool:
 
     def step(self) -> dict[int, np.ndarray]:
         """One synthesis cycle: every stream with a block ready gets it
-        synthesized, in at most two launches (first blocks; warm-started
-        blocks). Returns {sid: (k,) float32 samples} for the streams that
-        emitted; an ended stream with nothing left is closed and its slot
-        freed."""
+        synthesized, its conditioning in one upsampler call for all of
+        them and its samples in at most two launches (first blocks;
+        warm-started blocks). Returns {sid: (k,) float32 samples} for the
+        streams that emitted; an ended stream with nothing left is closed
+        and its slot freed."""
         self._steps += 1
         with span("swt.pool.step", id=self._steps):
-            phases = ([], [])
+            ready = []
             for sid, s in sorted(self._sessions.items()):
-                blk = s._next_block(last=sid in self._ended)
-                if blk is not None:
-                    phases[s._hist is not None].append((sid, *blk))
+                w = s._next_window(last=sid in self._ended)
+                if w is not None:
+                    ready.append((sid, s, *w))
+            phases = ([], [])
+            if ready:
+                c_ups = upsample_windows(
+                    self.model, [r[3] for r in ready], self.phase, self.dev,
+                    [r[1].speaker for r in ready])
+                self.upsample_calls += 1
+                self.upsample_windows += len(ready)
+                for (sid, s, n, _, trim), c_up in zip(ready, c_ups):
+                    phases[s._hist is not None].append(
+                        (sid, n, s._block_rows(c_up, n, trim)))
             out = {}
             for members in phases:
                 if members:

@@ -32,9 +32,24 @@ def _dtype(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
-def _dot(x, w, dt):
-    """x @ w with both inputs rounded to `dt`, products summed in fp32."""
-    return torch.matmul(x.to(dt).float(), w.to(dt).float())
+def _dot(x, w, dt, groups=None):
+    """x @ w with both inputs rounded to `dt`, products summed in fp32.
+
+    groups: ((rows, n), ...), the windows stacked along x's first axis, each
+    `rows` rows whose first n positions are its own: each window's product
+    is taken alone at its own shape, because a library GEMM sums in an
+    order that depends on the shape (on the H100 a window's rows come out
+    other bits inside a product of several), and positions past n are zero.
+    One group is the whole product."""
+    x, w = x.to(dt).float(), w.to(dt).float()
+    if groups is None or len(groups) == 1:
+        return torch.matmul(x, w)
+    y = x.new_zeros(x.shape[:-1] + w.shape[-1:])
+    r = 0
+    for rows, n in groups:
+        y[r:r + rows, :n] = torch.matmul(x[r:r + rows, :n], w)
+        r += rows
+    return y
 
 
 def _sigmoid(x):
@@ -91,8 +106,8 @@ class Dense1x1(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(c_in, features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-    def forward(self, x):
-        y = _dot(x, self.kernel, self.dtype)
+    def forward(self, x, groups=None):
+        y = _dot(x, self.kernel, self.dtype, groups)
         if self.bias is not None:
             y = y + self.bias
         return y.to(self.dtype)
@@ -160,11 +175,14 @@ class RepeatSmoothStage(nn.Module):
         w2 = torch.stack([torch.stack(row) for row in a])   # (3, f, C, ch)
         return w2.permute(0, 2, 1, 3).reshape(3 * c_in, f * ch)
 
-    def forward(self, c):
+    def forward(self, c, w=None, groups=None):
+        """w: this stage's `phase_weights()`, made beforehand; None builds
+        them here. groups: as `_dot`'s, in c's frames."""
         b_sz, n_fr, _ = c.shape
         cp = nn.functional.pad(c, (0, 0, 1, 1))   # conv SAME zero pad
         nb = torch.cat([cp[:, :-2], cp[:, 1:-1], cp[:, 2:]], dim=-1)
-        y = _dot(nb, self.phase_weights(), self.dtype)
+        y = _dot(nb, self.phase_weights() if w is None else w, self.dtype,
+                 groups)
         y = y.reshape(b_sz, n_fr * self.factor, -1) + self.bias
         return y.to(self.dtype)
 
@@ -173,7 +191,14 @@ class ConditioningUpsampler(nn.Module):
     """Frame-rate features -> sample-rate conditioning: 1x1 projection, then
     per-stage repeat + smoothing (RepeatSmoothStage), leaky-ReLU after each.
     `valid` (B,) zeroes each row past its own length after every stage,
-    which equals upsampling a row that truly ends there."""
+    which equals upsampling a row that truly ends there. `phase`: every
+    stage's phase weights (`phase_weights()`), made once by a caller whose
+    weights stay fixed (serving); without them each call builds them
+    (hundreds of small ops at config 2's factors), as training needs.
+    `windows`: ((rows, frames), ...), the windows stacked in c (each
+    right-padded, with `valid` its frames): every product is taken per
+    window at the window's own shape (`_dot`), so a window gets the bits it
+    gets upsampled alone, and all else runs once over the stack."""
 
     def __init__(self, factors, aux_channels: int, channels: int,
                  dtype=torch.float32):
@@ -184,7 +209,19 @@ class ConditioningUpsampler(nn.Module):
             self.add_module(f"smooth{si}",
                             RepeatSmoothStage(f, channels, channels, dtype))
 
-    def forward(self, c, valid=None):
+    def stages(self):
+        return [getattr(self, f"smooth{si}")
+                for si in range(len(self.factors))]
+
+    def phase_weights(self):
+        """Every stage's `phase_weights()`, for `forward(phase=)`."""
+        return tuple(stage.phase_weights() for stage in self.stages())
+
+    def forward(self, c, valid=None, phase=None, windows=None):
+        def groups(rate):
+            return (None if windows is None
+                    else [(rows, frames * rate) for rows, frames in windows])
+
         def mask(x, rate):
             if valid is None:
                 return x
@@ -193,11 +230,11 @@ class ConditioningUpsampler(nn.Module):
             return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
                                                     device=x.device))
 
-        c = mask(_leaky_relu(self.proj(c)), 1)
+        c = mask(_leaky_relu(self.proj(c, groups(1))), 1)
         rate = 1
-        for si, f in enumerate(self.factors):
-            c = getattr(self, f"smooth{si}")(c)
-            rate *= f
+        for si, stage in enumerate(self.stages()):
+            c = stage(c, None if phase is None else phase[si], groups(rate))
+            rate *= stage.factor
             c = mask(_leaky_relu(c), rate)
         return c
 
@@ -262,11 +299,15 @@ class WaveNet(nn.Module):
         out = torch.relu(self.head1(out))
         return self.head2(out).float()
 
-    def upsample_cond(self, cond, speaker=None, valid_frames=None):
+    def upsample_cond(self, cond, speaker=None, valid_frames=None,
+                      phase=None, windows=None):
         """Sample-rate conditioning (B, F*hop, C) fp32, precomputed before AR
-        generation. valid_frames: optional (B,) valid input-frame counts."""
+        generation. valid_frames: optional (B,) valid input-frame counts;
+        phase: the upsampler's phase weights, made once
+        (`ConditioningUpsampler.phase_weights`), or None; windows: the
+        stacked windows' (rows, frames), or None (`ConditioningUpsampler`)."""
         cfg = self.cfg
-        c_up = self.upsampler(cond, valid_frames)
+        c_up = self.upsampler(cond, valid_frames, phase, windows)
         if cfg.n_speakers > 0:
             if speaker is None:
                 raise ValueError("speaker ids required when n_speakers > 0")

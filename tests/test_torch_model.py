@@ -122,6 +122,79 @@ def test_forward_matches_flax_bf16(head):
         assert np.abs(a32 - b).max() > 100 * 1e-5
 
 
+def _upsampler_setup(compute_dtype, F=7, seed=8):
+    cfg = tiny_cfg(upsample_factors=(2, 3, 2), compute_dtype=compute_dtype)
+    m, v, _, c = _setup(cfg, B=3, F=F, seed=seed)
+    return cfg, port_model(cfg, v), _t(c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prebuilt_phase_weights_are_each_stages(dtype):
+    """ConditioningUpsampler.phase_weights() gives every stage's
+    phase_weights(), to the bit, in stage order."""
+    _, pm, _ = _upsampler_setup(dtype)
+    up = pm.upsampler
+    with torch.no_grad():
+        got = up.phase_weights()
+        want = [getattr(up, f"smooth{i}").phase_weights()
+                for i in range(len(up.factors))]
+    assert len(got) == len(want) == 3
+    for g, w, f in zip(got, want, up.factors):
+        assert g.shape == (3 * 12, f * 12)
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("valid", [None, [7, 4, 1]])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_upsampler_with_prebuilt_phase_weights(dtype, valid):
+    """forward with the phase weights made once gives the outputs of
+    forward building them, to the bit, with `valid` set and unset."""
+    cfg, pm, c = _upsampler_setup(dtype)
+    valid = None if valid is None else torch.tensor(valid)
+    with torch.no_grad():
+        phase = pm.upsampler.phase_weights()
+        want = pm.upsample_cond(c, valid_frames=valid)
+        got = pm.upsample_cond(c, valid_frames=valid, phase=phase)
+        assert torch.equal(got, want)
+        assert torch.equal(pm.upsampler(c, valid, phase),
+                           pm.upsampler(c, valid))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_right_padded_window_equals_the_window(dtype, monkeypatch):
+    """Windows right-padded to the longest (padding of any value) and
+    upsampled in one call with `valid` = their own lengths and `windows`
+    give each unpadded window's rows to the bit, and zeros past them;
+    every product is taken per window, at the window's own shape."""
+    cfg, pm, c = _upsampler_setup(dtype, F=9)
+    hop = int(np.prod(cfg.upsample_factors))
+    rng = np.random.default_rng(3)
+    lens = [9, 6, 1]
+    padded = c.clone()
+    for i, n in enumerate(lens):
+        padded[i, n:] = torch.from_numpy(rng.standard_normal(
+            (9 - n, cfg.aux_channels)).astype(np.float32))
+    shapes = []
+    matmul = torch.matmul
+
+    def recorded(x, w):
+        shapes.append(tuple(x.shape[:2]))
+        return matmul(x, w)
+
+    with torch.no_grad():
+        phase = pm.upsampler.phase_weights()
+        monkeypatch.setattr(torch, "matmul", recorded)
+        got = pm.upsample_cond(padded, valid_frames=torch.tensor(lens),
+                               phase=phase, windows=[(1, n) for n in lens])
+        monkeypatch.undo()
+        rates = np.cumprod((1,) + cfg.upsample_factors[:-1])
+        assert shapes == [(1, n * r) for r in (1, *rates) for n in lens]
+        for i, n in enumerate(lens):
+            alone = pm.upsample_cond(c[i:i + 1, :n])
+            assert torch.equal(got[i:i + 1, :n * hop], alone)
+            assert not got[i, n * hop:].any()
+
+
 def test_extract_plain_params_matches_flax():
     for head in ("laplace", "softmax"):
         cfg = tiny_cfg(head=head)

@@ -174,11 +174,9 @@ def test_pool_step_spans(setup):
         assert sorted(s["id"] for s in under(name)) == sids
         assert {at[s["parent"]]["name"] for s in under(name)} \
             == {"swt.pool.step"}
-    ups = under("swt.stream.upsample")
-    assert len(ups) == len(sids)
-    assert sorted(at[s["parent"]]["id"] for s in ups) == sids
-    assert {at[s["parent"]]["name"] for s in ups} \
-        == {"swt.stream.next_block"}
+    # one upsampler call for every member's window, under the step
+    (up,) = under("swt.stream.upsample")
+    assert up["parent"] == step["index"]
     (launch,) = under("swt.pool.launch")
     assert launch["id"] == 0 and launch["parent"] == step["index"]
     for name in ("swt.pool.copy_back", "swt.pool.finish"):
@@ -221,7 +219,7 @@ def test_maybe_profile_trace_and_summary(setup, tmp_path):
     for name, e in summary.items():
         assert e["count"] >= 1
         assert 0 <= e["self_ms"] <= e["total_ms"] + 1e-9, name
-    assert summary["swt.stream.upsample"]["count"] == 2
+    assert summary["swt.stream.upsample"]["count"] == 1
     # every span's time is its own or its parent's: the self times add
     # up to the roots' totals
     roots = summary["swt.decode.batch"]["total_ms"] \

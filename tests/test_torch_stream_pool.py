@@ -6,7 +6,9 @@ the fused window.
 
 Each pooled stream is held against a standalone batch=1 port session with
 the same seed fed the same frames: the pool's rows are the sessions' own
-(conditioning, uniforms, teacher). Where every launch has one row, to the
+(conditioning, uniforms, teacher). A step upsamples every member's haloed
+window in one call, each window's products at its own shape, so each
+member's conditioning equals its window upsampled alone, to the bit. Where every launch has one row, to the
 bit. Where streams share a launch, at atol TOL_ROWS = 1e-6: the plain
 version's products of one row and of k rows go through different CPU GEMM
 paths (a matrix-vector product against a matrix product), which may round
@@ -240,6 +242,87 @@ def test_pooled_stream_matches_jax_batch_call():
         jax_plain(v, cfg), cfg, jnp.asarray(c_up.numpy()),
         noise=jnp.asarray(noise.numpy()), chunk=64, interpret=True))
     assert_same_samples(cfg, wav[None], jbatch)
+
+
+@pytest.mark.parametrize("k", [1, 3, 5])
+def test_one_upsampler_call_a_step(k, monkeypatch):
+    """A step over k members upsamples every member's haloed window in
+    one upsampler call (counted by `upsample_calls`, `upsample_windows`),
+    whatever the mix of first and warm-started blocks."""
+    cfg, m, v, model, _, hop = _setup("laplace", F=4)
+    fr = _frames(cfg, {i: 3 * BLOCK for i in range(k)}, 13)
+    pool = _pool(model, cfg, hop, slots=k)
+    sids = [pool.open(seed=i) for i in range(k)]
+    calls = []
+    real = model.upsample_cond
+
+    def counted(cond, *a, **kw):
+        calls.append(tuple(cond.shape))
+        return real(cond, *a, **kw)
+
+    monkeypatch.setattr(model, "upsample_cond", counted)
+    for i, sid in enumerate(sids):       # the first stream one block ahead
+        pool.push(sid, fr[i][:2 * BLOCK + 2 if i == 0 else BLOCK + 2])
+    assert len(pool.step()) == k
+    assert (pool.upsample_calls, pool.upsample_windows) == (1, k)
+    assert calls == [(k, BLOCK + 2, cfg.aux_channels)]
+    for i, sid in enumerate(sids):
+        pool.push(sid, fr[i][2 * BLOCK + 2 if i == 0 else BLOCK + 2:])
+        pool.end(sid)
+    steps = 1
+    while pool.active:
+        before = pool.upsample_windows
+        emitted = pool.step()
+        steps += bool(emitted)
+        assert pool.upsample_windows - before == len(emitted)
+    assert pool.upsample_calls == len(calls) == steps
+    assert pool.upsample_windows == 3 * k
+
+
+def test_mixed_step_gives_each_member_its_windows_rows(monkeypatch):
+    """One step over a first block, a middle block and a short tail block
+    (windows of 34, 36 and 9 frames, one upsampler call): each member's
+    conditioning rows equal, to the bit, its session's single haloed
+    window upsampled alone (the model's `upsample_cond` on that window,
+    trimmed and padded to a whole block)."""
+    cfg, m, v, model, _, hop = _setup("laplace", F=4,
+                                      compute_dtype="bfloat16")
+    fr = _frames(cfg, {"mid": 2 * BLOCK + 2, "first": BLOCK + 2,
+                       "tail": BLOCK + 7}, 17)
+    pool = _pool(model, cfg, hop, slots=3)
+    sid = {"mid": pool.open(seed=1), "tail": pool.open(seed=2)}
+    for k in sid:
+        pool.push(sid[k], fr[k])
+    pool.end(sid["tail"])
+    assert set(pool.step()) == set(sid.values())     # both first blocks
+    sid["first"] = pool.open(seed=3)
+    pool.push(sid["first"], fr["first"])
+    want = {}
+    for k, i in sid.items():
+        s = pool.session(i)
+        n, win, trim = s._next_window(last=k == "tail")
+        with torch.no_grad():
+            c_up = model.upsample_cond(torch.from_numpy(win.copy()))
+        c_up = c_up[:, trim:trim + n * hop]
+        want[i] = torch.nn.functional.pad(
+            c_up, (0, 0, 0, BLOCK * hop - c_up.shape[1]))
+        assert win.shape[1] == {"mid": BLOCK + 4, "first": BLOCK + 2,
+                                "tail": 9}[k]
+    got = {}
+    prepare = StreamingSynthesizer._prepare_block
+
+    def record(self, c_blk):
+        got[self.sid] = c_blk
+        return prepare(self, c_blk)
+
+    monkeypatch.setattr(StreamingSynthesizer, "_prepare_block", record)
+    calls = (pool.upsample_calls, pool.upsample_windows)
+    assert set(pool.step()) == set(sid.values())
+    assert (pool.upsample_calls, pool.upsample_windows) == (
+        calls[0] + 1, calls[1] + 3)
+    assert pool.dispatches == 3                      # first | warm-started
+    for i in sid.values():
+        assert torch.equal(got[i], want[i])
 
 
 def test_pool_lifecycle_errors():
